@@ -1,0 +1,73 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here is marked `cuda` and skips without a CUDA device.  The file
+imports no JAX, so it also runs on a machine without it:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(`--noconftest`: tests/conftest.py sets up JAX for the other test files.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_pathtracer_torch.ops.kernels import denoise as kdenoise
+from tpu_pathtracer_torch.ops.kernels import mt_shade
+from tpu_pathtracer_torch.ops.mt_matmul import ray_features
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _soup(rng, n, spread=0.1):
+    v0 = rng.uniform(-1, 1, (n, 3))
+    e = rng.uniform(-spread, spread, (n, 2, 3))
+    return np.concatenate([v0, v0 + e[:, 0], v0 + e[:, 1]], axis=1).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tris,n_rays,tile_rays", [
+    (2000, 40000, None),   # default 512-ray tiles
+    (700, 1300, 384),      # a partial tile, non-power-of-two tile width
+    (5000, 300000, 512),   # > 512 tiles: the tile widens to 1024 rays
+])
+def test_mt_kernel_matches_plain_bit_for_bit(cuda, n_tris, n_rays, tile_rays):
+    rng = np.random.default_rng(n_tris)
+    tri = torch.from_numpy(_soup(rng, n_tris)).to(cuda)
+    ro = rng.uniform(-1, 1, (n_rays, 3)).astype(np.float32)
+    rd = rng.normal(size=(n_rays, 3))
+    rd = (rd / np.linalg.norm(rd, axis=1, keepdims=True)).astype(np.float32)
+    park = (np.arange(n_rays) % 7 == 0)[:, None]
+    ro = np.where(park, np.float32(1e30), ro).astype(np.float32)
+    rd = np.where(park, np.float32(0.0), rd).astype(np.float32)
+    phi_t = ray_features(torch.from_numpy(ro), torch.from_numpy(rd)).T.contiguous().to(cuda)
+    before = mt_shade.mt_intersect_nf_phi.launches
+    hk = mt_shade.mt_intersect_nf_phi(tri, phi_t, tile_rays=tile_rays)
+    assert mt_shade.mt_intersect_nf_phi.launches == before + 1
+    hp = mt_shade.mt_intersect_nf_phi_plain(tri, phi_t, tile_rays=tile_rays)
+    assert int(hk.hit.sum()) > 0 and not hk.hit[torch.from_numpy(park[:, 0]).to(cuda)].any()
+    for a, b in zip(hk, hp):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_mt_kernel_empty_scene_launches_nothing(cuda):
+    phi_t = torch.ones((10, 64), device=cuda)
+    before = mt_shade.mt_intersect_nf_phi.launches
+    h = mt_shade.mt_intersect_nf_phi(torch.zeros((0, 9), device=cuda), phi_t)
+    assert not h.hit.any() and mt_shade.mt_intersect_nf_phi.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(512, 512), (300, 517), (7, 3)])
+def test_denoise_kernel_matches_plain(cuda, hw):
+    img = torch.from_numpy(np.random.default_rng(sum(hw)).random(hw + (3,), np.float32)).to(cuda)
+    before = kdenoise.smart_denoise.launches
+    out = kdenoise.smart_denoise(img)
+    assert kdenoise.smart_denoise.launches == before + 1
+    torch.testing.assert_close(out, kdenoise.smart_denoise_plain(img), atol=2e-5, rtol=1e-4)

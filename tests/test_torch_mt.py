@@ -1,0 +1,148 @@
+"""Port parity: the MT oracle and the near-to-far MT kernel's plain version.
+
+Random triangle soups and rays, made with numpy, go through the JAX XLA
+oracle (`mt_intersect`), the JAX Pallas kernel in interpret mode
+(`mt_intersect_pallas2_phi`, cull='nf', sub=64) and the port.  Tolerances are
+`tests/test_mt_shade.py::assert_hit_parity`'s: equal hit masks and
+triangles, t within rtol 5e-5, u/v within rtol 1e-3.  The CUDA kernel
+itself is compared with the plain version in tests/test_torch_cuda.py and
+chip_smoke.py, on a machine with a card."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_pathtracer.ops.mt_matmul import mt_intersect as j_mt_intersect
+from tpu_pathtracer.ops.mt_matmul import ray_features as j_ray_features
+from tpu_pathtracer.ops.mt_matmul import triangle_columns as j_triangle_columns
+from tpu_pathtracer.ops.pallas.mt_intersect import _pad_to as j_pad_to
+from tpu_pathtracer.ops.pallas.mt_intersect import treelet_boxes as j_treelet_boxes
+from tpu_pathtracer.ops.pallas.mt_shade import _pack_subblock_major as j_pack
+from tpu_pathtracer.ops.pallas.mt_shade import _precull_live_subs as j_precull
+from tpu_pathtracer.ops.pallas.mt_shade import mt_intersect_pallas2_phi
+from tpu_pathtracer_torch.ops.kernels import mt_shade
+from tpu_pathtracer_torch.ops.mt_matmul import mt_intersect, ray_features, triangle_columns
+
+
+def random_soup(rng, n, spread=0.2):
+    v0 = rng.uniform(-1, 1, (n, 3))
+    e = rng.uniform(-spread, spread, (n, 2, 3))
+    return np.concatenate([v0, v0 + e[:, 0], v0 + e[:, 1]], axis=1).astype(np.float32)
+
+
+def random_rays(rng, r, park_every=0):
+    ro = rng.uniform(-1, 1, (r, 3)).astype(np.float32)
+    rd = rng.normal(size=(r, 3))
+    rd = (rd / np.linalg.norm(rd, axis=1, keepdims=True)).astype(np.float32)
+    if park_every:
+        park = (np.arange(r) % park_every == 0)[:, None]
+        ro = np.where(park, np.float32(1e30), ro).astype(np.float32)
+        rd = np.where(park, np.float32(0.0), rd).astype(np.float32)
+    return ro, rd
+
+
+def assert_hit_parity(ha, hb, min_hits=50):
+    """ha: JAX Hit; hb: port Hit (torch)."""
+    hb = [x.numpy() for x in hb]
+    np.testing.assert_array_equal(hb[0], np.asarray(ha.hit))
+    m = np.asarray(ha.hit)
+    assert m.sum() >= min_hits
+    np.testing.assert_array_equal(hb[2][m], np.asarray(ha.tri)[m])
+    np.testing.assert_allclose(hb[1][m], np.asarray(ha.t)[m], rtol=5e-5, atol=1e-6)
+    np.testing.assert_allclose(hb[3][m], np.asarray(ha.u)[m], rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(hb[4][m], np.asarray(ha.v)[m], rtol=1e-3, atol=1e-4)
+
+
+def _port_nf(tri, ro, rd):
+    phi_t = ray_features(torch.from_numpy(ro), torch.from_numpy(rd)).T.contiguous()
+    return mt_shade.mt_intersect_nf_phi(torch.from_numpy(tri), phi_t)
+
+
+def test_oracle_matches_jax_mt_intersect():
+    rng = np.random.default_rng(5)
+    tri = random_soup(rng, 700)
+    ro, rd = random_rays(rng, 1300)
+    ha = j_mt_intersect(jnp.asarray(tri), jnp.asarray(ro), jnp.asarray(rd))
+    hb = mt_intersect(torch.from_numpy(tri), torch.from_numpy(ro), torch.from_numpy(rd),
+                      chunk=256, ray_chunk=512)
+    assert_hit_parity(ha, hb)
+
+
+def test_triangle_columns_and_packing_match_jax():
+    tri = random_soup(np.random.default_rng(1), 256)
+    jc = j_triangle_columns(jnp.asarray(tri))
+    tc = triangle_columns(torch.from_numpy(tri))
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(mt_shade._pack_subblock_major(tc, 64).numpy(),
+                                  np.asarray(j_pack(jnp.asarray(tc.numpy()), 64)))
+    np.testing.assert_array_equal(mt_shade.treelet_boxes(torch.from_numpy(tri), 64).numpy(),
+                                  np.asarray(j_treelet_boxes(jnp.asarray(tri), 64)))
+
+
+@pytest.mark.parametrize("n_tris,n_rays,park_every,seed", [
+    (700, 1300, 0, 5),   # unaligned counts: triangle and ray padding
+    (300, 600, 3, 6),    # parked rays interleaved
+    (500, 900, 4, 11),   # the cull-mode soup of tests/test_mt_shade.py
+])
+def test_nf_plain_matches_pallas_interpret(n_tris, n_rays, park_every, seed):
+    rng = np.random.default_rng(seed)
+    tri = random_soup(rng, n_tris)
+    ro, rd = random_rays(rng, n_rays, park_every)
+    phi_t = j_ray_features(jnp.asarray(ro), jnp.asarray(rd)).T
+    ha = mt_intersect_pallas2_phi(jnp.asarray(tri), phi_t, interpret=True, cull="nf",
+                                  sub=64, tile_rays=512)
+    hb = _port_nf(tri, ro, rd)
+    if park_every:
+        assert not hb.hit.numpy()[::park_every].any()
+    assert_hit_parity(ha, hb, min_hits=30)
+    # and the oracle agrees on the same inputs
+    assert_hit_parity(j_mt_intersect(jnp.asarray(tri), jnp.asarray(ro), jnp.asarray(rd)),
+                      hb, min_hits=30)
+
+
+def test_nf_plain_empty_scene_misses():
+    ro, rd = random_rays(np.random.default_rng(7), 64)
+    h = _port_nf(np.zeros((0, 9), np.float32), ro, rd)
+    assert not h.hit.any() and (h.tri == -1).all()
+
+
+def test_precull_live_sets_match_jax():
+    rng = np.random.default_rng(9)
+    tri = random_soup(rng, 500)
+    ro, rd = random_rays(rng, 1024, park_every=5)
+    phi = np.asarray(j_ray_features(jnp.asarray(ro), jnp.asarray(rd))).T  # (10, R)
+    tri_p = np.asarray(j_pad_to(jnp.asarray(tri), 512, 0))
+    boxes = np.asarray(j_treelet_boxes(jnp.asarray(tri_p), 64))
+    jc, jl, je = (np.asarray(x) for x in j_precull(jnp.asarray(boxes), jnp.asarray(phi), 256))
+    tc, tl, te = (x.numpy() for x in mt_shade._precull_live_subs(
+        torch.from_numpy(boxes.copy()), torch.from_numpy(phi.copy()), 256))
+    np.testing.assert_array_equal(tc, jc[:, 0])
+    assert tc.sum() > 0
+    for t in range(tc.shape[0]):
+        np.testing.assert_array_equal(tl[t, :tc[t]], jl[t, :jc[t, 0]])
+        np.testing.assert_array_equal(te[t, :tc[t]], je[t, :jc[t, 0]])
+
+
+def test_tile_widening_and_padding_contract():
+    rng = np.random.default_rng(12)
+    tri = random_soup(rng, 130)  # pads to 256 rows, 4 subs
+    ro, rd = random_rays(rng, 1000)
+    phi_t = ray_features(torch.from_numpy(ro), torch.from_numpy(rd)).T.contiguous()
+    phi_pad, cols_rows, counts, lists, emins, tile_rays = mt_shade._prepare(
+        torch.from_numpy(tri), phi_t, 128)
+    assert tile_rays == 128 and phi_pad.shape == (10, 1024) and cols_rows.shape == (1024, 10)
+    assert (phi_pad[:, 1000:] == np.float32(1e30)).all()
+    assert lists.shape == (8, 4) and counts.shape == (8,)
+    with pytest.raises(ValueError):
+        mt_shade._tile_rays(100)
+    # more than 512 tiles widen the tile
+    big = torch.zeros((10, 512 * 128 + 1))
+    assert mt_shade._prepare(torch.from_numpy(tri), big, 128)[-1] == 256
+
+
+def test_oversized_scene_raises():
+    tri = torch.zeros((8193, 9))
+    with pytest.raises(NotImplementedError):
+        mt_shade.mt_intersect_nf_phi(tri, torch.zeros((10, 8)))
+

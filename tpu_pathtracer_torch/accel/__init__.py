@@ -1,0 +1,1 @@
+"""accel layer of the port (see the package docstring)."""

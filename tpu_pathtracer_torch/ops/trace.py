@@ -1,0 +1,338 @@
+"""The fused path-trace loop and whole-frame rendering.
+
+The port of the fused branch of `tpu_pathtracer.ops.trace`
+(`render_frame` -> `trace_rays_fused`), the path every frame of the default
+scene takes.  Per-ray math and RNG streams follow the reference's single
+compute kernel (reference: src/passes/shaders/raytrace.wgsl:373-478):
+
+  * per bounce: ray features -> near-to-far MT kernel -> `bounce_shade_t`
+    (cosine-hemisphere diffuse or mirror specular chosen with probability
+    metalness, blended by roughness without renormalising; throughput
+    *= mix(color, specular_color, is_specular); emission added on hits);
+  * vector state is component-major, (3, R);
+  * after each of the first `sort_bounces` bounces the ray state is
+    re-binned by a coherence key (nearest live treelet, live count,
+    direction bin), so rays sharing a kernel tile share work; one global
+    sort (the JAX package's windowed sort is a TPU tuning not ported);
+  * the environment term of rays that missed is added once after the loop
+    (a miss is always a ray's last event), and the caller's ray order is
+    restored by scattering on the carried pixel index.
+
+Terminated rays are parked at ro = 1e30, rd = 0 before intersection, which
+the kernel treats as lanes that never hit.  The bounce loop leaves early
+once no ray is active (a host check per bounce).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import camera as camera_ops
+from . import envsample, rng
+from .kernels.mt_shade import (
+    CHUNK_TRIS,
+    MT_SHADE_MAX_TRIS,
+    _pad_to,
+    _slab_entries,
+    _slab_setup,
+    mt_intersect_nf_phi,
+    mt_intersect_nf_phi_plain,
+    treelet_boxes,
+)
+from .vecmath import INF, mix
+
+_JAX_INTERSECTORS = ("mt", "mt_stream", "bvh", "bvh8")
+_SORT_BOUNCES = 2  # leading bounces that re-bin the ray state
+_DIR_BINS = 96  # 6 dominant-axis half-spaces x 4x4 quantized minor axes
+_KEY_SENTINEL = 2**31 - 1  # coherence key of inactive rays: sorts last
+
+
+def resolve_intersector(intersector: str, n_tris: int) -> str:
+    """'auto' and 'mt_pallas' both resolve to the near-to-far MT kernel path
+    on every device (on the CPU that path runs the kernel's plain version).
+    The other intersectors of the JAX package, and scenes past the kernel's
+    8192-triangle size, are not ported yet."""
+    if intersector in _JAX_INTERSECTORS:
+        raise NotImplementedError(
+            f"intersector {intersector!r} is not ported yet; use 'auto' (ROADMAP.md)")
+    if intersector not in ("auto", "mt_pallas"):
+        raise ValueError(f"unknown intersector {intersector!r}")
+    if n_tris > MT_SHADE_MAX_TRIS:
+        raise NotImplementedError(
+            f"scenes above {MT_SHADE_MAX_TRIS} padded triangles need the streamed MT "
+            "kernel, which is not ported yet (ROADMAP.md, TPU kernels)")
+    return "mt_pallas"
+
+
+def pack_material_rows(materials):
+    """Material SoA -> (M, 12) rows [color(3), specular_color(3),
+    emission_color(3), roughness, metalness, emission_strength]."""
+    return torch.cat(
+        [
+            materials.color,
+            materials.specular_color,
+            materials.emission_color,
+            materials.roughness[:, None],
+            materials.metalness[:, None],
+            materials.emission_strength[:, None],
+        ],
+        dim=1,
+    )
+
+
+def pack_shade_material_rows(scene):
+    """Per-triangle shading row joined with its material row: (N, 21) =
+    [n0(3), n1(3), n2(3), material row(12)], one gather per bounce."""
+    mat_rows = pack_material_rows(scene.materials)
+    mat_idx = scene.packed.tri_shade[:, 9].contiguous().view(torch.int32)
+    tri_mat = mat_rows[mat_idx.clamp(0, mat_rows.shape[0] - 1).long()]
+    return torch.cat([scene.packed.tri_shade[:, 0:9], tri_mat], dim=1)
+
+
+# --- component-major helpers: (3, R) / (C, R) state ---------------------
+
+
+def _normalize_t(v):
+    return v / torch.sqrt(torch.sum(v * v, dim=0, keepdim=True))
+
+
+def _reflect_t(d, n):
+    dn = torch.sum(d * n, dim=0)
+    return d - 2.0 * dn[None, :] * n
+
+
+def _rand_direction_t(seed):
+    seed, x = rng.rand_normal(seed)
+    seed, y = rng.rand_normal(seed)
+    seed, z = rng.rand_normal(seed)
+    return seed, _normalize_t(torch.stack([x, y, z], dim=0))
+
+
+def _rand_cosine_hemisphere_t(seed, normal):
+    seed, d = _rand_direction_t(seed)
+    return seed, _normalize_t(normal + d)
+
+
+def _ray_features_t(ro, rd):
+    """phi(ray) component-major: (3, R), (3, R) -> (10, R) = [1, ro, rd, ro x rd]."""
+    cx = ro[1] * rd[2] - ro[2] * rd[1]
+    cy = ro[2] * rd[0] - ro[0] * rd[2]
+    cz = ro[0] * rd[1] - ro[1] * rd[0]
+    return torch.cat([torch.ones_like(ro[:1]), ro, rd, torch.stack([cx, cy, cz])], dim=0)
+
+
+def _gather_rows_t(table, idx):
+    """Row gather with transposed output: table (N, C), idx (R,) in [0, N)
+    -> (C, R).  Callers clip first: on CUDA an out-of-range index is a
+    device assert."""
+    return torch.index_select(table, 0, idx).T
+
+
+def bounce_shade_t(scene, params, hit, carry, *, shade_mat):
+    """One bounce given a Hit, component-major, env lookup deferred.
+    carry = (ro, rd, incoming, color (3, R) f32, seed (R,) i64, active (R,) bool)."""
+    ro, rd, incoming, color, seed, active = carry
+    hit_mask = active & hit.hit
+
+    tri_safe = hit.tri.clamp(0, scene.triangles.p0.shape[0] - 1).long()
+    shade = _gather_rows_t(shade_mat, tri_safe)  # (21, R)
+    roughness = shade[18]
+    metalness = shade[19]
+    w = 1.0 - hit.u - hit.v
+    normal = _normalize_t(
+        shade[0:3] * w[None, :] + shade[3:6] * hit.u[None, :] + shade[6:9] * hit.v[None, :]
+    )
+    position = ro + hit.t[None, :] * rd
+
+    # RNG: hit rays consume 7 uniforms; missed/inactive rays must not advance.
+    seed_h, diffuse_dir = _rand_cosine_hemisphere_t(seed, normal)
+    seed_h, r_spec = rng.rand(seed_h)
+    is_specular = (metalness >= r_spec).to(torch.float32)
+    specular_dir = _reflect_t(rd, normal)
+    blend = (is_specular * (1.0 - roughness))[None, :]
+    new_dir = mix(diffuse_dir, specular_dir, blend)  # deliberately unnormalized
+
+    emitted = shade[15:18] * shade[20][None, :]
+    hm = hit_mask[None, :]
+    incoming = incoming + torch.where(hm, emitted * color, 0.0)
+    color = torch.where(hm, color * mix(shade[9:12], shade[12:15], is_specular[None, :]), color)
+    ro = torch.where(hm, position, ro)
+    rd = torch.where(hm, new_dir, rd)
+    seed = torch.where(hit_mask, seed_h, seed)
+    return ro, rd, incoming, color, seed, hit_mask
+
+
+def _direction_bin(rd):
+    """Quantize (3, R) directions into 96 bins: dominant axis + sign x a 4x4
+    grid over the two minor-axis slopes."""
+    ax, ay, az = torch.abs(rd[0]), torch.abs(rd[1]), torch.abs(rd[2])
+    dom_y = (ay >= ax) & (ay >= az)
+    dom_z = (az >= ax) & (az > ay) & ~dom_y
+    dom_x = ~dom_y & ~dom_z
+    d_dom = torch.where(dom_x, rd[0], torch.where(dom_y, rd[1], rd[2]))
+    a_dom = torch.clamp(torch.abs(d_dom), min=1e-30)
+    u1 = torch.where(dom_x, rd[1], torch.where(dom_y, rd[2], rd[0])) / a_dom
+    u2 = torch.where(dom_x, rd[2], torch.where(dom_y, rd[0], rd[1])) / a_dom
+    q1 = ((u1 + 1.0) * 2.0).to(torch.int64).clamp(0, 3)
+    q2 = ((u2 + 1.0) * 2.0).to(torch.int64).clamp(0, 3)
+    axis = torch.where(dom_x, 0, torch.where(dom_y, 1, 2))
+    half = axis * 2 + (d_dom > 0).to(torch.int64)
+    return half * 16 + q1 * 4 + q2
+
+
+def _coherence_key(ro, rd, active, boxes):
+    """Binning key for the bounce sort: (nearest live treelet, live-treelet
+    count, direction bin); ro/rd (3, R), boxes (Mc, 8) -> int64 (R,), with
+    a sentinel that sorts last for inactive rays."""
+    entry = _slab_entries(boxes, ro, rd, *_slab_setup(ro, rd))  # (Mc, R)
+    live = entry < float(INF)
+    nlive = live.sum(dim=0)
+    nearest = torch.argmin(entry, dim=0)
+    mc = boxes.shape[0]
+    nearest = torch.where(nlive > 0, nearest, mc)
+    key = (nearest * (mc + 1) + nlive) * _DIR_BINS + _direction_bin(rd)
+    return torch.where(active, key, _KEY_SENTINEL)
+
+
+def _key_boxes(tri_pos):
+    """Treelet boxes for the coherence key: 128-triangle chunks, coarsened
+    so that there are at most 64 boxes."""
+    n_tris = tri_pos.shape[0]
+    granule = CHUNK_TRIS
+    while n_tris > 64 * granule:
+        granule *= 2
+    return treelet_boxes(_pad_to(tri_pos, -(-n_tris // granule) * granule, 0), granule)
+
+
+def trace_rays_fused(scene, params, ro, rd, seed, *, max_bounces: int,
+                     intersector_phi_fn, shade_mat=None, env_patches=None,
+                     sort_bounces=None):
+    """Trace rays (R, 3) with seeds (R,) int64 to completion through
+    `intersector_phi_fn` ((10, R) ray features -> Hit).  Returns
+    (incoming (R, 3) f32, seed (R,) int64) in the input ray order."""
+    r = ro.shape[0]
+    device = ro.device
+    if shade_mat is None:
+        shade_mat = pack_shade_material_rows(scene)
+    if env_patches is None:
+        env_patches = envsample.pack_env_patches(scene.env.radiance)
+    key_boxes = _key_boxes(scene.packed.tri_pos)
+    n_sort = min(_SORT_BOUNCES if sort_bounces is None else int(sort_bounces), max_bounces)
+
+    pix = torch.arange(r, device=device)
+    ro = ro.T.contiguous()
+    rd = rd.T.contiguous()
+    incoming = torch.zeros((3, r), dtype=torch.float32, device=device)
+    color = torch.ones((3, r), dtype=torch.float32, device=device)
+    active = torch.ones((r,), dtype=torch.bool, device=device)
+    for bounce in range(max_bounces):
+        if not bool(active.any()):
+            break
+        am = active[None, :]
+        hit = intersector_phi_fn(_ray_features_t(
+            torch.where(am, ro, 1e30), torch.where(am, rd, 0.0)))
+        ro, rd, incoming, color, seed, active = bounce_shade_t(
+            scene, params, hit, (ro, rd, incoming, color, seed, active), shade_mat=shade_mat)
+        if bounce < n_sort:
+            # Unstable sort: any ray order gives the same per-ray results,
+            # and the final scatter keys on the unique pixel index.
+            order = torch.sort(_coherence_key(ro, rd, active, key_boxes)).indices
+            ro, rd, incoming, color = (x[:, order] for x in (ro, rd, incoming, color))
+            seed, active, pix = seed[order], active[order], pix[order]
+
+    # Deferred environment term for the rays that ended on a miss; rays
+    # still active after max_bounces get nothing (raytrace.wgsl:378-408).
+    missed = ~active
+    env_uv = envsample.env_uv_from_ray(rd.T, params.env_rotation)
+    env_term = envsample.env_radiance_packed(
+        env_patches, (scene.env.height, scene.env.width), env_uv).T * params.env_intensity
+    incoming = incoming + torch.where(missed[None, :], env_term * color, 0.0)
+
+    out_incoming = torch.empty((r, 3), dtype=torch.float32, device=device)
+    out_seed = torch.empty_like(seed)
+    out_incoming[pix] = incoming.T
+    out_seed[pix] = seed
+    return out_incoming, out_seed
+
+
+def _block_size(n: int) -> int:
+    return next(b for b in (32, 16, 8, 4, 2, 1) if n % b == 0)
+
+
+def blocked_pixel_grid(height: int, width: int, device="cpu"):
+    """Pixel coordinates in screen-block order: consecutive rays form
+    bh x bw screen blocks (largest power-of-two divisors <= 32), so a ray
+    tile covers a compact region.  Returns flat (xs, ys) int64."""
+    bh, bw = _block_size(height), _block_size(width)
+    by = torch.arange(height // bh, device=device)[:, None, None, None]
+    bx = torch.arange(width // bw, device=device)[None, :, None, None]
+    iy = torch.arange(bh, device=device)[None, None, :, None]
+    ix = torch.arange(bw, device=device)[None, None, None, :]
+    shape = (height // bh, width // bw, bh, bw)
+    ys = (by * bh + iy).expand(shape)
+    xs = (bx * bw + ix).expand(shape)
+    return xs.reshape(-1), ys.reshape(-1)
+
+
+def unblock_image(flat, height: int, width: int):
+    """(H*W, C) in blocked_pixel_grid order -> (H, W, C) row-major."""
+    bh, bw = _block_size(height), _block_size(width)
+    c = flat.shape[-1]
+    img = flat.reshape(height // bh, width // bw, bh, bw, c)
+    return img.permute(0, 2, 1, 3, 4).reshape(height, width, c)
+
+
+def render_frame(scene, params, *, width: int, height: int, aspect: float,
+                 samples_per_frame: int = 1, max_bounces: int = 4,
+                 env_importance: bool = False, differentiable: bool = False,
+                 intersector: str = "auto", blue_noise=None, sort_bounces=None,
+                 sort_window=None, tile_rays=None, plain: bool = False):
+    """Render one progressive frame at (height, width): (H, W, 3) f32 on the
+    scene's device.  Row 0 is the bottom of the camera frustum.
+
+    `plain=True` intersects through the kernel's plain PyTorch version on
+    any device (a reference for the kernel path); the default launches the
+    kernel for CUDA tensors and runs the plain version for CPU tensors."""
+    if env_importance:
+        raise NotImplementedError("env importance sampling is not ported yet (ROADMAP.md)")
+    if differentiable:
+        raise NotImplementedError("differentiable rendering is not ported yet (ROADMAP.md)")
+    if blue_noise is not None:
+        raise NotImplementedError("blue-noise AA jitter is not ported yet (ROADMAP.md)")
+    if sort_window:
+        raise NotImplementedError("windowed binning sort is not ported yet (ROADMAP.md)")
+    tri_pos = scene.packed.tri_pos
+    resolve_intersector(intersector, tri_pos.shape[0])
+    device = tri_pos.device
+
+    xs, ys = blocked_pixel_grid(height, width, device)
+    uv = torch.stack([xs.to(torch.float32) / float(width),
+                      ys.to(torch.float32) / float(height)], dim=-1)
+    seed = rng.pixel_seed(xs + ys * width, params.frame)
+    base_o, base_d = camera_ops.camera_rays(params.camera, uv, aspect)
+    resolution = torch.tensor([width, height], dtype=torch.float32, device=device)
+
+    intersect = mt_intersect_nf_phi_plain if plain else mt_intersect_nf_phi
+    shade_mat = pack_shade_material_rows(scene)
+    env_patches = envsample.pack_env_patches(scene.env.radiance)
+    acc = torch.zeros((height * width, 3), dtype=torch.float32, device=device)
+    for _ in range(samples_per_frame):
+        seed, o, d = camera_ops.apply_dof(seed, base_o, base_d, params.camera, resolution)
+        light, seed = trace_rays_fused(
+            scene, params, o, d, seed, max_bounces=max_bounces,
+            intersector_phi_fn=lambda phi: intersect(tri_pos, phi, tile_rays=tile_rays),
+            shade_mat=shade_mat, env_patches=env_patches, sort_bounces=sort_bounces,
+        )
+        acc = acc + light
+    return unblock_image(acc / float(np.float32(samples_per_frame)), height, width)
+
+
+def accumulate(prev, current, frame: int, enabled: bool = True, *, out=None):
+    """Progressive running mean (reference: src/passes/shaders/accumulate.wgsl:21-28):
+    prev + (current - prev) / frame, frame 1-based; passthrough when
+    disabled.  `out=prev` updates the accumulation in place."""
+    weight = np.float32(1.0)
+    if enabled and frame > 0:
+        weight = np.float32(1.0) / np.float32(frame)
+    return torch.add(prev, (current - prev) * float(weight), out=out)

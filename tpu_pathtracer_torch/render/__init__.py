@@ -1,0 +1,1 @@
+"""render layer of the port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""scene layer of the port (see the package docstring)."""
