@@ -3,26 +3,38 @@
     python3 chip_smoke.py [--profile] [--out DIR]
 
 Builds the port's CUDA kernels from csrc/, holds each against its plain
-PyTorch version on the card, then drives the main path once through the
-public entry points: `Renderer(...).render_all()` and `display()` on the
-default scene (1,998 triangles) at 512x512, 1 sample per pixel, 4 bounces,
-16 frames, with denoise and ACES.  It checks that the kernels were launched
-on that path, that the image is finite and in [0, 1], and that a frame
-rendered through the kernels matches the same frame through the plain
-versions; then it times both paths with CUDA events.
+PyTorch version on the card, then drives two paths once each through the
+public entry points, `Renderer(...).render_all()` and `display()`:
+
+  * headline: the default scene (1,998 triangles) at 512x512, 1 sample per
+    pixel, 4 bounces, 16 frames, with denoise and ACES; its intersections
+    go through the near-to-far MT kernel (csrc/mt_shade.cu);
+  * stress: the JAX sweep's stress100K_512 scene (a 101,760-triangle
+    sphere and a plane, padded to 131,072) at 512x512, 1 sample per pixel,
+    6 bounces, 4 frames; its intersections go through the streamed MT
+    kernel (csrc/mt_stream.cu).
+
+For each path it checks that the path's kernels were launched in that run
+(and the other MT kernel not), that the image is finite and in [0, 1], and
+that a frame rendered through the kernels matches the same frame through
+the plain versions; then it times both with CUDA events.  The streamed
+kernel is also held to its plain version's per-tile walk counts (supers
+walked, chunks staged, subs evaluated), so the two made the same culling
+decisions.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Any failed check raises, so
 the exit code is not 0 and no result line is printed.  Without a CUDA
 device the script exits with code 2.  `--profile` adds a torch.profiler
-table of one kernel-path frame; `--out DIR` writes the full results there
-as chip_smoke.json.
+table of one kernel-path frame of each path; `--out DIR` writes the full
+results there as chip_smoke.json.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -33,6 +45,9 @@ ROOT = Path(__file__).resolve().parent
 WIDTH = HEIGHT = 512
 FRAMES = 16
 BOUNCES = 4
+STRESS_FRAMES = 4
+STRESS_BOUNCES = 6
+STRESS_SPHERE = (0.5, 320, 160)  # bench.py:105, mesh_scene(320): 101,760 triangles
 CAMERA = dict(position=(0.0, 1.0, 4.0), look_at=(0.0, 0.5, 0.0), fov=45.0)
 DENOISE_TOL = dict(atol=2e-5, rtol=1e-4)  # tests/test_pallas_denoise.py
 MT_TOL = 0.0  # kernel and plain version share every rounding step
@@ -93,6 +108,105 @@ def _hit_diff(hk, hp):
     return bad, err
 
 
+def _mt_rays(data, cam, intersect):
+    """Ray features of the headline camera's primary rays and of their
+    first bounce (terminated rays parked), as render_frame builds them."""
+    import torch
+
+    from tpu_pathtracer_torch.ops import camera as camera_ops
+    from tpu_pathtracer_torch.ops import rng, trace
+    from tpu_pathtracer_torch.scene.types import RenderParams
+
+    dev = data.packed.tri_pos.device
+    xs, ys = trace.blocked_pixel_grid(HEIGHT, WIDTH, dev)
+    uv = torch.stack([xs.float() / WIDTH, ys.float() / HEIGHT], dim=-1)
+    seed = rng.pixel_seed(xs + ys * WIDTH, 1)
+    o, d = camera_ops.camera_rays(cam, uv, WIDTH / HEIGHT)
+    resolution = torch.tensor([WIDTH, HEIGHT], dtype=torch.float32, device=dev)
+    seed, o, d = camera_ops.apply_dof(seed, o, d, cam, resolution)
+    ro, rd = o.T.contiguous(), d.T.contiguous()
+    phi_primary = trace._ray_features_t(ro, rd)
+    h1 = intersect(data.packed.tri_pos, phi_primary)
+    carry = (ro, rd, torch.zeros_like(ro), torch.ones_like(ro), seed,
+             torch.ones_like(seed, dtype=torch.bool))
+    ro2, rd2, _, _, _, active = trace.bounce_shade_t(
+        data, RenderParams.create(cam, frame=1), h1, carry,
+        shade_mat=trace.pack_shade_material_rows(data))
+    am = active[None, :]
+    phi_bounce = trace._ray_features_t(torch.where(am, ro2, 1e30), torch.where(am, rd2, 0.0))
+    return {"primary": (phi_primary, 0), "bounce1": (phi_bounce, int((~active).sum()))}
+
+
+def _kernel_vs_plain(name, tri_pos, rays, kernel, plain, results) -> float:
+    """Hold `kernel` to `plain` on each ray set: 0 hit/tri mismatches and
+    max |t,u,v| difference within MT_TOL.  Returns the largest difference."""
+    import torch
+
+    worst = 0.0
+    for what, (phi, parked) in rays.items():
+        hk = kernel(tri_pos, phi)
+        hp = plain(tri_pos, phi)
+        torch.cuda.synchronize()
+        bad, err = _hit_diff(hk, hp)
+        hits = int(hk.hit.sum())
+        print(f"{name} {what}: rays {phi.shape[1]}, hits {hits}, parked {parked}, "
+              f"hit/tri mismatches {bad}, max |t,u,v| diff {err:.3g} (tolerance {MT_TOL})")
+        _check(bad == 0, f"{name} {what}: {bad} rays differ in hit or triangle")
+        _check(err <= MT_TOL, f"{name} {what}: t/u/v differ by {err}")
+        _check(hits > 0, f"{name} {what}: no ray hit the scene")
+        worst = max(worst, err)
+        results[f"{name}_{what}"] = dict(hits=hits, mismatches=bad, max_abs_err=err,
+                                         parked=parked)
+    return worst
+
+
+def _drive(pt, scene, config, counters, png: Path):
+    """The main path: Renderer(...).render_all() + display() with every
+    launch count set to 0 just before and read just after.  Checks the
+    image and writes it as PNG; returns (launches, seconds, renderer,
+    image mean)."""
+    import torch
+
+    renderer = pt.Renderer(scene, pt.Camera.create(**CAMERA), config, pt.PostConfig(),
+                           device="cuda")
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    renderer.render_all()
+    image = renderer.display()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    _check(image.shape == (config.height, config.width, 3), f"display shape {tuple(image.shape)}")
+    _check(bool(torch.isfinite(image).all()), "display image has non-finite values")
+    _check(float(image.min()) >= 0.0 and float(image.max()) <= 1.0, "display outside [0, 1]")
+    _check(float(image.mean()) > 0.05, "display image is black")
+    png.parent.mkdir(parents=True, exist_ok=True)
+    renderer.screenshot(str(png))
+    print(f"  {config.frames} frames + display in {seconds:.2f} s (first call included); "
+          f"launches {launches}; image mean {float(image.mean()):.4f}, written to "
+          f"{png.relative_to(ROOT)}")
+    return launches, seconds, renderer, float(image.mean())
+
+
+def _profile(trace, data, frame_params, kw, tag, results, key):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    trace.render_frame(data, frame_params, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trace.render_frame(data, frame_params, **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=30)
+    print(f"profiled {key} frame {tag}: wall {wall_ms:.3f} ms under the profiler")
+    print(table)
+    results[f"{key}_profile_wall_ms"] = wall_ms
+    results[f"{key}_profile_table"] = table
+
+
 def main(argv=None) -> int:
     args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     args.add_argument("--profile", action="store_true")
@@ -109,19 +223,23 @@ def main(argv=None) -> int:
 
     import tpu_pathtracer_torch as pt
     from tpu_pathtracer_torch import _build
-    from tpu_pathtracer_torch.ops import camera as camera_ops
-    from tpu_pathtracer_torch.ops import rng
     from tpu_pathtracer_torch.ops import trace
     from tpu_pathtracer_torch.ops.kernels import denoise as kdenoise
-    from tpu_pathtracer_torch.ops.kernels import mt_shade
+    from tpu_pathtracer_torch.ops.kernels import mt_shade, mt_stream
+    from tpu_pathtracer_torch.scene import primitives
     from tpu_pathtracer_torch.scene.envmap import gradient_sky
+    from tpu_pathtracer_torch.scene.host import rotation_x
 
     dev = torch.device("cuda")
     card = _card()
     kind = torch.cuda.get_device_name(0)
+    tag = f"[{card}]"
     print(card)  # nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     results: dict = {"card": card}
+    counters = {"mt_nf": mt_shade.mt_intersect_nf_phi,
+                "mt_stream": mt_stream.mt_intersect_stream2_phi,
+                "denoise": kdenoise.smart_denoise}
 
     # --- build --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -130,46 +248,19 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     print(f"kernel build: {build_s:.1f} s -> build/tpu_pathtracer_torch/{lib_path.name}")
     for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "Compiling entry" in line or "spill" in line:
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
     results["build_s"] = build_s
 
-    # --- MT phase: kernel vs plain on the headline rays -----------------------
+    # --- headline: near-to-far MT kernel vs plain on the headline rays ------
     scene = pt.default_scene(gradient_sky(64, 128))
     data = scene.compile(device=dev)
     cam = pt.Camera.create(**CAMERA, device=dev)
-    params = pt.RenderParams.create(cam, frame=1)
     tri_pos = data.packed.tri_pos
-    xs, ys = trace.blocked_pixel_grid(HEIGHT, WIDTH, dev)
-    uv = torch.stack([xs.float() / WIDTH, ys.float() / HEIGHT], dim=-1)
-    seed = rng.pixel_seed(xs + ys * WIDTH, 1)
-    o, d = camera_ops.camera_rays(cam, uv, WIDTH / HEIGHT)
-    resolution = torch.tensor([WIDTH, HEIGHT], dtype=torch.float32, device=dev)
-    seed, o, d = camera_ops.apply_dof(seed, o, d, cam, resolution)
-    ro, rd = o.T.contiguous(), d.T.contiguous()
-    phi_primary = trace._ray_features_t(ro, rd)
-    h1 = mt_shade.mt_intersect_nf_phi(tri_pos, phi_primary)
-    shade_mat = trace.pack_shade_material_rows(data)
-    ones = torch.ones_like(ro)
-    carry = (ro, rd, torch.zeros_like(ro), ones, seed, torch.ones_like(seed, dtype=torch.bool))
-    ro2, rd2, _, _, _, active = trace.bounce_shade_t(data, params, h1, carry, shade_mat=shade_mat)
-    am = active[None, :]
-    phi_bounce = trace._ray_features_t(torch.where(am, ro2, 1e30), torch.where(am, rd2, 0.0))
-    mt_err = 0.0
-    for name, phi in (("primary", phi_primary), ("bounce1", phi_bounce)):
-        hk = mt_shade.mt_intersect_nf_phi(tri_pos, phi)
-        hp = mt_shade.mt_intersect_nf_phi_plain(tri_pos, phi)
-        torch.cuda.synchronize()
-        bad, err = _hit_diff(hk, hp)
-        parked = int((~active).sum()) if name == "bounce1" else 0
-        print(f"mt {name}: rays {phi.shape[1]}, hits {int(hk.hit.sum())}, parked {parked}, "
-              f"hit/tri mismatches {bad}, max |t,u,v| diff {err:.3g} (tolerance {MT_TOL})")
-        _check(bad == 0, f"mt {name}: {bad} rays differ in hit or triangle")
-        _check(err <= MT_TOL, f"mt {name}: t/u/v differ by {err}")
-        _check(int(hk.hit.sum()) > 0, f"mt {name}: no ray hit the scene")
-        mt_err = max(mt_err, err)
-        results[f"mt_{name}"] = dict(hits=int(hk.hit.sum()), mismatches=bad, max_abs_err=err,
-                                    parked=parked)
+    rays = _mt_rays(data, cam, mt_shade.mt_intersect_nf_phi)
+    phi_primary = rays["primary"][0]
+    mt_err = _kernel_vs_plain("mt", tri_pos, rays, mt_shade.mt_intersect_nf_phi,
+                              mt_shade.mt_intersect_nf_phi_plain, results)
 
     # --- denoise phase ------------------------------------------------------
     den_err = 0.0
@@ -184,33 +275,16 @@ def main(argv=None) -> int:
         den_err = max(den_err, err)
         results[f"denoise_{h}x{w}_max_abs_err"] = err
 
-    # --- main path: Renderer.render_all() + display() -------------------------
+    # --- headline main path: Renderer.render_all() + display() ---------------
     config = pt.RenderConfig(width=WIDTH, height=HEIGHT, frames=FRAMES,
                              samples_per_frame=1, max_bounces=BOUNCES)
-    renderer = pt.Renderer(scene, pt.Camera.create(**CAMERA), config, pt.PostConfig(),
-                           device="cuda")
-    mt_shade.mt_intersect_nf_phi.launches = 0
-    kdenoise.smart_denoise.launches = 0
-    t0 = time.perf_counter()
-    renderer.render_all()
-    image = renderer.display()
-    torch.cuda.synchronize()
-    main_s = time.perf_counter() - t0
-    launches = {"mt_nf": mt_shade.mt_intersect_nf_phi.launches,
-                "denoise": kdenoise.smart_denoise.launches}
-    print(f"main path: {FRAMES} frames + display in {main_s:.2f} s (first call included); "
-          f"launches {launches}")
-    _check(image.shape == (HEIGHT, WIDTH, 3), f"display shape {tuple(image.shape)}")
-    _check(bool(torch.isfinite(image).all()), "display image has non-finite values")
-    _check(float(image.min()) >= 0.0 and float(image.max()) <= 1.0, "display outside [0, 1]")
-    _check(float(image.mean()) > 0.05, "display image is black")
-    _check(FRAMES <= launches["mt_nf"] <= FRAMES * BOUNCES, f"MT launches {launches['mt_nf']}")
+    print("headline main path:")
+    launches, main_s, renderer, mean = _drive(pt, scene, config, counters,
+                                              ROOT / "build" / "chip_smoke_headline.png")
+    _check(FRAMES <= launches["mt_nf"] <= FRAMES * BOUNCES, f"mt_nf launches {launches}")
+    _check(launches["mt_stream"] == 0, f"mt_stream launched on the headline path: {launches}")
     _check(launches["denoise"] >= 1, "denoise kernel not launched")
-    png = ROOT / "build" / "chip_smoke_headline.png"
-    png.parent.mkdir(parents=True, exist_ok=True)
-    renderer.screenshot(str(png))
-    print(f"image mean {float(image.mean()):.4f}, written to {png.relative_to(ROOT)}")
-    results.update(main_path_s=main_s, launches=launches, image_mean=float(image.mean()))
+    results.update(main_path_s=main_s, launches=launches, image_mean=mean)
 
     # one frame through the kernels vs the same frame through the plain versions
     kw = dict(width=WIDTH, height=HEIGHT, aspect=WIDTH / HEIGHT, max_bounces=BOUNCES)
@@ -221,49 +295,106 @@ def main(argv=None) -> int:
     print(f"frame kernel vs plain: outlier fraction {frac:.2e}, non-outlier mean diff {agree:.2e}")
     results.update(frame_outlier_frac=frac, frame_mean_diff=agree)
 
-    # --- timing ---------------------------------------------------------------
     paths = WIDTH * HEIGHT
     ms_k = _time_ms(lambda: trace.render_frame(data, frame_params, **kw), 3, 15)
-    ms_p = _time_ms(lambda: trace.render_frame(data, frame_params, plain=True, **kw), 1, 5)
-    ms_k2 = _time_ms(lambda: trace.render_frame(data, frame_params, **kw), 1, 15)
+    ms_p = _time_ms(lambda: trace.render_frame(data, frame_params, plain=True, **kw), 0, 3)
     mt_ms = _time_ms(lambda: mt_shade.mt_intersect_nf_phi(tri_pos, phi_primary), 3, 30)
-    mt_plain_ms = _time_ms(lambda: mt_shade.mt_intersect_nf_phi_plain(tri_pos, phi_primary), 1, 10)
+    mt_plain_ms = _time_ms(lambda: mt_shade.mt_intersect_nf_phi_plain(tri_pos, phi_primary), 1, 5)
     prep = mt_shade._prepare(tri_pos, phi_primary, None)
     walk_ms = _time_ms(lambda: mt_shade._walk_cuda(*prep), 3, 30)
-    walk_plain_ms = _time_ms(lambda: mt_shade._walk_plain(*prep), 1, 10)
+    walk_plain_ms = _time_ms(lambda: mt_shade._walk_plain(*prep), 1, 5)
     prep_ms = _time_ms(lambda: mt_shade._prepare(tri_pos, phi_primary, None), 3, 30)
     img512 = torch.from_numpy(
         np.random.default_rng(0).random((HEIGHT, WIDTH, 3), np.float32)).to(dev)
     den_ms = _time_ms(lambda: kdenoise.smart_denoise(img512), 3, 30)
-    den_plain_ms = _time_ms(lambda: kdenoise.smart_denoise_plain(img512), 1, 10)
+    den_plain_ms = _time_ms(lambda: kdenoise.smart_denoise_plain(img512), 1, 5)
     display_ms = _time_ms(renderer.display, 2, 10)
-    tag = f"[{card}]"
-    print(f"timing {tag}: frame kernel path {ms_k:.3f} ms ({paths / ms_k / 1e3:.2f} Mpaths/s; "
-          f"repeat {ms_k2:.3f} ms), plain path {ms_p:.3f} ms ({paths / ms_p / 1e3:.2f} Mpaths/s)")
+    print(f"timing {tag}: headline frame kernel path {ms_k:.3f} ms "
+          f"({paths / ms_k / 1e3:.2f} Mpaths/s), plain path {ms_p:.3f} ms "
+          f"({paths / ms_p / 1e3:.2f} Mpaths/s)")
     print(f"timing {tag}: mt primary wrapper {mt_ms:.3f} ms (precull {prep_ms:.3f} ms, kernel "
           f"walk {walk_ms:.3f} ms), plain wrapper {mt_plain_ms:.3f} ms (plain walk "
           f"{walk_plain_ms:.3f} ms)")
     print(f"timing {tag}: denoise 512x512 kernel {den_ms:.3f} ms, plain {den_plain_ms:.3f} ms; "
           f"display() {display_ms:.3f} ms")
-    results.update(frame_ms=ms_k, frame_ms_repeat=ms_k2, frame_plain_ms=ms_p, mt_ms=mt_ms,
-                   mt_plain_ms=mt_plain_ms, mt_walk_ms=walk_ms, mt_walk_plain_ms=walk_plain_ms,
-                   mt_prepare_ms=prep_ms, denoise_ms=den_ms, denoise_plain_ms=den_plain_ms,
-                   display_ms=display_ms)
-
+    results.update(frame_ms=ms_k, frame_plain_ms=ms_p, mt_ms=mt_ms, mt_plain_ms=mt_plain_ms,
+                   mt_walk_ms=walk_ms, mt_walk_plain_ms=walk_plain_ms, mt_prepare_ms=prep_ms,
+                   denoise_ms=den_ms, denoise_plain_ms=den_plain_ms, display_ms=display_ms)
     if opts.profile:
-        from torch.profiler import ProfilerActivity, profile
+        _profile(trace, data, frame_params, kw, tag, results, "headline")
+    del renderer, img_k, img_p, prep
 
-        trace.render_frame(data, frame_params, **kw)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            trace.render_frame(data, frame_params, **kw)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=30)
-        print(f"profiled frame {tag}: wall {wall_ms:.3f} ms under the profiler")
-        print(table)
-        results.update(profile_wall_ms=wall_ms, profile_table=table)
+    # --- stress: streamed MT kernel vs plain on the stress scene's rays ------
+    stress = pt.Scene()
+    stress.add(pt.Mesh(*primitives.sphere(*STRESS_SPHERE), pt.Material(color=(0.8, 0.7, 0.6))))
+    stress.add(pt.Mesh(*primitives.plane(4, 4), pt.Material(),
+                       transform=rotation_x(-math.pi / 2)))
+    stress.set_environment(gradient_sky(512, 1024))
+    t0 = time.perf_counter()
+    sdata = stress.compile(device=dev)
+    compile_s = time.perf_counter() - t0
+    s_tri = sdata.packed.tri_pos
+    print(f"stress scene: {s_tri.shape[0]} padded triangles, compiled in {compile_s:.2f} s; "
+          f"intersector {trace.resolve_intersector('auto', s_tri.shape[0])}")
+    _check(s_tri.shape[0] == 131072, f"stress scene padded to {s_tri.shape[0]}")
+    s_rays = _mt_rays(sdata, cam, mt_stream.mt_intersect_stream2_phi)
+    s_primary = s_rays["primary"][0]
+    stream_err = _kernel_vs_plain("mt_stream", s_tri, s_rays, mt_stream.mt_intersect_stream2_phi,
+                                  mt_stream.mt_intersect_stream2_phi_plain, results)
+    for what, (phi, _) in s_rays.items():
+        # the same liveness decisions, not only the same hits
+        sk = mt_stream.walk_stats(s_tri, phi)
+        sp = mt_stream.walk_stats(s_tri, phi, plain=True)
+        _check(torch.equal(sk, sp), f"mt_stream {what}: walk counts differ from the plain walk")
+        walked, staged, evaluated = (int(x) for x in sk.sum(dim=0))
+        print(f"mt_stream {what}: walk counts equal to the plain walk's over {sk.shape[0]} tiles: "
+              f"{walked} supers walked, {staged} chunks staged, {evaluated} subs evaluated")
+        results[f"mt_stream_{what}"].update(supers_walked=walked, chunks_staged=staged,
+                                            subs_evaluated=evaluated)
+    results["stress_compile_s"] = compile_s
+
+    # --- stress main path: Renderer.render_all() + display() -----------------
+    s_config = pt.RenderConfig(width=WIDTH, height=HEIGHT, frames=STRESS_FRAMES,
+                               samples_per_frame=1, max_bounces=STRESS_BOUNCES)
+    print("stress main path:")
+    s_launches, s_main_s, s_renderer, s_mean = _drive(pt, stress, s_config, counters,
+                                                      ROOT / "build" / "chip_smoke_stress.png")
+    _check(STRESS_FRAMES <= s_launches["mt_stream"] <= STRESS_FRAMES * STRESS_BOUNCES,
+           f"mt_stream launches {s_launches}")
+    _check(s_launches["mt_nf"] == 0, f"mt_nf launched on the stress path: {s_launches}")
+    results.update(stress_main_path_s=s_main_s, stress_launches=s_launches,
+                   stress_image_mean=s_mean)
+    del s_renderer
+
+    s_kw = dict(width=WIDTH, height=HEIGHT, aspect=WIDTH / HEIGHT, max_bounces=STRESS_BOUNCES)
+    img_k = trace.render_frame(sdata, frame_params, **s_kw)
+    img_p = trace.render_frame(sdata, frame_params, plain=True, **s_kw)
+    frac, agree = _outlier_rule(img_k, img_p)
+    print(f"stress frame kernel vs plain: outlier fraction {frac:.2e}, "
+          f"non-outlier mean diff {agree:.2e}")
+    results.update(stress_frame_outlier_frac=frac, stress_frame_mean_diff=agree)
+    del img_k, img_p
+
+    s_ms = _time_ms(lambda: trace.render_frame(sdata, frame_params, **s_kw), 1, 5)
+    s_ms_p = _time_ms(lambda: trace.render_frame(sdata, frame_params, plain=True, **s_kw), 0, 2)
+    st_ms = _time_ms(lambda: mt_stream.mt_intersect_stream2_phi(s_tri, s_primary), 2, 10)
+    st_plain_ms = _time_ms(
+        lambda: mt_stream.mt_intersect_stream2_phi_plain(s_tri, s_primary), 1, 2)
+    s_prep = mt_stream._prepare(s_tri, s_primary, None)
+    st_walk_ms = _time_ms(lambda: mt_stream._walk_cuda(*s_prep), 2, 10)
+    st_walk_plain_ms = _time_ms(lambda: mt_stream._walk_plain(*s_prep), 1, 2)
+    st_prep_ms = _time_ms(lambda: mt_stream._prepare(s_tri, s_primary, None), 2, 10)
+    print(f"timing {tag}: stress frame kernel path {s_ms:.3f} ms "
+          f"({paths / s_ms / 1e3:.3f} Mpaths/s), plain path {s_ms_p:.3f} ms "
+          f"({paths / s_ms_p / 1e3:.3f} Mpaths/s)")
+    print(f"timing {tag}: mt_stream primary wrapper {st_ms:.3f} ms (precull {st_prep_ms:.3f} ms, "
+          f"kernel walk {st_walk_ms:.3f} ms), plain wrapper {st_plain_ms:.3f} ms (plain walk "
+          f"{st_walk_plain_ms:.3f} ms)")
+    results.update(stress_frame_ms=s_ms, stress_frame_plain_ms=s_ms_p, stream_ms=st_ms,
+                   stream_plain_ms=st_plain_ms, stream_walk_ms=st_walk_ms,
+                   stream_walk_plain_ms=st_walk_plain_ms, stream_prepare_ms=st_prep_ms)
+    if opts.profile:
+        _profile(trace, sdata, frame_params, s_kw, tag, results, "stress")
 
     kernels = [
         {"name": "mt_nf", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/mt_shade.cu",
@@ -273,6 +404,10 @@ def main(argv=None) -> int:
          "replaces": "tpu_pathtracer/ops/pallas/denoise.py:33",
          "launches": launches["denoise"], "max_abs_err": den_err, "ms": den_ms,
          "plain_ms": den_plain_ms},
+        {"name": "mt_stream", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/mt_stream.cu",
+         "replaces": "tpu_pathtracer/ops/pallas/mt_shade.py:628",
+         "launches": s_launches["mt_stream"], "max_abs_err": stream_err, "ms": st_ms,
+         "plain_ms": st_plain_ms},
     ]
     results["kernels"] = kernels
     if opts.out:

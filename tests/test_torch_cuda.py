@@ -8,13 +8,20 @@ imports no JAX, so it also runs on a machine without it:
 (`--noconftest`: tests/conftest.py sets up JAX for the other test files.)
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
+import tpu_pathtracer_torch as tpt
+from tpu_pathtracer_torch.ops import camera as camera_ops
+from tpu_pathtracer_torch.ops import trace
 from tpu_pathtracer_torch.ops.kernels import denoise as kdenoise
-from tpu_pathtracer_torch.ops.kernels import mt_shade
+from tpu_pathtracer_torch.ops.kernels import mt_shade, mt_stream
 from tpu_pathtracer_torch.ops.mt_matmul import ray_features
+from tpu_pathtracer_torch.scene import primitives
+from tpu_pathtracer_torch.scene.host import rotation_x
 
 
 @pytest.fixture
@@ -53,6 +60,77 @@ def test_mt_kernel_matches_plain_bit_for_bit(cuda, n_tris, n_rays, tile_rays):
     assert int(hk.hit.sum()) > 0 and not hk.hit[torch.from_numpy(park[:, 0]).to(cuda)].any()
     for a, b in zip(hk, hp):
         assert torch.equal(a, b)
+
+
+def _parked_rays(rng, n_rays, park_every=7):
+    ro = rng.uniform(-1, 1, (n_rays, 3)).astype(np.float32)
+    rd = rng.normal(size=(n_rays, 3))
+    rd = (rd / np.linalg.norm(rd, axis=1, keepdims=True)).astype(np.float32)
+    park = np.arange(n_rays) % park_every == 0
+    ro = np.where(park[:, None], np.float32(1e30), ro).astype(np.float32)
+    rd = np.where(park[:, None], np.float32(0.0), rd).astype(np.float32)
+    return ray_features(torch.from_numpy(ro), torch.from_numpy(rd)).T.contiguous(), park
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tris,n_rays,tile_rays", [
+    (9000, 40000, None),    # 5 supers, the last one partly padding
+    (2100, 1300, 384),      # a partial tile, dead padding chunks and subs
+    (20000, 300000, 512),   # > 512 tiles: the tile widens to 1024 rays
+])
+def test_stream_kernel_matches_plain_bit_for_bit(cuda, n_tris, n_rays, tile_rays):
+    rng = np.random.default_rng(n_tris)
+    tri = torch.from_numpy(_soup(rng, n_tris)).to(cuda)
+    phi_t, park = _parked_rays(rng, n_rays)
+    phi_t = phi_t.to(cuda)
+    before = mt_stream.mt_intersect_stream2_phi.launches
+    hk = mt_stream.mt_intersect_stream2_phi(tri, phi_t, tile_rays=tile_rays)
+    assert mt_stream.mt_intersect_stream2_phi.launches == before + 1
+    hp = mt_stream.mt_intersect_stream2_phi_plain(tri, phi_t, tile_rays=tile_rays)
+    assert int(hk.hit.sum()) > 0 and not hk.hit[torch.from_numpy(park).to(cuda)].any()
+    for a, b in zip(hk, hp):
+        assert torch.equal(a, b)
+    # the same liveness decisions: supers walked, chunks staged, subs evaluated
+    stats = mt_stream.walk_stats(tri, phi_t, tile_rays=tile_rays)
+    assert torch.equal(stats, mt_stream.walk_stats(tri, phi_t, tile_rays=tile_rays, plain=True))
+    assert int(stats[:, 2].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_stream_kernel_culls_like_plain_on_a_mesh(cuda):
+    """Camera rays on a BVH-ordered mesh (9,402 triangles, padded to
+    16,384), where chunk and sub culling decide which blocks are evaluated:
+    on random soups every box of a tile is live.  Hits and walk counts must
+    equal the plain version's."""
+    scene = tpt.Scene()
+    scene.add(tpt.Mesh(*primitives.sphere(0.5, 80, 60), tpt.Material()))
+    scene.add(tpt.Mesh(*primitives.plane(4, 4), tpt.Material(),
+                       transform=rotation_x(-math.pi / 2)))
+    tri = scene.compile(device=cuda).packed.tri_pos
+    cam = tpt.Camera.create(position=(0, 1, 4), look_at=(0, 0.5, 0), fov=45, device=cuda)
+    xs, ys = trace.blocked_pixel_grid(256, 256, cuda)
+    o, d = camera_ops.camera_rays(cam, torch.stack([xs / 256.0, ys / 256.0], dim=-1), 1.0)
+    phi_t = trace._ray_features_t(o.T.contiguous(), d.T.contiguous())
+    hk = mt_stream.mt_intersect_stream2_phi(tri, phi_t)
+    hp = mt_stream.mt_intersect_stream2_phi_plain(tri, phi_t)
+    assert int(hk.hit.sum()) > 10000
+    for a, b in zip(hk, hp):
+        assert torch.equal(a, b)
+    stats = mt_stream.walk_stats(tri, phi_t)
+    assert torch.equal(stats, mt_stream.walk_stats(tri, phi_t, plain=True))
+    walked, staged, evaluated = (int(x) for x in stats.sum(dim=0))
+    assert staged < 16 * walked and evaluated < 4 * staged  # both culling levels decide
+
+
+@pytest.mark.cuda
+def test_stream_kernel_empty_and_oversized_scenes_launch_nothing(cuda):
+    phi_t = torch.ones((10, 64), device=cuda)
+    before = mt_stream.mt_intersect_stream2_phi.launches
+    h = mt_stream.mt_intersect_stream2_phi(torch.zeros((0, 9), device=cuda), phi_t)
+    assert not h.hit.any()
+    with pytest.raises(ValueError):
+        mt_stream.mt_intersect_stream2_phi(torch.zeros((262145, 9), device=cuda), phi_t)
+    assert mt_stream.mt_intersect_stream2_phi.launches == before
 
 
 @pytest.mark.cuda

@@ -142,7 +142,9 @@ def test_tile_widening_and_padding_contract():
 
 
 def test_oversized_scene_raises():
+    """As the JAX wrapper: past 8,192 triangles the near-to-far kernel
+    refuses the scene with ValueError and names the streamed kernel."""
     tri = torch.zeros((8193, 9))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="mt_stream"):
         mt_shade.mt_intersect_nf_phi(tri, torch.zeros((10, 8)))
 

@@ -13,11 +13,13 @@ import torch
 import tpu_pathtracer as jpt
 from tpu_pathtracer.accel.bvh import build_bvh_flat as j_build_bvh_flat
 from tpu_pathtracer.accel.bvh import flat_to_links as j_flat_to_links
+from tpu_pathtracer.scene import primitives as jprim
 from tpu_pathtracer.scene.envmap import gradient_sky as j_gradient_sky
 from tpu_pathtracer.scene.types import Camera as JCamera
 from tpu_pathtracer.scene.types import RenderParams as JParams
 import tpu_pathtracer_torch as tpt
 from tpu_pathtracer_torch.accel.bvh import build_bvh_flat, flat_to_links
+from tpu_pathtracer_torch.scene import primitives as tprim
 from tpu_pathtracer_torch.scene.convert import params_from_numpy, scene_from_numpy
 from tpu_pathtracer_torch.scene.envmap import gradient_sky
 
@@ -82,6 +84,22 @@ def test_bvh_and_links_match_jax_numpy_builder():
 def test_scene_from_numpy_roundtrip(scenes):
     jsd, tsd = scenes
     carried = scene_from_numpy(jax_leaves(jsd))
+    for group, fields in GROUPS.items():
+        for field in fields:
+            _assert_same_bytes(getattr(getattr(carried, group), field).numpy(),
+                               getattr(getattr(tsd, group), field).numpy(), f"{group}.{field}")
+
+
+def test_scene_from_numpy_carries_a_large_scene():
+    """A JAX scene past 8,192 triangles (the streamed kernel's path) crosses
+    to the port byte-equal to the port's own compile."""
+    js = jpt.Scene()
+    js.add(jpt.Mesh(*jprim.sphere(1.0, 80, 60), jpt.Material(color=(0.8, 0.7, 0.6))))
+    ts = tpt.Scene()
+    ts.add(tpt.Mesh(*tprim.sphere(1.0, 80, 60), tpt.Material(color=(0.8, 0.7, 0.6))))
+    carried = scene_from_numpy(jax_leaves(js.compile()))
+    tsd = ts.compile()
+    assert carried.packed.tri_pos.shape == (16384, 9)
     for group, fields in GROUPS.items():
         for field in fields:
             _assert_same_bytes(getattr(getattr(carried, group), field).numpy(),

@@ -181,15 +181,59 @@ def test_unported_renderer_options_raise(kw):
         tpt.Renderer(tpt.default_scene(), tpt.Camera.create(), device="cpu", **kw)
 
 
-def test_large_scene_raises():
+@pytest.fixture(scope="module")
+def large_scene():
+    """A sphere of 9,400 triangles, padded to 16,384: past the near-to-far
+    kernel, so 'auto' takes the streamed kernel."""
     scene = tpt.Scene()
-    p, n, i = tpt.scene.primitives.sphere(1.0, 80, 60)  # 9,400 triangles
-    scene.add(tpt.Mesh(p, n, i, tpt.Material()))
-    data = scene.compile()
-    params = tpt.RenderParams.create(tpt.Camera.create(), frame=1)
+    p, n, i = tpt.scene.primitives.sphere(1.0, 80, 60)
+    scene.add(tpt.Mesh(p, n, i, tpt.Material(color=(0.8, 0.7, 0.6))))
+    scene.set_environment(gradient_sky(8, 16))
+    return scene
+
+
+LARGE_CAM = dict(position=(0, 0.5, 3), look_at=(0, 0, 0), fov=45)
+
+
+def test_large_scene_auto_renders_through_mt_stream(large_scene, monkeypatch):
+    data = large_scene.compile()
+    assert data.packed.tri_pos.shape == (16384, 9) and dataclasses.is_dataclass(data)
+    calls = []
+    stream = ttrace.mt_intersect_stream2_phi
+    monkeypatch.setattr(ttrace, "mt_intersect_stream2_phi",
+                        lambda *a, **k: calls.append(1) or stream(*a, **k))
+    params = tpt.RenderParams.create(tpt.Camera.create(**LARGE_CAM), frame=1)
+    kw = dict(width=8, height=8, aspect=1.0, max_bounces=2)
+    auto = ttrace.render_frame(data, params, **kw)
+    assert len(calls) >= 1
+    assert torch.equal(auto, ttrace.render_frame(data, params, intersector="mt_stream", **kw))
+    assert torch.equal(auto, ttrace.render_frame(data, params, intersector="mt_stream",
+                                                 plain=True, **kw))
+    assert torch.isfinite(auto).all() and float(auto.std()) > 0.0
+
+
+def test_large_scene_mt_pallas_raises_value_error(large_scene):
+    params = tpt.RenderParams.create(tpt.Camera.create(**LARGE_CAM), frame=1)
+    with pytest.raises(ValueError, match="mt_stream"):
+        ttrace.render_frame(large_scene.compile(), params, width=8, height=8, aspect=1.0,
+                            intersector="mt_pallas")
+
+
+@pytest.mark.parametrize("intersector", ["auto", "mt_stream"])
+def test_large_scene_renderer_completes(large_scene, intersector):
+    r = tpt.Renderer(large_scene, tpt.Camera.create(**LARGE_CAM),
+                     tpt.RenderConfig(width=8, height=8, frames=2, max_bounces=2,
+                                      intersector=intersector), device="cpu")
+    acc = r.render_all()
+    out = r.display()
+    assert r.status == "idle" and r.frame == 3 and torch.isfinite(acc).all()
+    assert float(out.min()) >= 0.0 and float(out.max()) <= 1.0 and float(out.std()) > 0.0
+
+
+def test_renderer_rejects_unported_intersector():
     with pytest.raises(NotImplementedError):
-        ttrace.render_frame(data, params, width=8, height=8, aspect=1.0)
-    assert dataclasses.is_dataclass(data)
+        tpt.Renderer(tpt.default_scene(), tpt.Camera.create(), device="cpu",
+                     config=tpt.RenderConfig(intersector="bvh8"))
 
 
 def test_envsample_matches_jax():

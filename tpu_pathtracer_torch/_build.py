@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-`nvcc` compiles every `csrc/*.cu` of the package into one shared library
-with a plain C interface, for sm_90a, without fast-math and with
-`-fmad=false` (no contraction of products and sums into FMAs, so kernels
-round like their plain PyTorch versions).  The library goes to
-`build/tpu_pathtracer_torch/` beside the package, named by a hash of the
-sources and flags, so a changed source rebuilds and an unchanged one loads
-at once.  `ctypes` binds it; every entry point returns a CUDA error code.
+`nvcc` compiles every `csrc/*.cu` of the package, one process per source,
+all started together, and links the objects into one shared library with a
+plain C interface, for sm_90a, without fast-math and with `-fmad=false` (no
+contraction of products and sums into FMAs, so kernels round like their
+plain PyTorch versions).  The library goes to `build/tpu_pathtracer_torch/`
+beside the package, named by a hash of the sources, the shared headers
+(`csrc/*.cuh`) and the flags, so a changed source or header rebuilds and an
+unchanged tree loads at once.  `ctypes` binds it; every entry point returns
+a CUDA error code.
 
 Nothing here runs at import: the first kernel launch calls `load()`.
 """
@@ -24,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "tpu_pathtracer_torch"
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
 
@@ -45,28 +47,46 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libtpt_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> list[tuple[int, str]]:
+    """Run the commands side by side; (exit code, output) of each, in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outputs = [proc.communicate()[0] for proc in procs]
+    return [(proc.returncode, text) for proc, text in zip(procs, outputs)]
+
+
 def build() -> Path:
     """Compile the kernels unless the library for these sources exists;
-    returns its path.  The compiler's output (with ptxas register and
+    returns its path.  The compilers' output (with ptxas register and
     shared-memory counts) is kept beside it as a .log file."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objs)]
+    results = _run_all(cmds)
+    if not any(rc for rc, _ in results):
+        cmds.append([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)])
+        results += _run_all(cmds[-1:])
+    out.with_suffix(".log").write_text(
+        "".join(" ".join(c) + "\n" + text for c, (_, text) in zip(cmds, results)))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    for cmd, (rc, text) in zip(cmds, results):
+        if rc:
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{text[-4000:]}")
     os.replace(tmp, out)
     return out
 
@@ -78,6 +98,8 @@ def load() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tpt_mt_nf.argtypes = [p] * 9 + [i] * 5 + [p]
     lib.tpt_mt_nf.restype = i
+    lib.tpt_mt_stream.argtypes = [p] * 12 + [i] * 6 + [p]
+    lib.tpt_mt_stream.restype = i
     lib.tpt_denoise.argtypes = [p, p, p, i, i, i, f, p]
     lib.tpt_denoise.restype = i
     lib.tpt_error_string.argtypes = [i]

@@ -24,11 +24,13 @@ class RenderConfig:
     """Shape-defining render settings.
 
     Defaults follow the reference: 64 frames x 1 spp progressive budget,
-    4 bounces, scaling factor 1.  `intersector` accepts 'auto' and
-    'mt_pallas' (both the near-to-far MT kernel path); `blue_noise` and a
-    non-zero `sort_window` are not ported yet and raise NotImplementedError.  `tile_rays` is the MT kernel's ray-tile
-    width (positive multiple of 128, default 512); `sort_bounces` is how
-    many leading bounces re-bin the ray state (default 2).
+    4 bounces, scaling factor 1.  `intersector` accepts 'auto' (the
+    near-to-far MT kernel up to 8,192 padded triangles, the streamed one up
+    to 262,144), 'mt_pallas' and 'mt_stream'; `blue_noise` and a non-zero
+    `sort_window` are not ported yet and raise NotImplementedError.
+    `tile_rays` is the MT kernels' ray-tile width (positive multiple of
+    128, default 512); `sort_bounces` is how many leading bounces re-bin
+    the ray state (default 2).
     """
 
     width: int = 256

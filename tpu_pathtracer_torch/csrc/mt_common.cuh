@@ -1,0 +1,124 @@
+// Device code shared by the port's Möller–Trumbore kernels (mt_shade.cu,
+// mt_stream.cu), so both round identically.
+//
+// Everything here mirrors an elementwise step of the plain PyTorch versions
+// (ops/mt_matmul.py `determinants`, `epilogue`, `nearest`; ops/kernels/
+// mt_shade.py `_slab_entries`, `_parked_lanes`) one rounding per operation:
+// the library is built with -fmad=false, products and sums are __fmul_rn /
+// __fadd_rn in the plain version's order, and reciprocals are correctly
+// rounded.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace tpt {
+
+constexpr float kInf = 1e20f;      // raytrace.wgsl:6 (finite sentinel)
+constexpr float kEpsilon = 1e-6f;  // raytrace.wgsl:7
+constexpr int kMaxThreads = 512;   // threads per block; RPT rays each
+
+struct Best {
+  float t;
+  int idx;
+  float u;
+  float v;
+};
+
+// Evaluate one ray (phi[10]) against the staged sub-treelet `rows`
+// ([4][SUB][10], quantity-major inside the sub) whose first triangle is
+// s0, and fold the sub's nearest valid hit into `best` with the
+// lowest-index tie rule.
+template <int SUB>
+__device__ __forceinline__ void eval_sub(const float* __restrict__ rows,
+                                         const float phi[10], int s0,
+                                         Best& best) {
+  float st = kInf;  // nearest valid t in this sub, lowest index on ties
+  int si = 0x7fffffff;
+  float su = 0.f, sv = 0.f;
+#pragma unroll 4
+  for (int i = 0; i < SUB; ++i) {
+    const float* ca = rows + (0 * SUB + i) * 10;
+    const float* cu = rows + (1 * SUB + i) * 10;
+    const float* cv = rows + (2 * SUB + i) * 10;
+    const float* ct = rows + (3 * SUB + i) * 10;
+    // determinants, summed in FEATS order: a (4,5,6), ua/va (4..9), ta (0..3)
+    float a = __fmul_rn(ca[4], phi[4]);
+    a = __fadd_rn(a, __fmul_rn(ca[5], phi[5]));
+    a = __fadd_rn(a, __fmul_rn(ca[6], phi[6]));
+    float ua = __fmul_rn(cu[4], phi[4]);
+    float va = __fmul_rn(cv[4], phi[4]);
+#pragma unroll
+    for (int k = 5; k < 10; ++k) {
+      ua = __fadd_rn(ua, __fmul_rn(cu[k], phi[k]));
+      va = __fadd_rn(va, __fmul_rn(cv[k], phi[k]));
+    }
+    float ta = __fmul_rn(ct[0], phi[0]);
+#pragma unroll
+    for (int k = 1; k < 4; ++k) ta = __fadd_rn(ta, __fmul_rn(ct[k], phi[k]));
+
+    // validity in the multiplied-through form (ts > EPSILON*|a|)
+    const float abs_a = fabsf(a);
+    const float sa = a > 0.f ? 1.f : (a < 0.f ? -1.f : 0.f);
+    const float us = __fmul_rn(ua, sa);
+    const float vs = __fmul_rn(va, sa);
+    const float ts = __fmul_rn(ta, sa);
+    const bool valid = abs_a >= kEpsilon && us >= 0.f && us <= abs_a &&
+                       vs >= 0.f && __fadd_rn(us, vs) <= abs_a &&
+                       ts > __fmul_rn(kEpsilon, abs_a);
+    if (valid) {
+      const float f = __frcp_rn(a);
+      const float t = __fmul_rn(ta, f);
+      if (t < st) {
+        st = t;
+        si = s0 + i;
+        su = __fmul_rn(ua, f);
+        sv = __fmul_rn(va, f);
+      }
+    }
+  }
+  const bool take =
+      st < best.t || (st == best.t && st < kInf && si < best.idx);
+  if (take) best = Best{st, si, su, sv};
+}
+
+// Load ray `ray` (or, for a lane past the tile, any ray of the tile) from
+// the (10, r_pad) feature matrix and return its initial best: parked
+// lanes (rd = 0), padding lanes (|rd| >= 1e30) and lanes past the tile
+// start at -INF, so they never take a hit and never hold a walk open.
+__device__ __forceinline__ Best load_ray(const float* __restrict__ phi_t,
+                                         int r_pad, int ray, int tile_ray0,
+                                         float phi[10]) {
+  const int r = ray < 0 ? tile_ray0 : ray;
+#pragma unroll
+  for (int f = 0; f < 10; ++f) phi[f] = phi_t[f * r_pad + r];
+  const float ax = fabsf(phi[4]);
+  const bool parked =
+      ray < 0 || __fadd_rn(__fadd_rn(ax, fabsf(phi[5])), fabsf(phi[6])) == 0.f ||
+      ax >= 1e30f;
+  return Best{parked ? -kInf : kInf, -1, 0.f, 0.f};
+}
+
+// Block-wide max of `m` (every thread of the block calls it).  `warp_max`
+// holds kMaxThreads / 32 floats of shared memory, `result` one.
+__device__ __forceinline__ float block_max(float m, float* warp_max,
+                                           float* result) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int n_warps = (blockDim.x + 31) >> 5;
+    float w = threadIdx.x < n_warps ? warp_max[threadIdx.x] : -CUDART_INF_F;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      w = fmaxf(w, __shfl_xor_sync(0xffffffffu, w, o));
+    if (threadIdx.x == 0) *result = w;
+  }
+  __syncthreads();
+  return *result;
+}
+
+}  // namespace tpt

@@ -38,8 +38,12 @@ TILE_RAYS = 512  # rays per tile (one CUDA block)
 CHUNK_TRIS = 128  # triangle padding granule
 SUB_TRIS = 64  # sub-treelet: the unit of culling and of one staged block
 MAX_TILES = 512  # tiles widen past this many (the JAX contract's list cap)
-# Scenes above this padded size go to the streamed kernel, not ported yet.
+# The JAX contract's size limits: scenes above MT_SHADE_MAX_TRIS go to the
+# streamed kernel (mt_stream.py), whose super-treelets are
+# CHUNKS_PER_SUPER chunks, up to MT_STREAM2_MAX_TRIS triangles.
 MT_SHADE_MAX_TRIS = 8192
+CHUNKS_PER_SUPER = 16
+MT_STREAM2_MAX_TRIS = 262144
 
 
 def _pad_to(x, size: int, dim: int, value: float = 0.0):
@@ -64,23 +68,24 @@ def treelet_boxes(tri_pos, chunk: int = CHUNK_TRIS):
 
 
 def _slab_entries(boxes, ro, rd, par, inv):
-    """Conservative slab entry distances of (K, 8) boxes vs (3, R) rays:
-    (K, R) f32 entry distance, INF where the box is missed.  Parallel axes
-    require containment."""
+    """Conservative slab entry distances of (..., K, 8) boxes vs (..., 3, R)
+    rays (leading dims equal): (..., K, R) f32 entry distance, INF where the
+    box is missed.  Parallel axes require containment."""
     inf = float(INF)
-    k_boxes, r = boxes.shape[0], ro.shape[1]
-    hit_par = torch.ones((k_boxes, r), dtype=torch.bool, device=ro.device)
-    tmin_all = torch.full((k_boxes, r), -inf, device=ro.device)
-    tmax_all = torch.full((k_boxes, r), inf, device=ro.device)
+    shape = (*boxes.shape[:-1], ro.shape[-1])
+    hit_par = torch.ones(shape, dtype=torch.bool, device=ro.device)
+    tmin_all = torch.full(shape, -inf, device=ro.device)
+    tmax_all = torch.full(shape, inf, device=ro.device)
     for k in range(3):
-        pk = par[k][None, :]
-        lo_b = boxes[:, k, None]
-        hi_b = boxes[:, k + 3, None]
-        lo = (lo_b - ro[k][None, :]) * inv[k][None, :]
-        hi = (hi_b - ro[k][None, :]) * inv[k][None, :]
+        pk = par[..., k, None, :]
+        o = ro[..., k, None, :]
+        lo_b = boxes[..., k, None]
+        hi_b = boxes[..., k + 3, None]
+        lo = (lo_b - o) * inv[..., k, None, :]
+        hi = (hi_b - o) * inv[..., k, None, :]
         tn = torch.where(pk, -inf, torch.minimum(lo, hi))
         tf = torch.where(pk, inf, torch.maximum(lo, hi))
-        inside = (ro[k][None, :] >= lo_b) & (ro[k][None, :] <= hi_b)
+        inside = (o >= lo_b) & (o <= hi_b)
         hit_par &= ~pk | inside
         tmin_all = torch.maximum(tmin_all, tn)
         tmax_all = torch.minimum(tmax_all, tf)
@@ -124,6 +129,19 @@ def _precull_live_subs(sub_boxes, phi_t, tile_rays: int):
     return counts, lists.T.to(torch.int32).contiguous(), emins.T.contiguous()
 
 
+def _dead_pad_boxes(boxes, n_real: int, granule: int):
+    """Give treelets made only of padding rows the impossible box
+    [+INF]*3, [-INF]*3, 0, 0, which every slab test misses (`treelet_boxes`
+    pulls padding toward the origin, which a ray there would hit)."""
+    first_dead = -(-n_real // granule)
+    if first_dead >= boxes.shape[0]:
+        return boxes
+    inf = float(INF)
+    out = boxes.clone()
+    out[first_dead:] = torch.tensor([inf] * 3 + [-inf] * 3 + [0.0, 0.0], device=boxes.device)
+    return out
+
+
 def _pack_subblock_major(cols, sub: int):
     """(10, 4, Np) coefficients -> (4*Np, 10) sub-block-major rows: row
     b*4*sub + q*sub + i holds quantity q of triangle b*sub + i, so one
@@ -143,57 +161,83 @@ def _tile_rays(override) -> int:
 def _prepare(tri_pos, phi_t, tile_rays):
     """Padding, coefficient packing and precull shared by kernel and plain
     version.  Returns (phi_pad, cols_rows, counts, lists, emins, tile_rays)."""
-    n, r = tri_pos.shape[0], phi_t.shape[1]
+    n = tri_pos.shape[0]
     if n > MT_SHADE_MAX_TRIS:
-        raise NotImplementedError(
-            f"the near-to-far MT kernel holds <= {MT_SHADE_MAX_TRIS} triangles (got {n}); "
-            "the streamed large-scene kernel is not ported yet (ROADMAP.md, TPU kernels)")
-    tile_rays = _tile_rays(tile_rays)
-    while -(-r // tile_rays) > MAX_TILES:
-        tile_rays *= 2
+        raise ValueError(
+            f"mt_pallas supports <= {MT_SHADE_MAX_TRIS} triangles (got {n}); use 'mt_stream'")
+    tile_rays = _widened_tile(tile_rays, phi_t.shape[1])
     n_pad = -(-n // CHUNK_TRIS) * CHUNK_TRIS
-    r_pad = -(-r // tile_rays) * tile_rays
     tri_padded = _pad_to(tri_pos, n_pad, 0)
     cols_rows = _pack_subblock_major(triangle_columns(tri_padded), SUB_TRIS)
     sub_boxes = treelet_boxes(tri_padded, SUB_TRIS)
-    phi_pad = _pad_to(phi_t, r_pad, 1, value=1e30).contiguous()
+    phi_pad = _pad_rays(phi_t, tile_rays)
     counts, lists, emins = _precull_live_subs(sub_boxes, phi_pad, tile_rays)
     return phi_pad, cols_rows, counts, lists, emins, tile_rays
 
 
-def _walk_plain(phi_pad, cols_rows, counts, lists, emins, tile_rays: int,
-                tiles_per_chunk: int = 128):
+def _widened_tile(override, r: int) -> int:
+    """The ray-tile width for R rays: doubled while there are more than
+    MAX_TILES tiles."""
+    tile_rays = _tile_rays(override)
+    while -(-r // tile_rays) > MAX_TILES:
+        tile_rays *= 2
+    return tile_rays
+
+
+def _pad_rays(phi_t, tile_rays: int):
+    """(10, R) ray features padded with 1e30 (lanes that never hit) to a
+    tile multiple."""
+    return _pad_to(phi_t, -(-phi_t.shape[1] // tile_rays) * tile_rays, 1, value=1e30).contiguous()
+
+
+def _walk_start(phi_pad, n_tiles: int, tile_rays: int):
+    """Per-tile ray features (T, 10, TR) and the initial best state
+    [t, idx, u, v], each (T, TR): parked and padding lanes start at -INF."""
+    inf = float(INF)
+    phi = phi_pad.reshape(10, n_tiles, tile_rays).permute(1, 0, 2)
+    parked = _parked_lanes(phi[:, 4:7].permute(1, 0, 2))
+    t = torch.where(parked, -inf, inf)
+    return phi, [t, torch.full_like(t, -1, dtype=torch.int32), torch.zeros_like(t),
+                 torch.zeros_like(t)]
+
+
+def _fold_subs(phi, coef, tiles, subs, best, tiles_per_chunk: int = 128):
+    """Evaluate sub-treelet subs[i] against every ray of tile tiles[i] and
+    fold its nearest hit into `best` in place with the kernels' take rule
+    (exact-t ties to the lower index).  coef: (Ms, 4, sub, 10)."""
+    inf = float(INF)
+    t, idx, u, v = best
+    sub = coef.shape[2]
+    for c0 in range(0, tiles.numel(), tiles_per_chunk):
+        tc = tiles[c0:c0 + tiles_per_chunk]
+        s = subs[c0:c0 + tiles_per_chunk].long()
+        tt, uu, vv = epilogue(*determinants(phi[tc], coef[s]))  # (Tc, sub, TR)
+        tmin, imin, u_w, v_w = nearest(tt, uu, vv, (s * sub).to(torch.int32))
+        cur_t, cur_i = t[tc], idx[tc]
+        take = (tmin < cur_t) | ((tmin == cur_t) & (tmin < inf) & (imin < cur_i))
+        t[tc] = torch.where(take, tmin, cur_t)
+        idx[tc] = torch.where(take, imin, cur_i)
+        u[tc] = torch.where(take, u_w, u[tc])
+        v[tc] = torch.where(take, v_w, v[tc])
+
+
+def _walk_plain(phi_pad, cols_rows, counts, lists, emins, tile_rays: int):
     """The kernel's walk in torch ops: step j evaluates entry j of every
     tile still walking, then refreshes those tiles' largest live t."""
-    inf = float(INF)
     n_tiles, ms = lists.shape
-    phi = phi_pad.reshape(10, n_tiles, tile_rays).permute(1, 0, 2)  # (T, 10, TR)
+    phi, best = _walk_start(phi_pad, n_tiles, tile_rays)
     coef = cols_rows.reshape(-1, 4, SUB_TRIS, 10)  # (Ms, 4, sub, 10)
-    parked = _parked_lanes(phi[:, 4:7].permute(1, 0, 2))  # (T, TR)
-    t = torch.where(parked, -inf, inf)
-    idx = torch.full_like(t, -1, dtype=torch.int32)
-    u = torch.zeros_like(t)
-    v = torch.zeros_like(t)
-    tmax = torch.full((n_tiles,), inf, device=t.device)
+    t = best[0]
+    tmax = torch.full((n_tiles,), float(INF), device=t.device)
     walking = torch.ones((n_tiles,), dtype=torch.bool, device=t.device)
     for j in range(ms):
         walking &= (counts > j) & (emins[:, j] < tmax)
         tiles = walking.nonzero().squeeze(1)
         if tiles.numel() == 0:
             break
-        for c0 in range(0, tiles.numel(), tiles_per_chunk):
-            tc = tiles[c0:c0 + tiles_per_chunk]
-            s = lists[tc, j].long()
-            tt, uu, vv = epilogue(*determinants(phi[tc], coef[s]))  # (Tc, sub, TR)
-            tmin, imin, u_w, v_w = nearest(tt, uu, vv, (s * SUB_TRIS).to(torch.int32))
-            cur_t, cur_i = t[tc], idx[tc]
-            take = (tmin < cur_t) | ((tmin == cur_t) & (tmin < inf) & (imin < cur_i))
-            t[tc] = torch.where(take, tmin, cur_t)
-            idx[tc] = torch.where(take, imin, cur_i)
-            u[tc] = torch.where(take, u_w, u[tc])
-            v[tc] = torch.where(take, v_w, v[tc])
+        _fold_subs(phi, coef, tiles, lists[tiles, j], best)
         tmax[tiles] = t[tiles].amax(dim=1)
-    return t.reshape(-1), idx.reshape(-1), u.reshape(-1), v.reshape(-1)
+    return tuple(x.reshape(-1) for x in best)
 
 
 def _walk_cuda(phi_pad, cols_rows, counts, lists, emins, tile_rays: int):
@@ -224,11 +268,11 @@ def _walk_cuda(phi_pad, cols_rows, counts, lists, emins, tile_rays: int):
     return t, idx, u, v
 
 
-def _intersect(tri_pos, phi_t, tile_rays, walk) -> Hit:
+def _intersect(tri_pos, phi_t, tile_rays, walk, prepare=_prepare) -> Hit:
     r = phi_t.shape[1]
     if tri_pos.shape[0] == 0 or r == 0:
         return miss_hit(r, phi_t.device)
-    t, idx, u, v = walk(*_prepare(tri_pos, phi_t, tile_rays))
+    t, idx, u, v = walk(*prepare(tri_pos, phi_t, tile_rays))
     idx = idx[:r]
     return Hit(idx >= 0, t[:r], idx, u[:r], v[:r])
 

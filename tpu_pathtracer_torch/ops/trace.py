@@ -5,7 +5,8 @@ The port of the fused branch of `tpu_pathtracer.ops.trace`
 scene takes.  Per-ray math and RNG streams follow the reference's single
 compute kernel (reference: src/passes/shaders/raytrace.wgsl:373-478):
 
-  * per bounce: ray features -> near-to-far MT kernel -> `bounce_shade_t`
+  * per bounce: ray features -> MT kernel (near-to-far up to 8,192 padded
+    triangles, streamed up to 262,144) -> `bounce_shade_t`
     (cosine-hemisphere diffuse or mirror specular chosen with probability
     metalness, blended by roughness without renormalising; throughput
     *= mix(color, specular_color, is_specular); emission added on hits);
@@ -33,6 +34,7 @@ from . import envsample, rng
 from .kernels.mt_shade import (
     CHUNK_TRIS,
     MT_SHADE_MAX_TRIS,
+    MT_STREAM2_MAX_TRIS,
     _pad_to,
     _slab_entries,
     _slab_setup,
@@ -40,29 +42,37 @@ from .kernels.mt_shade import (
     mt_intersect_nf_phi_plain,
     treelet_boxes,
 )
+from .kernels.mt_stream import mt_intersect_stream2_phi, mt_intersect_stream2_phi_plain
 from .vecmath import INF, mix
 
-_JAX_INTERSECTORS = ("mt", "mt_stream", "bvh", "bvh8")
+_UNPORTED_INTERSECTORS = ("mt", "bvh", "bvh8")
 _SORT_BOUNCES = 2  # leading bounces that re-bin the ray state
 _DIR_BINS = 96  # 6 dominant-axis half-spaces x 4x4 quantized minor axes
 _KEY_SENTINEL = 2**31 - 1  # coherence key of inactive rays: sorts last
 
 
 def resolve_intersector(intersector: str, n_tris: int) -> str:
-    """'auto' and 'mt_pallas' both resolve to the near-to-far MT kernel path
-    on every device (on the CPU that path runs the kernel's plain version).
-    The other intersectors of the JAX package, and scenes past the kernel's
-    8192-triangle size, are not ported yet."""
-    if intersector in _JAX_INTERSECTORS:
+    """Resolve 'auto' as the JAX package does on an accelerator, on every
+    device (on the CPU the kernels run their plain versions): the
+    near-to-far MT kernel ('mt_pallas') up to 8,192 padded triangles, the
+    streamed MT kernel ('mt_stream') up to 262,144.  Larger scenes need the
+    'bvh8' traversal, which is not ported yet; nor are 'mt' and 'bvh'.  An
+    explicit 'mt_pallas' or 'mt_stream' is returned as it is: its wrapper
+    rejects a scene too large for it."""
+    if intersector == "auto":
+        if n_tris <= MT_SHADE_MAX_TRIS:
+            return "mt_pallas"
+        if n_tris <= MT_STREAM2_MAX_TRIS:
+            return "mt_stream"
+        raise NotImplementedError(
+            f"scenes above {MT_STREAM2_MAX_TRIS} padded triangles need the 'bvh8' traversal, "
+            "which is not ported yet (ROADMAP.md, modules item 9)")
+    if intersector in _UNPORTED_INTERSECTORS:
         raise NotImplementedError(
             f"intersector {intersector!r} is not ported yet; use 'auto' (ROADMAP.md)")
-    if intersector not in ("auto", "mt_pallas"):
+    if intersector not in ("mt_pallas", "mt_stream"):
         raise ValueError(f"unknown intersector {intersector!r}")
-    if n_tris > MT_SHADE_MAX_TRIS:
-        raise NotImplementedError(
-            f"scenes above {MT_SHADE_MAX_TRIS} padded triangles need the streamed MT "
-            "kernel, which is not ported yet (ROADMAP.md, TPU kernels)")
-    return "mt_pallas"
+    return intersector
 
 
 def pack_material_rows(materials):
@@ -303,7 +313,7 @@ def render_frame(scene, params, *, width: int, height: int, aspect: float,
     if sort_window:
         raise NotImplementedError("windowed binning sort is not ported yet (ROADMAP.md)")
     tri_pos = scene.packed.tri_pos
-    resolve_intersector(intersector, tri_pos.shape[0])
+    kind = resolve_intersector(intersector, tri_pos.shape[0])
     device = tri_pos.device
 
     xs, ys = blocked_pixel_grid(height, width, device)
@@ -313,7 +323,10 @@ def render_frame(scene, params, *, width: int, height: int, aspect: float,
     base_o, base_d = camera_ops.camera_rays(params.camera, uv, aspect)
     resolution = torch.tensor([width, height], dtype=torch.float32, device=device)
 
-    intersect = mt_intersect_nf_phi_plain if plain else mt_intersect_nf_phi
+    if kind == "mt_stream":
+        intersect = mt_intersect_stream2_phi_plain if plain else mt_intersect_stream2_phi
+    else:
+        intersect = mt_intersect_nf_phi_plain if plain else mt_intersect_nf_phi
     shade_mat = pack_shade_material_rows(scene)
     env_patches = envsample.pack_env_patches(scene.env.radiance)
     acc = torch.zeros((height * width, 3), dtype=torch.float32, device=device)

@@ -101,8 +101,7 @@ class Renderer:
             raise NotImplementedError("blue-noise AA jitter is not ported yet (ROADMAP.md)")
         if c.sort_window:
             raise NotImplementedError("windowed binning sort is not ported yet (ROADMAP.md)")
-        if c.intersector != "auto":
-            resolve_intersector(c.intersector, 0)
+        resolve_intersector(c.intersector, 0)  # rejects unknown and unported names
         self._step = make_frame_step(
             c.scaled_width, c.scaled_height, aspect=c.width / c.height,
             samples_per_frame=c.samples_per_frame, max_bounces=c.max_bounces,
