@@ -3,31 +3,41 @@
     python3 chip_smoke.py [--profile] [--out DIR]
 
 Builds the port's CUDA kernels from csrc/, holds each against its plain
-PyTorch version on the card, then drives two paths once each through the
-public entry points, `Renderer(...).render_all()` and `display()`:
+PyTorch version on the card, then drives three paths once each through the
+public entry points:
 
-  * headline: the default scene (1,998 triangles) at 512x512, 1 sample per
-    pixel, 4 bounces, 16 frames, with denoise and ACES; its intersections
-    go through the near-to-far MT kernel (csrc/mt_shade.cu);
-  * stress: the JAX sweep's stress100K_512 scene (a 101,760-triangle
-    sphere and a plane, padded to 131,072) at 512x512, 1 sample per pixel,
-    6 bounces, 4 frames; its intersections go through the streamed MT
-    kernel (csrc/mt_stream.cu).
+  * headline: `Renderer(...).render_all()` and `display()` on the default
+    scene (1,998 triangles) at 512x512, 1 sample per pixel, 4 bounces, 16
+    frames, with denoise and ACES; its intersections go through the
+    near-to-far MT kernel (csrc/mt_shade.cu);
+  * stress: the same on the JAX sweep's stress100K_512 scene (a
+    101,760-triangle sphere and a plane, padded to 131,072) at 512x512, 1
+    sample per pixel, 6 bounces, 4 frames; its intersections go through
+    the streamed MT kernel (csrc/mt_stream.cu);
+  * training: `diff.invert` with the JAX CLI's `invert` defaults (the
+    default scene under a 512x1024 gradient sky, 256x256, 1 sample per
+    pixel, 4 bounces, materials.color from np.random.default_rng(0), Adam
+    at 5e-2, 60 steps), through the near-to-far kernel and torch autograd;
+    then the loss gradient at the initial colors with TPT_CULL=list and
+    =cond, through the list and cond kernels (csrc/mt_shade.cu).
 
 For each path it checks that the path's kernels were launched in that run
-(and the other MT kernel not), that the image is finite and in [0, 1], and
-that a frame rendered through the kernels matches the same frame through
-the plain versions; then it times both with CUDA events.  The streamed
-kernel is also held to its plain version's per-tile walk counts (supers
-walked, chunks staged, subs evaluated), so the two made the same culling
+(and the other MT kernels not), that what comes out is right (images
+finite and in [0, 1], a frame through the kernels matching the same frame
+through the plain versions; the CLI's rule final loss < 0.5 x first loss;
+list and cond gradients matching nf's), and times it with CUDA events
+against the plain versions.  Every culling variant (nf, list, cond) is
+held bit for bit to its plain version at sub-treelets of 32, 64 and 128
+triangles on the headline rays; the cond and streamed kernels also to
+their plain versions' per-tile walk counts, so they made the same culling
 decisions.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Any failed check raises, so
 the exit code is not 0 and no result line is printed.  Without a CUDA
 device the script exits with code 2.  `--profile` adds a torch.profiler
-table of one kernel-path frame of each path; `--out DIR` writes the full
-results there as chip_smoke.json.
+table of one kernel-path frame of the render paths and of one training
+step; `--out DIR` writes the full results there as chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -51,6 +61,9 @@ STRESS_SPHERE = (0.5, 320, 160)  # bench.py:105, mesh_scene(320): 101,760 triang
 CAMERA = dict(position=(0.0, 1.0, 4.0), look_at=(0.0, 0.5, 0.0), fov=45.0)
 DENOISE_TOL = dict(atol=2e-5, rtol=1e-4)  # tests/test_pallas_denoise.py
 MT_TOL = 0.0  # kernel and plain version share every rounding step
+INVERT_SIZE = 256  # the JAX CLI's `invert` defaults (cli.py:27-62, 398-402)
+INVERT_STEPS = 60
+INVERT_LR = 5e-2
 
 
 def _card() -> str:
@@ -189,22 +202,211 @@ def _drive(pt, scene, config, counters, png: Path):
     return launches, seconds, renderer, float(image.mean())
 
 
-def _profile(trace, data, frame_params, kw, tag, results, key):
+def _profile(fn, tag, results, key, what="frame"):
+    """A torch.profiler table of one run of `fn` after one warm-up run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    trace.render_frame(data, frame_params, **kw)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trace.render_frame(data, frame_params, **kw)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=30)
-    print(f"profiled {key} frame {tag}: wall {wall_ms:.3f} ms under the profiler")
+    print(f"profiled {key} {what} {tag}: wall {wall_ms:.3f} ms under the profiler")
     print(table)
     results[f"{key}_profile_wall_ms"] = wall_ms
     results[f"{key}_profile_table"] = table
+
+
+# The whole-scene MT wrapper's culling variants and the sub-treelet sizes
+# at which each is held to its plain version.
+CULLS = ("nf", "list", "cond")
+SUBS = (32, 64, 128)
+
+
+def _cull_phase(mt_shade, tri_pos, rays, results, tag):
+    """Every culling variant at every sub-treelet size against its plain
+    version on the headline rays: 0 hit/tri mismatches, t/u/v within MT_TOL,
+    and for cond equal per-tile walk counts.  Prints the hit/tri
+    mismatches against nf (information: exact-t ties may resolve to
+    another triangle) and times the kernel and plain walks on the primary
+    rays.  Returns {cull: (worst difference, wrapper ms, plain wrapper ms)}
+    at the default sub."""
+    import functools
+
+    import torch
+
+    walks = {
+        "nf": (mt_shade._prepare, mt_shade._walk_cuda, mt_shade._walk_plain),
+        "list": (mt_shade._prepare_list, mt_shade._walk_list_cuda, mt_shade._walk_list_plain),
+        "cond": (mt_shade._prepare_cond, mt_shade._walk_cond_cuda, mt_shade._walk_cond_plain),
+    }
+    nf_hits = {what: mt_shade.mt_intersect_nf_phi_plain(tri_pos, phi) for what, (phi, _) in
+               rays.items()}
+    out = {}
+    for cull in CULLS:
+        kernel, plain = mt_shade._ROUTES[cull]
+        worst = 0.0
+        for sub in SUBS:
+            name = f"mt_{cull}_sub{sub}"
+            worst = max(worst, _kernel_vs_plain(
+                name, tri_pos, rays, functools.partial(kernel, sub=sub),
+                functools.partial(plain, sub=sub), results))
+            for what, (phi, _) in rays.items():
+                hk = kernel(tri_pos, phi, sub=sub)
+                vs_nf = int(((hk.hit != nf_hits[what].hit) | (hk.tri != nf_hits[what].tri)).sum())
+                results[f"{name}_{what}"]["mismatches_vs_nf"] = vs_nf
+                line = f"{name} {what}: hit/tri mismatches against nf {vs_nf} (information)"
+                if cull == "cond":
+                    sk = mt_shade.cond_walk_stats(tri_pos, phi, sub=sub)
+                    sp = mt_shade.cond_walk_stats(tri_pos, phi, sub=sub, plain=True)
+                    _check(torch.equal(sk, sp), f"{name} {what}: walk counts differ from plain")
+                    live, evaluated = (int(x) for x in sk.sum(dim=0))
+                    results[f"{name}_{what}"].update(chunks_live=live, subs_evaluated=evaluated)
+                    line += (f"; walk counts equal to the plain walk's over {sk.shape[0]} tiles: "
+                             f"{live} chunks live, {evaluated} subs evaluated")
+                print(line)
+            phi = rays["primary"][0]
+            prepare, walk_k, walk_p = walks[cull]
+            prep = prepare(tri_pos, phi, None, sub)
+            walk_ms = _time_ms(lambda: walk_k(*prep), 3, 20)
+            walk_plain_ms = _time_ms(lambda: walk_p(*prep), 1, 3)
+            results[f"{name}_walk_ms"], results[f"{name}_walk_plain_ms"] = walk_ms, walk_plain_ms
+            print(f"timing {tag}: {name} primary kernel walk {walk_ms:.3f} ms, plain walk "
+                  f"{walk_plain_ms:.3f} ms")
+            del prep
+        phi = rays["primary"][0]
+        ms = _time_ms(lambda: kernel(tri_pos, phi), 3, 20)
+        plain_ms = _time_ms(lambda: plain(tri_pos, phi), 1, 3)
+        print(f"timing {tag}: mt_{cull} primary wrapper (sub 64) {ms:.3f} ms, plain wrapper "
+              f"{plain_ms:.3f} ms")
+        results[f"mt_{cull}_ms"], results[f"mt_{cull}_plain_ms"] = ms, plain_ms
+        out[cull] = (worst, ms, plain_ms)
+    return out
+
+
+def _training_phase(pt, counters, results, tag, profile: bool):
+    """The training path: the JAX CLI's `invert` defaults through
+    `diff.invert` on the card, with every launch count set to 0 just before
+    and read just after; then the loss gradient at the initial colors under
+    TPT_CULL=list and =cond against nf's.  Returns {cull: launches of the
+    list and cond kernels in their gradient runs}."""
+    import dataclasses
+    import os
+
+    import numpy as np
+    import torch
+
+    from tpu_pathtracer_torch import diff
+    from tpu_pathtracer_torch.scene.envmap import gradient_sky
+
+    dev = torch.device("cuda")
+    data = pt.default_scene(gradient_sky(512, 1024)).compile(device=dev)
+    params = pt.RenderParams.create(pt.Camera.create(**CAMERA, device=dev), frame=1)
+    kw = dict(width=INVERT_SIZE, height=INVERT_SIZE, aspect=1.0, samples_per_frame=1,
+              max_bounces=BOUNCES)
+    target = diff.render_frame_diff(data, params, **kw).detach()
+    true_color = data.materials.color
+    n_mat = true_color.shape[0]
+    wrong = torch.from_numpy(np.random.default_rng(0).random((n_mat, 3)).astype(np.float32))
+    bad = dataclasses.replace(data, materials=dataclasses.replace(data.materials,
+                                                                  color=wrong.to(dev)))
+    run = dict(steps=INVERT_STEPS, learning_rate=INVERT_LR, **kw)
+
+    print(f"training main path: diff.invert, {n_mat} materials, {INVERT_SIZE}x{INVERT_SIZE}, "
+          f"{BOUNCES} bounces, {INVERT_STEPS} Adam steps at lr {INVERT_LR}")
+    for fn in counters.values():
+        fn.launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    res = diff.invert(bad, params, target, ["materials.color"], **run)
+    end.record()
+    end.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    step_ms = start.elapsed_time(end) / INVERT_STEPS
+    losses = res.losses
+    err = float((res.values["materials.color"] - true_color).abs().max())
+    print(f"  {INVERT_STEPS} steps in {seconds:.2f} s (first step included); launches {launches}; "
+          f"loss {losses[0]:.6g} -> {losses[-1]:.6g} (rule: < 0.5 x first); "
+          f"color_max_abs_err {err:.4f}")
+    _check(all(math.isfinite(x) for x in losses), "non-finite loss")
+    _check(losses[-1] < 0.5 * losses[0], f"invert: final loss {losses[-1]} >= 0.5 x {losses[0]}")
+    _check(launches["mt_nf"] >= INVERT_STEPS, f"mt_nf launches {launches}")
+    for other in ("mt_list", "mt_cond", "mt_stream"):
+        _check(launches[other] == 0, f"{other} launched on the training path: {launches}")
+
+    # the same problem through the plain versions: the first loss is the
+    # same forward frame
+    res_p = diff.invert(bad, params, target, ["materials.color"], plain=True,
+                        **{**run, "steps": 1})
+    _check(abs(res_p.losses[0] - losses[0]) <= 1e-6 * losses[0],
+           f"first loss through the plain versions {res_p.losses[0]} != {losses[0]}")
+
+    # warm steps, as `invert` takes them: median of 10 on the kernel path, of
+    # 3 on the plain path
+    loss_p = {}
+    for plain in (False, True):
+        loss = diff.make_loss(target, plain=plain, **kw)
+        loss_p[plain] = diff.make_param_loss(loss, bad, params, ["materials.color"])
+    steps = {}
+    for plain in (False, True):
+        leaf = wrong.to(dev).requires_grad_(True)
+        opt = torch.optim.Adam([leaf], lr=INVERT_LR)
+
+        def step(plain=plain, leaf=leaf, opt=opt):
+            opt.zero_grad(set_to_none=True)
+            value = loss_p[plain]({"materials.color": leaf})
+            value.backward()
+            opt.step()
+            float(value.detach())
+
+        steps[plain] = step
+    warm_ms = _time_ms(steps[False], 2, 10)
+    plain_ms = _time_ms(steps[True], 1, 3)
+    print(f"timing {tag}: training step kernel path {warm_ms:.3f} ms (median of 10 warm steps; "
+          f"{step_ms:.3f} ms mean over the {INVERT_STEPS} steps of invert, first included), "
+          f"plain path {plain_ms:.3f} ms (median of 3 warm steps)")
+    results.update(invert_launches=launches, invert_seconds=seconds, invert_step_ms=step_ms,
+                   step_ms=warm_ms, step_plain_ms=plain_ms, invert_losses=losses,
+                   invert_color_max_abs_err=err)
+
+    # the loss gradient at the initial colors through each culling kernel
+    def color_grad():
+        leaf = wrong.to(dev).requires_grad_(True)
+        return torch.autograd.grad(loss_p[False]({"materials.color": leaf}), leaf)[0]
+
+    saved = os.environ.get("TPT_CULL")
+    grads, cull_launches = {}, {}
+    try:
+        for cull in CULLS:
+            os.environ["TPT_CULL"] = cull
+            for fn in counters.values():
+                fn.launches = 0
+            grads[cull] = color_grad()
+            torch.cuda.synchronize()
+            cull_launches[cull] = {name: fn.launches for name, fn in counters.items()}
+            _check(cull_launches[cull][f"mt_{cull}"] >= 1,
+                   f"TPT_CULL={cull}: launches {cull_launches[cull]}")
+    finally:
+        if saved is None:
+            os.environ.pop("TPT_CULL", None)
+        else:
+            os.environ["TPT_CULL"] = saved
+    for cull in ("list", "cond"):
+        diff_max = float((grads[cull] - grads["nf"]).abs().max())
+        torch.testing.assert_close(grads[cull], grads["nf"], rtol=1e-3, atol=1e-5)
+        print(f"TPT_CULL={cull} loss gradient vs nf: max abs diff {diff_max:.3g} "
+              f"(rtol 1e-3, atol 1e-5); launches {cull_launches[cull]}")
+        results[f"grad_{cull}_vs_nf_max_abs_diff"] = diff_max
+    results["grad_cull_launches"] = cull_launches
+    if profile:
+        _profile(steps[False], tag, results, "training", what="step")
+    return {cull: cull_launches[cull][f"mt_{cull}"] for cull in ("list", "cond")}
 
 
 def main(argv=None) -> int:
@@ -238,6 +440,8 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     results: dict = {"card": card}
     counters = {"mt_nf": mt_shade.mt_intersect_nf_phi,
+                "mt_list": mt_shade.mt_intersect_list_phi,
+                "mt_cond": mt_shade.mt_intersect_cond_phi,
                 "mt_stream": mt_stream.mt_intersect_stream2_phi,
                 "denoise": kdenoise.smart_denoise}
 
@@ -262,6 +466,9 @@ def main(argv=None) -> int:
     mt_err = _kernel_vs_plain("mt", tri_pos, rays, mt_shade.mt_intersect_nf_phi,
                               mt_shade.mt_intersect_nf_phi_plain, results)
 
+    # --- cull phase: nf, list and cond at sub 32/64/128 vs plain ---------------
+    culls = _cull_phase(mt_shade, tri_pos, rays, results, tag)
+
     # --- denoise phase ------------------------------------------------------
     den_err = 0.0
     for h, w in ((512, 512), (1080, 1920), (300, 517)):
@@ -282,7 +489,8 @@ def main(argv=None) -> int:
     launches, main_s, renderer, mean = _drive(pt, scene, config, counters,
                                               ROOT / "build" / "chip_smoke_headline.png")
     _check(FRAMES <= launches["mt_nf"] <= FRAMES * BOUNCES, f"mt_nf launches {launches}")
-    _check(launches["mt_stream"] == 0, f"mt_stream launched on the headline path: {launches}")
+    for other in ("mt_list", "mt_cond", "mt_stream"):
+        _check(launches[other] == 0, f"{other} launched on the headline path: {launches}")
     _check(launches["denoise"] >= 1, "denoise kernel not launched")
     results.update(main_path_s=main_s, launches=launches, image_mean=mean)
 
@@ -321,7 +529,7 @@ def main(argv=None) -> int:
                    mt_walk_ms=walk_ms, mt_walk_plain_ms=walk_plain_ms, mt_prepare_ms=prep_ms,
                    denoise_ms=den_ms, denoise_plain_ms=den_plain_ms, display_ms=display_ms)
     if opts.profile:
-        _profile(trace, data, frame_params, kw, tag, results, "headline")
+        _profile(lambda: trace.render_frame(data, frame_params, **kw), tag, results, "headline")
     del renderer, img_k, img_p, prep
 
     # --- stress: streamed MT kernel vs plain on the stress scene's rays ------
@@ -361,7 +569,8 @@ def main(argv=None) -> int:
                                                       ROOT / "build" / "chip_smoke_stress.png")
     _check(STRESS_FRAMES <= s_launches["mt_stream"] <= STRESS_FRAMES * STRESS_BOUNCES,
            f"mt_stream launches {s_launches}")
-    _check(s_launches["mt_nf"] == 0, f"mt_nf launched on the stress path: {s_launches}")
+    for other in ("mt_nf", "mt_list", "mt_cond"):
+        _check(s_launches[other] == 0, f"{other} launched on the stress path: {s_launches}")
     results.update(stress_main_path_s=s_main_s, stress_launches=s_launches,
                    stress_image_mean=s_mean)
     del s_renderer
@@ -394,12 +603,17 @@ def main(argv=None) -> int:
                    stream_plain_ms=st_plain_ms, stream_walk_ms=st_walk_ms,
                    stream_walk_plain_ms=st_walk_plain_ms, stream_prepare_ms=st_prep_ms)
     if opts.profile:
-        _profile(trace, sdata, frame_params, s_kw, tag, results, "stress")
+        _profile(lambda: trace.render_frame(sdata, frame_params, **s_kw), tag, results, "stress")
+
+    del s_prep
+
+    # --- training main path: diff.invert, then list/cond gradients ------------
+    cull_launches = _training_phase(pt, counters, results, tag, opts.profile)
 
     kernels = [
         {"name": "mt_nf", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/mt_shade.cu",
          "replaces": "tpu_pathtracer/ops/pallas/mt_shade.py:308", "launches": launches["mt_nf"],
-         "max_abs_err": mt_err, "ms": mt_ms, "plain_ms": mt_plain_ms},
+         "max_abs_err": max(mt_err, culls["nf"][0]), "ms": mt_ms, "plain_ms": mt_plain_ms},
         {"name": "denoise", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/denoise.cu",
          "replaces": "tpu_pathtracer/ops/pallas/denoise.py:33",
          "launches": launches["denoise"], "max_abs_err": den_err, "ms": den_ms,
@@ -408,6 +622,10 @@ def main(argv=None) -> int:
          "replaces": "tpu_pathtracer/ops/pallas/mt_shade.py:628",
          "launches": s_launches["mt_stream"], "max_abs_err": stream_err, "ms": st_ms,
          "plain_ms": st_plain_ms},
+        *({"name": f"mt_{cull}", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/mt_shade.cu",
+           "replaces": f"tpu_pathtracer/ops/pallas/mt_shade.py:{line}",
+           "launches": cull_launches[cull], "max_abs_err": culls[cull][0], "ms": culls[cull][1],
+           "plain_ms": culls[cull][2]} for cull, line in (("list", 255), ("cond", 183))),
     ]
     results["kernels"] = kernels
     if opts.out:

@@ -20,7 +20,8 @@ from tpu_pathtracer_torch.ops import trace
 from tpu_pathtracer_torch.ops.kernels import denoise as kdenoise
 from tpu_pathtracer_torch.ops.kernels import mt_shade, mt_stream
 from tpu_pathtracer_torch.ops.mt_matmul import ray_features
-from tpu_pathtracer_torch.scene import primitives
+from tpu_pathtracer_torch.scene import envmap, primitives
+from tpu_pathtracer_torch.scene.convert import leaves_to_numpy
 from tpu_pathtracer_torch.scene.host import rotation_x
 
 
@@ -131,6 +132,106 @@ def test_stream_kernel_empty_and_oversized_scenes_launch_nothing(cuda):
     with pytest.raises(ValueError):
         mt_stream.mt_intersect_stream2_phi(torch.zeros((262145, 9), device=cuda), phi_t)
     assert mt_stream.mt_intersect_stream2_phi.launches == before
+
+
+CULL_WRAPPERS = {
+    "nf": (mt_shade.mt_intersect_nf_phi, mt_shade.mt_intersect_nf_phi_plain),
+    "list": (mt_shade.mt_intersect_list_phi, mt_shade.mt_intersect_list_phi_plain),
+    "cond": (mt_shade.mt_intersect_cond_phi, mt_shade.mt_intersect_cond_phi_plain),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub", [32, 64, 128])
+@pytest.mark.parametrize("cull", ["nf", "list", "cond"])
+@pytest.mark.parametrize("n_tris,n_rays,tile_rays", [
+    (2000, 40000, None),   # default 512-ray tiles
+    (700, 1300, 384),      # a partial tile, non-power-of-two tile width
+])
+def test_cull_kernels_match_plain_bit_for_bit(cuda, cull, sub, n_tris, n_rays, tile_rays):
+    """Each culling variant at each sub-treelet size, through
+    `mt_intersect_pallas2_phi`: only the selected kernel launches, once,
+    and its hits equal its plain version's bit for bit."""
+    rng = np.random.default_rng(n_tris + sub)
+    tri = torch.from_numpy(_soup(rng, n_tris)).to(cuda)
+    phi_t, park = _parked_rays(rng, n_rays)
+    phi_t = phi_t.to(cuda)
+    before = {k: w.launches for k, (w, _) in CULL_WRAPPERS.items()}
+    hk = mt_shade.mt_intersect_pallas2_phi(tri, phi_t, tile_rays=tile_rays, cull=cull, sub=sub)
+    after = {k: w.launches for k, (w, _) in CULL_WRAPPERS.items()}
+    assert {k: after[k] - before[k] for k in after} == {k: int(k == cull) for k in after}
+    hp = CULL_WRAPPERS[cull][1](tri, phi_t, tile_rays=tile_rays, sub=sub)
+    assert int(hk.hit.sum()) > 0 and not hk.hit[torch.from_numpy(park).to(cuda)].any()
+    for a, b in zip(hk, hp):
+        assert torch.equal(a, b)
+
+
+def _camera_rays(cuda, size=256):
+    cam = tpt.Camera.create(position=(0, 1, 4), look_at=(0, 0.5, 0), fov=45, device=cuda)
+    xs, ys = trace.blocked_pixel_grid(size, size, cuda)
+    o, d = camera_ops.camera_rays(cam, torch.stack([xs / float(size), ys / float(size)], dim=-1),
+                                  1.0)
+    return trace._ray_features_t(o.T.contiguous(), d.T.contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub", [32, 64, 128])
+def test_cond_kernel_culls_like_plain_on_a_mesh(cuda, sub):
+    """Camera rays on the BVH-ordered default scene (1,998 triangles,
+    padded to 2,048), where the chunk and sub tests decide which blocks
+    are evaluated: hits and per-tile walk counts (chunks live, subs
+    evaluated) must equal the plain version's."""
+    tri = tpt.default_scene().compile(device=cuda).packed.tri_pos
+    phi_t = _camera_rays(cuda)
+    hk = mt_shade.mt_intersect_cond_phi(tri, phi_t, sub=sub)
+    hp = mt_shade.mt_intersect_cond_phi_plain(tri, phi_t, sub=sub)
+    assert int(hk.hit.sum()) > 10000
+    for a, b in zip(hk, hp):
+        assert torch.equal(a, b)
+    stats = mt_shade.cond_walk_stats(tri, phi_t, sub=sub)
+    assert torch.equal(stats, mt_shade.cond_walk_stats(tri, phi_t, sub=sub, plain=True))
+    live, evaluated = (int(x) for x in stats.sum(dim=0))
+    n_chunks = tri.shape[0] // mt_shade.CHUNK_TRIS
+    assert live < n_chunks * stats.shape[0]  # the chunk test culls
+    assert evaluated <= live * (mt_shade.CHUNK_TRIS // sub)
+    if sub < mt_shade.CHUNK_TRIS:
+        assert evaluated < live * (mt_shade.CHUNK_TRIS // sub)  # and so does the sub test
+
+
+def _diff_setup(device, size=32):
+    scene = tpt.default_scene(envmap.gradient_sky(16, 32)).compile(device=device)
+    params = tpt.RenderParams.create(
+        tpt.Camera.create(position=(0, 1, 4), look_at=(0, 0.5, 0), fov=45, device=device),
+        frame=1)
+    kw = dict(width=size, height=size, aspect=1.0, max_bounces=2)
+    return scene, params, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cull", ["nf", "list", "cond"])
+def test_gradients_through_kernel_match_plain(cuda, cull, monkeypatch):
+    """`diff.grads` through the MT kernel (TPT_CULL selects which) against
+    the same gradients through the plain versions.  The kernels pick the
+    same triangles, so only the atomics of the gather backward differ."""
+    from tpu_pathtracer_torch import diff
+
+    monkeypatch.setenv("TPT_CULL", cull)
+    scene, params, kw = _diff_setup(cuda)
+    target = diff.render_frame_diff(scene, params, plain=True, **kw) * 0.8
+    wrapper = CULL_WRAPPERS[cull][0]
+    before = wrapper.launches
+    gk = diff.grads(diff.make_loss(target, **kw), scene, params)
+    assert wrapper.launches - before >= 1
+    gp = diff.grads(diff.make_loss(target, plain=True, **kw), scene, params)
+    for tree_k, tree_p in zip(gk, gp):
+        for path, a in leaves_to_numpy(tree_k).items():
+            b = leaves_to_numpy(tree_p)[path]
+            if a is None:
+                assert b is None, path
+                continue
+            assert np.isfinite(a).all(), path
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6, err_msg=path)
+    assert np.abs(leaves_to_numpy(gk[0])["materials.color"]).max() > 0
 
 
 @pytest.mark.cuda

@@ -159,7 +159,6 @@ def test_blocked_grid_direction_bin_and_key_match_jax():
 
 UNPORTED = [
     ("env_importance", dict(env_importance=True)),
-    ("differentiable", dict(differentiable=True)),
     ("blue_noise", dict(blue_noise=np.zeros((4, 4, 2), np.float32))),
     ("intersector_bvh", dict(intersector="bvh")),
     ("sort_window", dict(sort_window=256)),

@@ -98,6 +98,10 @@ def load() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tpt_mt_nf.argtypes = [p] * 9 + [i] * 5 + [p]
     lib.tpt_mt_nf.restype = i
+    lib.tpt_mt_list.argtypes = [p] * 8 + [i] * 5 + [p]
+    lib.tpt_mt_list.restype = i
+    lib.tpt_mt_cond.argtypes = [p] * 9 + [i] * 5 + [p]
+    lib.tpt_mt_cond.restype = i
     lib.tpt_mt_stream.argtypes = [p] * 12 + [i] * 6 + [p]
     lib.tpt_mt_stream.restype = i
     lib.tpt_denoise.argtypes = [p, p, p, i, i, i, f, p]

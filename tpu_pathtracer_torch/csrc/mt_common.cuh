@@ -1,12 +1,12 @@
 // Device code shared by the port's Möller–Trumbore kernels (mt_shade.cu,
-// mt_stream.cu), so both round identically.
+// mt_stream.cu), so all of them round identically.
 //
 // Everything here mirrors an elementwise step of the plain PyTorch versions
 // (ops/mt_matmul.py `determinants`, `epilogue`, `nearest`; ops/kernels/
-// mt_shade.py `_slab_entries`, `_parked_lanes`) one rounding per operation:
-// the library is built with -fmad=false, products and sums are __fmul_rn /
-// __fadd_rn in the plain version's order, and reciprocals are correctly
-// rounded.
+// mt_shade.py `_slab_entries`, `_slab_setup`, `_parked_lanes`) one rounding
+// per operation: the library is built with -fmad=false, products and sums
+// are __fmul_rn / __fadd_rn in the plain version's order, and reciprocals
+// are correctly rounded.
 
 #pragma once
 
@@ -84,12 +84,14 @@ __device__ __forceinline__ void eval_sub(const float* __restrict__ rows,
 }
 
 // Load ray `ray` (or, for a lane past the tile, any ray of the tile) from
-// the (10, r_pad) feature matrix and return its initial best: parked
-// lanes (rd = 0), padding lanes (|rd| >= 1e30) and lanes past the tile
-// start at -INF, so they never take a hit and never hold a walk open.
+// the (10, r_pad) feature matrix and return its initial best.  With `park`
+// (the near-to-far walk) parked lanes (rd = 0), padding lanes
+// (|rd| >= 1e30) and lanes past the tile start at -INF, so they never take
+// a hit and never hold a walk open; without it (the list and cond walks)
+// every lane starts at INF.
 __device__ __forceinline__ Best load_ray(const float* __restrict__ phi_t,
                                          int r_pad, int ray, int tile_ray0,
-                                         float phi[10]) {
+                                         float phi[10], bool park = true) {
   const int r = ray < 0 ? tile_ray0 : ray;
 #pragma unroll
   for (int f = 0; f < 10; ++f) phi[f] = phi_t[f * r_pad + r];
@@ -97,7 +99,54 @@ __device__ __forceinline__ Best load_ray(const float* __restrict__ phi_t,
   const bool parked =
       ray < 0 || __fadd_rn(__fadd_rn(ax, fabsf(phi[5])), fabsf(phi[6])) == 0.f ||
       ax >= 1e30f;
-  return Best{parked ? -kInf : kInf, -1, 0.f, 0.f};
+  return Best{park && parked ? -kInf : kInf, -1, 0.f, 0.f};
+}
+
+// IEEE reciprocals of a ray's direction for the slab test (`_slab_setup`):
+// axes with |rd| < EPSILON are parallel and take 1.
+__device__ __forceinline__ void slab_inv(const float phi[10], float inv[3]) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float d = phi[4 + a];
+    inv[a] = __fdiv_rn(1.f, fabsf(d) < kEpsilon ? 1.f : d);
+  }
+}
+
+// Slab entry distance of one ray against box [min3, max3, 0, 0]; INF on a
+// miss.  `_slab_entries` term for term: parallel axes (|rd| < EPSILON)
+// require containment.
+__device__ __forceinline__ float slab_entry(const float* box,
+                                            const float phi[10],
+                                            const float inv[3]) {
+  bool hit_par = true;
+  float tn_all = -kInf, tf_all = kInf;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float o = phi[1 + k];
+    const bool par = fabsf(phi[4 + k]) < kEpsilon;
+    const float lo = __fmul_rn(__fsub_rn(box[k], o), inv[k]);
+    const float hi = __fmul_rn(__fsub_rn(box[k + 3], o), inv[k]);
+    const float tn = par ? -kInf : fminf(lo, hi);
+    const float tf = par ? kInf : fmaxf(lo, hi);
+    hit_par = hit_par && (!par || (o >= box[k] && o <= box[k + 3]));
+    tn_all = fmaxf(tn_all, tn);
+    tf_all = fminf(tf_all, tf);
+  }
+  return hit_par && tf_all >= fmaxf(tn_all, 0.f) ? tn_all : kInf;
+}
+
+// Whether any of this thread's rays enters `box` before its current t.
+template <int RPT>
+__device__ __forceinline__ bool any_live(const float* box,
+                                         const float (&phi)[RPT][10],
+                                         const float (&inv)[RPT][3],
+                                         const Best (&best)[RPT],
+                                         const int (&ray)[RPT]) {
+  bool live = false;
+#pragma unroll
+  for (int k = 0; k < RPT; ++k)
+    live |= ray[k] >= 0 && slab_entry(box, phi[k], inv[k]) < best[k].t;
+  return live;
 }
 
 // Block-wide max of `m` (every thread of the block calls it).  `warp_max`

@@ -51,43 +51,6 @@ constexpr int kChunksPerSuper = 16;
 constexpr int kSubFloats = 4 * kSub * 10;
 constexpr int kChunkFloats = kSubsPerChunk * kSubFloats;  // 20 KB
 
-// Slab entry distance of one ray against box [min3, max3, 0, 0]; INF on a
-// miss.  `_slab_entries` term for term: parallel axes (|rd| < EPSILON)
-// require containment.
-__device__ __forceinline__ float slab_entry(const float* box,
-                                            const float phi[10],
-                                            const float inv[3]) {
-  bool hit_par = true;
-  float tn_all = -kInf, tf_all = kInf;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const float o = phi[1 + k];
-    const bool par = fabsf(phi[4 + k]) < tpt::kEpsilon;
-    const float lo = __fmul_rn(__fsub_rn(box[k], o), inv[k]);
-    const float hi = __fmul_rn(__fsub_rn(box[k + 3], o), inv[k]);
-    const float tn = par ? -kInf : fminf(lo, hi);
-    const float tf = par ? kInf : fmaxf(lo, hi);
-    hit_par = hit_par && (!par || (o >= box[k] && o <= box[k + 3]));
-    tn_all = fmaxf(tn_all, tn);
-    tf_all = fminf(tf_all, tf);
-  }
-  return hit_par && tf_all >= fmaxf(tn_all, 0.f) ? tn_all : kInf;
-}
-
-// Whether any of this thread's rays enters `box` before its current t.
-template <int RPT>
-__device__ __forceinline__ bool any_live(const float* box,
-                                         const float (&phi)[RPT][10],
-                                         const float (&inv)[RPT][3],
-                                         const Best (&best)[RPT],
-                                         const int (&ray)[RPT]) {
-  bool live = false;
-#pragma unroll
-  for (int k = 0; k < RPT; ++k)
-    live |= ray[k] >= 0 && slab_entry(box, phi[k], inv[k]) < best[k].t;
-  return live;
-}
-
 template <int RPT>
 __global__ void __launch_bounds__(kMaxThreads)
     mt_stream_kernel(const float* __restrict__ phi_t,        // (10, r_pad)
@@ -119,11 +82,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     const int lane = tid + k * blockDim.x;
     ray[k] = lane < tile_rays ? tile * tile_rays + lane : -1;
     best[k] = tpt::load_ray(phi_t, r_pad, ray[k], tile * tile_rays, phi[k]);
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const float d = phi[k][4 + a];
-      inv[k][a] = __fdiv_rn(1.f, fabsf(d) < tpt::kEpsilon ? 1.f : d);
-    }
+    tpt::slab_inv(phi[k], inv[k]);
   }
 
   // block-uniform walk counts: supers walked, chunks staged, subs evaluated
@@ -141,7 +100,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 
     for (int k = 0; k < kChunksPerSuper; ++k) {
       // a barrier too: the previous chunk's rows and sub boxes are done
-      if (!__syncthreads_or(any_live<RPT>(cbox + k * 8, phi, inv, best, ray)))
+      if (!__syncthreads_or(tpt::any_live<RPT>(cbox + k * 8, phi, inv, best, ray)))
         continue;
       ++staged;
       const int c = super_id * kChunksPerSuper + k;
@@ -153,7 +112,7 @@ __global__ void __launch_bounds__(kMaxThreads)
         sbox[i] = sub_boxes[c * kSubsPerChunk * 8 + i];
       __syncthreads();
       for (int s = 0; s < kSubsPerChunk; ++s) {
-        if (!__syncthreads_or(any_live<RPT>(sbox + s * 8, phi, inv, best, ray)))
+        if (!__syncthreads_or(tpt::any_live<RPT>(sbox + s * 8, phi, inv, best, ray)))
           continue;
         ++evaluated;
 #pragma unroll

@@ -54,6 +54,14 @@ def rand_direction(seed):
     return seed, v / n
 
 
+def rand_cosine_hemisphere(seed, normal):
+    """normalize(normal + random_direction) (raytrace.wgsl:279-281); (..., 3)."""
+    seed, d = rand_direction(seed)
+    v = normal + d
+    n = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+    return seed, v / n
+
+
 def disk_from_uniforms(r1, r2):
     """Two uniforms -> uniform disk point (raytrace.wgsl:283-287); (..., 2)."""
     theta = float(TWOPI) * r1

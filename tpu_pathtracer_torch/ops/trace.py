@@ -1,36 +1,46 @@
-"""The fused path-trace loop and whole-frame rendering.
+"""The path-trace loops and whole-frame rendering.
 
-The port of the fused branch of `tpu_pathtracer.ops.trace`
-(`render_frame` -> `trace_rays_fused`), the path every frame of the default
-scene takes.  Per-ray math and RNG streams follow the reference's single
-compute kernel (reference: src/passes/shaders/raytrace.wgsl:373-478):
+The port of `tpu_pathtracer.ops.trace`: the fused branch of `render_frame`
+(-> `trace_rays_fused`), the path every non-differentiable frame takes, and
+the plain loop (`trace_rays`), which carries `differentiable=True`.  Per-ray
+math and RNG streams follow the reference's single compute kernel
+(reference: src/passes/shaders/raytrace.wgsl:373-478):
 
-  * per bounce: ray features -> MT kernel (near-to-far up to 8,192 padded
-    triangles, streamed up to 262,144) -> `bounce_shade_t`
-    (cosine-hemisphere diffuse or mirror specular chosen with probability
-    metalness, blended by roughness without renormalising; throughput
-    *= mix(color, specular_color, is_specular); emission added on hits);
-  * vector state is component-major, (3, R);
-  * after each of the first `sort_bounces` bounces the ray state is
-    re-binned by a coherence key (nearest live treelet, live count,
-    direction bin), so rays sharing a kernel tile share work; one global
-    sort (the JAX package's windowed sort is a TPU tuning not ported);
-  * the environment term of rays that missed is added once after the loop
-    (a miss is always a ray's last event), and the caller's ray order is
-    restored by scattering on the carried pixel index.
+  * per bounce: ray features -> MT kernel (whole-scene up to 8,192 padded
+    triangles, cull 'nf', 'list' or 'cond'; streamed up to 262,144) ->
+    shading (cosine-hemisphere diffuse or mirror specular chosen with
+    probability metalness, blended by roughness without renormalising;
+    throughput *= mix(color, specular_color, is_specular); emission added
+    on hits);
+  * fused loop: vector state is component-major, (3, R); after each of the
+    first `sort_bounces` bounces the ray state is re-binned by a coherence
+    key (nearest live treelet, live count, direction bin), so rays sharing a
+    kernel tile share work; one global sort (the JAX package's windowed
+    sort is a TPU tuning not ported); the environment term of rays that
+    missed is added once after the loop (a miss is always a ray's last
+    event), and the caller's ray order is restored by scattering on the
+    carried pixel index;
+  * plain loop: row-major state, the environment looked up per bounce
+    (`bounce_shade`).  With `differentiable=True` the kernel picks the
+    triangles on detached inputs and `replay_hit` recomputes (t, u, v) for
+    them, so torch autograd differentiates the frame with respect to
+    materials, environment radiance, camera and vertex positions.
 
 Terminated rays are parked at ro = 1e30, rd = 0 before intersection, which
-the kernel treats as lanes that never hit.  The bounce loop leaves early
-once no ray is active (a host check per bounce).
+the kernels treat as lanes that never hit.  Both loops leave early once no
+ray is active (a host check per bounce): the loop body is an identity then.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from . import camera as camera_ops
 from . import envsample, rng
+from .intersect import replay_hit
 from .kernels.mt_shade import (
     CHUNK_TRIS,
     MT_SHADE_MAX_TRIS,
@@ -38,15 +48,16 @@ from .kernels.mt_shade import (
     _pad_to,
     _slab_entries,
     _slab_setup,
-    mt_intersect_nf_phi,
-    mt_intersect_nf_phi_plain,
+    mt_intersect_pallas2_phi,
+    mt_intersect_pallas2_phi_plain,
     treelet_boxes,
 )
 from .kernels.mt_stream import mt_intersect_stream2_phi, mt_intersect_stream2_phi_plain
-from .vecmath import INF, mix
+from .mt_matmul import ray_features
+from .vecmath import INF, mix, normalize, reflect
 
 _UNPORTED_INTERSECTORS = ("mt", "bvh", "bvh8")
-_SORT_BOUNCES = 2  # leading bounces that re-bin the ray state
+_SORT_BOUNCES = 2  # default count of leading bounces that re-bin the ray state
 _DIR_BINS = 96  # 6 dominant-axis half-spaces x 4x4 quantized minor axes
 _KEY_SENTINEL = 2**31 - 1  # coherence key of inactive rays: sorts last
 
@@ -73,6 +84,22 @@ def resolve_intersector(intersector: str, n_tris: int) -> str:
     if intersector not in ("mt_pallas", "mt_stream"):
         raise ValueError(f"unknown intersector {intersector!r}")
     return intersector
+
+
+def _sort_bounces(override=None) -> int:
+    """How many leading bounces of the fused loop re-bin the ray state:
+    `override`, then TPT_SORT_BOUNCES, then 2."""
+    if override is not None:
+        return int(override)
+    return int(os.environ.get("TPT_SORT_BOUNCES", str(_SORT_BOUNCES)))
+
+
+def _intersector_phi(kind: str, plain: bool):
+    """The MT wrapper for a resolved intersector: (tri_pos, phi_t (10, R),
+    tile_rays=...) -> Hit."""
+    if kind == "mt_stream":
+        return mt_intersect_stream2_phi_plain if plain else mt_intersect_stream2_phi
+    return mt_intersect_pallas2_phi_plain if plain else mt_intersect_pallas2_phi
 
 
 def pack_material_rows(materials):
@@ -173,6 +200,85 @@ def bounce_shade_t(scene, params, hit, carry, *, shade_mat):
     return ro, rd, incoming, color, seed, hit_mask
 
 
+def bounce_shade(scene, params, hit, carry, *, shade_mat, env_patches):
+    """One bounce of the plain loop given a Hit, row-major, with the
+    environment looked up on misses (the JAX `bounce_shade` with
+    `defer_env=False`).  carry = (ro, rd, incoming, color (R, 3) f32,
+    seed (R,) i64, active (R,) bool)."""
+    ro, rd, incoming, color, seed, active = carry
+    hit_mask = active & hit.hit
+
+    tri_safe = hit.tri.clamp(0, scene.triangles.p0.shape[0] - 1).long()
+    shade = torch.index_select(shade_mat, 0, tri_safe)  # (R, 21)
+    w = 1.0 - hit.u - hit.v
+    normal = normalize(
+        shade[:, 0:3] * w[:, None] + shade[:, 3:6] * hit.u[:, None] + shade[:, 6:9] * hit.v[:, None]
+    )
+    position = ro + hit.t[:, None] * rd
+
+    # RNG: hit rays consume 7 uniforms; missed/inactive rays must not advance.
+    seed_h, diffuse_dir = rng.rand_cosine_hemisphere(seed, normal)
+    seed_h, r_spec = rng.rand(seed_h)
+    is_specular = (shade[:, 19] >= r_spec).to(torch.float32)
+    specular_dir = reflect(rd, normal)
+    blend = (is_specular * (1.0 - shade[:, 18]))[:, None]
+    new_dir = mix(diffuse_dir, specular_dir, blend)  # deliberately unnormalized
+
+    emitted = shade[:, 15:18] * shade[:, 20][:, None]
+    hm = hit_mask[:, None]
+    incoming = incoming + torch.where(hm, emitted * color, 0.0)
+    env_uv = envsample.env_uv_from_ray(rd, params.env_rotation)
+    env_contrib = envsample.env_radiance_packed(
+        env_patches, (scene.env.height, scene.env.width), env_uv) * params.env_intensity
+    incoming = incoming + torch.where((active & ~hit.hit)[:, None], env_contrib * color, 0.0)
+
+    color = torch.where(hm, color * mix(shade[:, 9:12], shade[:, 12:15], is_specular[:, None]),
+                        color)
+    ro = torch.where(hm, position, ro)
+    rd = torch.where(hm, new_dir, rd)
+    seed = torch.where(hit_mask, seed_h, seed)
+    return ro, rd, incoming, color, seed, hit_mask
+
+
+def trace_rays(scene, params, ro, rd, seed, *, max_bounces: int, env_importance: bool = False,
+               differentiable: bool = False, intersector: str = "auto", plain: bool = False):
+    """Trace rays (R, 3) with seeds (R,) int64 to completion through the
+    plain loop; returns (incoming (R, 3) f32, seed (R,) int64).
+
+    `intersector` is 'auto', 'mt_pallas' (through `mt_intersect_pallas2_phi`,
+    so TPT_CULL, TPT_SUB and TPT_TILE_RAYS apply) or 'mt_stream'.  The
+    kernels always see detached inputs.  With `differentiable=True` the
+    (t, u, v) of the chosen triangles are replayed by `replay_hit` on the
+    live tensors, so autograd reaches ray origins, directions and vertex
+    positions through them.  `plain=True` intersects through the kernels'
+    plain versions."""
+    if env_importance:
+        raise NotImplementedError("env importance sampling is not ported yet (ROADMAP.md)")
+    tri_pos = scene.packed.tri_pos
+    base = _intersector_phi(resolve_intersector(intersector, tri_pos.shape[0]), plain)
+    tri_fixed = tri_pos.detach()
+
+    def intersect(ro, rd):
+        h = base(tri_fixed, ray_features(ro.detach(), rd.detach()).T.contiguous())
+        return replay_hit(tri_pos, ro, rd, h) if differentiable else h
+
+    shade_mat = pack_shade_material_rows(scene)
+    env_patches = envsample.pack_env_patches(scene.env.radiance)
+    r = ro.shape[0]
+    incoming = torch.zeros((r, 3), dtype=torch.float32, device=ro.device)
+    color = torch.ones((r, 3), dtype=torch.float32, device=ro.device)
+    active = torch.ones((r,), dtype=torch.bool, device=ro.device)
+    for _ in range(max_bounces):
+        if not bool(active.any()):
+            break
+        am = active[:, None]
+        hit = intersect(torch.where(am, ro, 1e30), torch.where(am, rd, 0.0))
+        ro, rd, incoming, color, seed, active = bounce_shade(
+            scene, params, hit, (ro, rd, incoming, color, seed, active),
+            shade_mat=shade_mat, env_patches=env_patches)
+    return incoming, seed
+
+
 def _direction_bin(rd):
     """Quantize (3, R) directions into 96 bins: dominant axis + sign x a 4x4
     grid over the two minor-axis slopes."""
@@ -228,7 +334,7 @@ def trace_rays_fused(scene, params, ro, rd, seed, *, max_bounces: int,
     if env_patches is None:
         env_patches = envsample.pack_env_patches(scene.env.radiance)
     key_boxes = _key_boxes(scene.packed.tri_pos)
-    n_sort = min(_SORT_BOUNCES if sort_bounces is None else int(sort_bounces), max_bounces)
+    n_sort = min(_sort_bounces(sort_bounces), max_bounces)
 
     pix = torch.arange(r, device=device)
     ro = ro.T.contiguous()
@@ -301,44 +407,62 @@ def render_frame(scene, params, *, width: int, height: int, aspect: float,
     """Render one progressive frame at (height, width): (H, W, 3) f32 on the
     scene's device.  Row 0 is the bottom of the camera frustum.
 
-    `plain=True` intersects through the kernel's plain PyTorch version on
+    The default takes the fused loop over rays in screen-block order.
+    `differentiable=True` takes the plain loop (`trace_rays`) over a
+    row-major pixel grid, as the JAX package does, and the frame is then
+    differentiable by torch autograd; `sort_bounces`, `sort_window` and
+    `tile_rays` are options of the fused loop only.
+
+    `plain=True` intersects through the kernels' plain PyTorch versions on
     any device (a reference for the kernel path); the default launches the
-    kernel for CUDA tensors and runs the plain version for CPU tensors."""
+    kernels for CUDA tensors and runs the plain versions for CPU tensors."""
     if env_importance:
         raise NotImplementedError("env importance sampling is not ported yet (ROADMAP.md)")
-    if differentiable:
-        raise NotImplementedError("differentiable rendering is not ported yet (ROADMAP.md)")
     if blue_noise is not None:
         raise NotImplementedError("blue-noise AA jitter is not ported yet (ROADMAP.md)")
-    if sort_window:
+    if sort_window and not differentiable:
         raise NotImplementedError("windowed binning sort is not ported yet (ROADMAP.md)")
     tri_pos = scene.packed.tri_pos
     kind = resolve_intersector(intersector, tri_pos.shape[0])
     device = tri_pos.device
 
-    xs, ys = blocked_pixel_grid(height, width, device)
+    if differentiable:
+        ys, xs = torch.meshgrid(torch.arange(height, device=device),
+                                torch.arange(width, device=device), indexing="ij")
+        xs, ys = xs.reshape(-1), ys.reshape(-1)
+    else:
+        xs, ys = blocked_pixel_grid(height, width, device)
     uv = torch.stack([xs.to(torch.float32) / float(width),
                       ys.to(torch.float32) / float(height)], dim=-1)
     seed = rng.pixel_seed(xs + ys * width, params.frame)
     base_o, base_d = camera_ops.camera_rays(params.camera, uv, aspect)
     resolution = torch.tensor([width, height], dtype=torch.float32, device=device)
 
-    if kind == "mt_stream":
-        intersect = mt_intersect_stream2_phi_plain if plain else mt_intersect_stream2_phi
+    if differentiable:
+        def trace(o, d, seed):
+            return trace_rays(scene, params, o, d, seed, max_bounces=max_bounces,
+                              differentiable=True, intersector=kind, plain=plain)
     else:
-        intersect = mt_intersect_nf_phi_plain if plain else mt_intersect_nf_phi
-    shade_mat = pack_shade_material_rows(scene)
-    env_patches = envsample.pack_env_patches(scene.env.radiance)
+        intersect = _intersector_phi(kind, plain)
+        shade_mat = pack_shade_material_rows(scene)
+        env_patches = envsample.pack_env_patches(scene.env.radiance)
+
+        def trace(o, d, seed):
+            return trace_rays_fused(
+                scene, params, o, d, seed, max_bounces=max_bounces,
+                intersector_phi_fn=lambda phi: intersect(tri_pos, phi, tile_rays=tile_rays),
+                shade_mat=shade_mat, env_patches=env_patches, sort_bounces=sort_bounces,
+            )
+
     acc = torch.zeros((height * width, 3), dtype=torch.float32, device=device)
     for _ in range(samples_per_frame):
         seed, o, d = camera_ops.apply_dof(seed, base_o, base_d, params.camera, resolution)
-        light, seed = trace_rays_fused(
-            scene, params, o, d, seed, max_bounces=max_bounces,
-            intersector_phi_fn=lambda phi: intersect(tri_pos, phi, tile_rays=tile_rays),
-            shade_mat=shade_mat, env_patches=env_patches, sort_bounces=sort_bounces,
-        )
+        light, seed = trace(o, d, seed)
         acc = acc + light
-    return unblock_image(acc / float(np.float32(samples_per_frame)), height, width)
+    color = acc / float(np.float32(samples_per_frame))
+    if differentiable:
+        return color.reshape(height, width, 3)
+    return unblock_image(color, height, width)
 
 
 def accumulate(prev, current, frame: int, enabled: bool = True, *, out=None):
