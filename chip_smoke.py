@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--profile] [--out DIR]
 
 Builds the port's CUDA kernels from csrc/, holds each against its plain
-PyTorch version on the card, then drives three paths once each through the
+PyTorch version on the card, then drives these paths once each through the
 public entry points:
 
   * headline: `Renderer(...).render_all()` and `display()` on the default
@@ -19,25 +19,42 @@ public entry points:
     pixel, 4 bounces, materials.color from np.random.default_rng(0), Adam
     at 5e-2, 60 steps), through the near-to-far kernel and torch autograd;
     then the loss gradient at the initial colors with TPT_CULL=list and
-    =cond, through the list and cond kernels (csrc/mt_shade.cu).
+    =cond, through the list and cond kernels (csrc/mt_shade.cu), and with
+    intersector='bvh8' (the fat-leaf BVH walk, torch ops);
+  * round-2 MT: `mt_intersect_pallas` and `mt_intersect_stream`
+    (csrc/mt_intersect.cu) on the headline camera's 262,144 primary rays,
+    and the streamed one on the stress scene's;
+  * intersectors: `render_frame(intersector='mt' | 'bvh' | 'bvh8')` on the
+    headline scene at 512x512, 1 sample per pixel, 4 bounces (the plain
+    loop, no MT kernel), each against the near-to-far kernel's frame;
+  * large scene: `Renderer(...).render_all()` and `display()` on the JAX
+    bench's mesh_scene(640) (a 408,322-triangle sphere and a plane, padded
+    to 524,288) at 512x512, 1 sample per pixel, 6 bounces, 2 frames: 'auto'
+    takes the 'bvh8' walk, past the MT kernels' 262,144-triangle cap; its
+    primary rays also go through 'bvh', which must find the same hits.
 
 For each path it checks that the path's kernels were launched in that run
 (and the other MT kernels not), that what comes out is right (images
 finite and in [0, 1], a frame through the kernels matching the same frame
 through the plain versions; the CLI's rule final loss < 0.5 x first loss;
-list and cond gradients matching nf's), and times it with CUDA events
-against the plain versions.  Every culling variant (nf, list, cond) is
+list and cond gradients matching nf's, bvh8's on the pixels where the
+frames agree), and times it with CUDA
+events against the plain versions.  Every culling variant (nf, list, cond) is
 held bit for bit to its plain version at sub-treelets of 32, 64 and 128
 triangles on the headline rays; the cond and streamed kernels also to
 their plain versions' per-tile walk counts, so they made the same culling
-decisions.
+decisions; so are the round-2 kernels.  Each kernel's entry also gives its
+bound: the larger of the FP32 operations its work on these inputs needs
+over the H100's non-tensor FP32 peak and the bytes it must move over the
+HBM rate (H100 SXM: 3.35 TB/s), and "library_ms": null, since no one
+PyTorch call computes a nearest Möller–Trumbore hit or the bilateral
+denoise.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Any failed check raises, so
 the exit code is not 0 and no result line is printed.  Without a CUDA
 device the script exits with code 2.  `--profile` adds a torch.profiler
-table of one kernel-path frame of the render paths and of one training
-step; `--out DIR` writes the full results there as chip_smoke.json.
+table of one frame of each render path and of one training step; `--out DIR` writes the full results there as chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -57,13 +74,28 @@ FRAMES = 16
 BOUNCES = 4
 STRESS_FRAMES = 4
 STRESS_BOUNCES = 6
-STRESS_SPHERE = (0.5, 320, 160)  # bench.py:105, mesh_scene(320): 101,760 triangles
+STRESS_SEGMENTS = 320  # bench.py:105 mesh_scene(320): 101,760 triangles, padded to 131,072
 CAMERA = dict(position=(0.0, 1.0, 4.0), look_at=(0.0, 0.5, 0.0), fov=45.0)
 DENOISE_TOL = dict(atol=2e-5, rtol=1e-4)  # tests/test_pallas_denoise.py
 MT_TOL = 0.0  # kernel and plain version share every rounding step
 INVERT_SIZE = 256  # the JAX CLI's `invert` defaults (cli.py:27-62, 398-402)
 INVERT_STEPS = 60
 INVERT_LR = 5e-2
+INTERSECTORS = ("mt", "bvh", "bvh8")  # the plain-loop intersectors (torch ops)
+LARGE_SEGMENTS = 640  # bench.py:84-91 mesh_scene(640): 408,322 triangles, padded to 524,288
+LARGE_FRAMES = 2
+LARGE_BOUNCES = 6
+# The roofline terms.  FP32 operations per (ray, triangle) pair as each MT
+# kernel's source issues them: 19 products and 15 sums for the four
+# determinants, then nf: 3 sign products, EPSILON*|a| and us + vs (39);
+# round 2: 2 sign products, 1/a, ta*f and us + vs (40).  Compares and
+# selects are not counted.  A slab test of one ray and one box: per axis 2
+# differences, 2 products, a min and a max (18).
+PAIR_OPS_NF = 39
+PAIR_OPS_R2 = 40
+SLAB_OPS = 18
+H100_FP32 = 67e12  # FLOP/s, non-tensor FP32, H100 SXM data sheet
+H100_HBM = 3.35e12  # bytes/s, H100 SXM data sheet
 
 
 def _card() -> str:
@@ -97,6 +129,61 @@ def _check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def _bound(ops: float, nbytes: float):
+    """(least ms, what binds): the larger of ops over the FP32 peak and
+    bytes over the HBM rate."""
+    ops_ms, bytes_ms = ops / H100_FP32 * 1e3, nbytes / H100_HBM * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def _mt_bytes(n_tris: int, n_rays: int, table_floats: int = 40) -> int:
+    """An MT kernel's inputs read once and outputs written once: ten ray
+    features a ray, the coefficient table (40 floats a triangle), t, idx,
+    u and v a ray."""
+    return 4 * (10 * n_rays + table_floats * n_tris + 4 * n_rays)
+
+
+def _cull_bound(mt_shade, tri_pos, phi, cull):
+    """Bound of one whole-scene MT wrapper call (sub 64) on these rays: the
+    precull's slab tests (nf, list: every ray against every sub box) or the
+    cond walk's chunk and sub tests, plus the pairs of the evaluated subs
+    (counts from the plain walk, which the kernels match)."""
+    import torch
+
+    sub = mt_shade.SUB_TRIS
+    n, r = tri_pos.shape[0], phi.shape[1]
+    if cull == "cond":
+        stats = mt_shade.cond_walk_stats(tri_pos, phi, sub=sub, plain=True)
+        tile = mt_shade._tile_rays(None)
+        live, evaluated = (int(x) for x in stats.sum(dim=0))
+        n_chunks = -(-n // mt_shade.CHUNK_TRIS)
+        slabs = (stats.shape[0] * n_chunks + live * (mt_shade.CHUNK_TRIS // sub)) * tile
+    else:
+        prep = mt_shade._prepare(tri_pos, phi, None, sub)
+        phi_pad, lists, tile = prep[0], prep[3], prep[-1]
+        slabs = phi_pad.shape[1] * lists.shape[1]
+        if cull == "list":
+            evaluated = int(prep[2].sum())
+        else:
+            stats = torch.zeros((lists.shape[0],), dtype=torch.int32, device=phi.device)
+            mt_shade._walk_plain(*prep, stats=stats)
+            evaluated = int(stats.sum())
+    return _bound(evaluated * sub * tile * PAIR_OPS_NF + slabs * SLAB_OPS, _mt_bytes(n, r))
+
+
+def _denoise_bound(img):
+    """Bound of one denoise at img's shape: per pixel and tap a two-row
+    lerp (9 operations, fractional taps only), the difference, its squared
+    norm, the exponential, the weight and the two sums (17); the final
+    division (3); one read and one write of the image."""
+    from tpu_pathtracer_torch.post.denoise import tap_table
+
+    taps, _ = tap_table()
+    per_pixel = sum(17 + (9 if fy > 0.0 else 0) for fy in taps[:, 2].tolist()) + 3
+    h, w, _ = img.shape
+    return _bound(h * w * per_pixel, 2 * img.numel() * 4)
+
+
 def _outlier_rule(a, b, mean_tol=1e-4, outlier_frac=0.01, outlier_tol=0.05):
     """tests/test_trace_golden.py:60-70: a bounded fraction of pixels may
     take another random branch; every other pixel agrees closely."""
@@ -121,23 +208,32 @@ def _hit_diff(hk, hp):
     return bad, err
 
 
-def _mt_rays(data, cam, intersect):
-    """Ray features of the headline camera's primary rays and of their
-    first bounce (terminated rays parked), as render_frame builds them."""
+def _primary_rays(cam, dev):
+    """The headline camera's primary rays in screen-block order, as
+    render_frame builds them: (ro, rd (3, R), seed)."""
     import torch
 
     from tpu_pathtracer_torch.ops import camera as camera_ops
     from tpu_pathtracer_torch.ops import rng, trace
-    from tpu_pathtracer_torch.scene.types import RenderParams
 
-    dev = data.packed.tri_pos.device
     xs, ys = trace.blocked_pixel_grid(HEIGHT, WIDTH, dev)
     uv = torch.stack([xs.float() / WIDTH, ys.float() / HEIGHT], dim=-1)
     seed = rng.pixel_seed(xs + ys * WIDTH, 1)
     o, d = camera_ops.camera_rays(cam, uv, WIDTH / HEIGHT)
     resolution = torch.tensor([WIDTH, HEIGHT], dtype=torch.float32, device=dev)
     seed, o, d = camera_ops.apply_dof(seed, o, d, cam, resolution)
-    ro, rd = o.T.contiguous(), d.T.contiguous()
+    return o.T.contiguous(), d.T.contiguous(), seed
+
+
+def _mt_rays(data, cam, intersect):
+    """Ray features of the headline camera's primary rays and of their
+    first bounce (terminated rays parked), as render_frame builds them."""
+    import torch
+
+    from tpu_pathtracer_torch.ops import trace
+    from tpu_pathtracer_torch.scene.types import RenderParams
+
+    ro, rd, seed = _primary_rays(cam, data.packed.tri_pos.device)
     phi_primary = trace._ray_features_t(ro, rd)
     h1 = intersect(data.packed.tri_pos, phi_primary)
     carry = (ro, rd, torch.zeros_like(ro), torch.ones_like(ro), seed,
@@ -190,16 +286,24 @@ def _drive(pt, scene, config, counters, png: Path):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
+    _check_display(renderer, image, config, png)
+    print(f"  {config.frames} frames + display in {seconds:.2f} s (first call included); "
+          f"launches {launches}; image mean {float(image.mean()):.4f}, written to "
+          f"{png.relative_to(ROOT)}")
+    return launches, seconds, renderer, float(image.mean())
+
+
+def _check_display(renderer, image, config, png: Path) -> None:
+    """A displayed image: its shape, finite, in [0, 1], not black; written
+    as PNG."""
+    import torch
+
     _check(image.shape == (config.height, config.width, 3), f"display shape {tuple(image.shape)}")
     _check(bool(torch.isfinite(image).all()), "display image has non-finite values")
     _check(float(image.min()) >= 0.0 and float(image.max()) <= 1.0, "display outside [0, 1]")
     _check(float(image.mean()) > 0.05, "display image is black")
     png.parent.mkdir(parents=True, exist_ok=True)
     renderer.screenshot(str(png))
-    print(f"  {config.frames} frames + display in {seconds:.2f} s (first call included); "
-          f"launches {launches}; image mean {float(image.mean()):.4f}, written to "
-          f"{png.relative_to(ROOT)}")
-    return launches, seconds, renderer, float(image.mean())
 
 
 def _profile(fn, tag, results, key, what="frame"):
@@ -292,8 +396,9 @@ def _training_phase(pt, counters, results, tag, profile: bool):
     """The training path: the JAX CLI's `invert` defaults through
     `diff.invert` on the card, with every launch count set to 0 just before
     and read just after; then the loss gradient at the initial colors under
-    TPT_CULL=list and =cond against nf's.  Returns {cull: launches of the
-    list and cond kernels in their gradient runs}."""
+    TPT_CULL=list and =cond, and with intersector='bvh8' (on the pixels
+    where its frame agrees with nf's), against nf's.  Returns {cull:
+    launches of the list and cond kernels in their gradient runs}."""
     import dataclasses
     import os
 
@@ -337,8 +442,8 @@ def _training_phase(pt, counters, results, tag, profile: bool):
     _check(all(math.isfinite(x) for x in losses), "non-finite loss")
     _check(losses[-1] < 0.5 * losses[0], f"invert: final loss {losses[-1]} >= 0.5 x {losses[0]}")
     _check(launches["mt_nf"] >= INVERT_STEPS, f"mt_nf launches {launches}")
-    for other in ("mt_list", "mt_cond", "mt_stream"):
-        _check(launches[other] == 0, f"{other} launched on the training path: {launches}")
+    _check(not _mt_launched(launches, ("mt_nf",)),
+           f"other MT kernels launched on the training path: {launches}")
 
     # the same problem through the plain versions: the first loss is the
     # same forward frame
@@ -404,9 +509,261 @@ def _training_phase(pt, counters, results, tag, profile: bool):
               f"(rtol 1e-3, atol 1e-5); launches {cull_launches[cull]}")
         results[f"grad_{cull}_vs_nf_max_abs_diff"] = diff_max
     results["grad_cull_launches"] = cull_launches
+
+    # The same gradient with the triangles chosen by the fat-leaf BVH walk.
+    # The walk's Möller–Trumbore (edge vectors, divided u and v) and the
+    # kernels' bilinear form accept different rays at a few shared edges, so
+    # a few pixels take another path and move the full gradient (reported).
+    # On the pixels where the two forward frames agree, the gradients must.
+    img_nf = diff.render_frame_diff(bad, params, **kw).detach()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    img_b8 = diff.render_frame_diff(bad, params, intersector="bvh8", **kw).detach()
+    leaf = wrong.to(dev).requires_grad_(True)
+    loss_b8 = diff.make_param_loss(diff.make_loss(target, intersector="bvh8", **kw), bad, params,
+                                   ["materials.color"])
+    grad_b8 = torch.autograd.grad(loss_b8({"materials.color": leaf}), leaf)[0]
+    torch.cuda.synchronize()
+    grad_b8_s = time.perf_counter() - t0
+    keep = ((img_nf - img_b8).abs().amax(dim=-1) <= 1e-4).to(torch.float32)[..., None]
+
+    def masked_l2(img, tgt):
+        return 0.5 * torch.mean(keep * (img - tgt) ** 2)
+
+    masked = {}
+    for it in ("auto", "bvh8"):
+        loss_m = diff.make_param_loss(diff.make_loss(target, intersector=it, loss_fn=masked_l2,
+                                                     **kw), bad, params, ["materials.color"])
+        leaf = wrong.to(dev).requires_grad_(True)
+        masked[it] = torch.autograd.grad(loss_m({"materials.color": leaf}), leaf)[0]
+    launched = _mt_launched({n: fn.launches for n, fn in counters.items()}, ("mt_nf",))
+    _check(not launched, f"the bvh8 gradients launched other MT kernels: {launched}")
+    n_diff = keep.numel() - int(keep.sum())
+    full_diff = float((grad_b8 - grads["nf"]).abs().max())
+    diff_max = float((masked["bvh8"] - masked["auto"]).abs().max())
+    torch.testing.assert_close(masked["bvh8"], masked["auto"], rtol=1e-3, atol=1e-5)
+    print(f"intersector=bvh8 loss gradient vs nf: on the {keep.numel() - n_diff} pixels where the "
+          f"frames agree max abs diff {diff_max:.3g} (rtol 1e-3, atol 1e-5); on the full loss "
+          f"{full_diff:.3g} ({n_diff} pixels differ by more than 1e-4; information); bvh8 frame "
+          f"and gradient {grad_b8_s:.2f} s")
+    results.update(grad_bvh8_vs_nf_max_abs_diff=diff_max, grad_bvh8_full_max_abs_diff=full_diff,
+                   grad_bvh8_pixels_differ=n_diff, grad_bvh8_s=grad_b8_s)
     if profile:
         _profile(steps[False], tag, results, "training", what="step")
     return {cull: cull_launches[cull][f"mt_{cull}"] for cull in ("list", "cond")}
+
+
+def _mt_launched(launches, allowed=()):
+    """The MT kernels (all but denoise) launched in a run, other than
+    `allowed`."""
+    return {n: c for n, c in launches.items() if c and n != "denoise" and n not in allowed}
+
+
+def _r2_check(mt_intersect, name, tri_pos, ro, rd, hk, results, key):
+    """Hold one round-2 kernel's hits `hk` to its plain version (0 hit/tri
+    mismatches, t/u/v within MT_TOL) and its per-tile walk counts to the
+    plain walk's.  Returns (largest t/u/v difference, walk counts)."""
+    import torch
+
+    stream = name == "mt_stream_r2"
+    plain = (mt_intersect.mt_intersect_stream_plain if stream
+             else mt_intersect.mt_intersect_pallas_plain)
+    t0 = time.perf_counter()
+    hp = plain(tri_pos, ro, rd)
+    sp = mt_intersect.walk_stats(tri_pos, ro, rd, stream=stream, plain=True)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    bad, err = _hit_diff(hk, hp)
+    sk = mt_intersect.walk_stats(tri_pos, ro, rd, stream=stream)
+    hits = int(hk.hit.sum())
+    evaluated, copied = (int(x) for x in sk.sum(dim=0))
+    print(f"{name} {key}: rays {ro.shape[0]}, hits {hits}, hit/tri mismatches {bad}, max |t,u,v| "
+          f"diff {err:.3g} (tolerance {MT_TOL}); walk counts equal to the plain walk's over "
+          f"{sk.shape[0]} tiles: {evaluated} chunks evaluated, {copied} copied (plain version and "
+          f"its walk counts took {plain_s:.1f} s)")
+    _check(bad == 0, f"{name} {key}: {bad} rays differ in hit or triangle")
+    _check(err <= MT_TOL, f"{name} {key}: t/u/v differ by {err}")
+    _check(hits > 0, f"{name} {key}: no ray hit the scene")
+    _check(torch.equal(sk, sp), f"{name} {key}: walk counts differ from the plain walk's")
+    results[f"{name}_{key}"] = dict(hits=hits, mismatches=bad, max_abs_err=err,
+                                    chunks_evaluated=evaluated, chunks_copied=copied,
+                                    plain_check_s=plain_s)
+    return err, sk
+
+
+def _r2_timing(mt_intersect, name, tri_pos, ro, rd, stats, results, key, tag, plain_reps=3):
+    """Wrapper, walk and plain times of one round-2 kernel on these rays,
+    and its bound: every ray slab-tests every chunk box; the pairs of the
+    evaluated chunks."""
+    stream = name == "mt_stream_r2"
+    kernel = mt_intersect.mt_intersect_stream if stream else mt_intersect.mt_intersect_pallas
+    plain = (mt_intersect.mt_intersect_stream_plain if stream
+             else mt_intersect.mt_intersect_pallas_plain)
+    prep = (*mt_intersect._prepare(tri_pos, ro, rd, stream), stream)
+    phi_pad, _, boxes, chunk, _ = prep
+    ms = _time_ms(lambda: kernel(tri_pos, ro, rd), 3, 20)
+    walk_ms = _time_ms(lambda: mt_intersect._walk_cuda(*prep), 3, 20)
+    plain_ms = _time_ms(lambda: plain(tri_pos, ro, rd), 1, plain_reps)
+    walk_plain_ms = _time_ms(lambda: mt_intersect._walk_plain(*prep), 1, plain_reps)
+    evaluated = int(stats[:, 0].sum())
+    ops = evaluated * chunk * mt_intersect.TILE_RAYS * PAIR_OPS_R2 \
+        + phi_pad.shape[1] * boxes.shape[0] * SLAB_OPS
+    bound_ms, bound_by = _bound(ops, _mt_bytes(tri_pos.shape[0], ro.shape[0]))
+    print(f"timing {tag}: {name} {key} wrapper {ms:.3f} ms (kernel walk {walk_ms:.3f} ms), plain "
+          f"wrapper {plain_ms:.3f} ms (plain walk {walk_plain_ms:.3f} ms); bound {bound_ms:.4f} ms "
+          f"({bound_by}: {ops / 1e9:.3f} GFLOP)")
+    results[f"{name}_{key}"].update(ms=ms, walk_ms=walk_ms, plain_ms=plain_ms,
+                                    walk_plain_ms=walk_plain_ms, bound_ms=bound_ms,
+                                    bound_by=bound_by, gflop=ops / 1e9)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _r2_phase(mt_intersect, counters, tri_pos, phi, nf_hit, results, tag):
+    """The round-2 kernels' path: `mt_intersect_pallas` and
+    `mt_intersect_stream` once each on these rays with every launch count
+    set to 0 just before and read just after; then each against its plain
+    version (hits and walk counts), the two against each other bit for bit,
+    the hit/tri mismatches against the near-to-far kernel (information: the
+    epilogues differ on borderline t), and their times and bounds."""
+    import torch
+
+    ro, rd = phi[1:4].T.contiguous(), phi[4:7].T.contiguous()
+    kernels = {"mt_pallas_r2": mt_intersect.mt_intersect_pallas,
+               "mt_stream_r2": mt_intersect.mt_intersect_stream}
+    print("round-2 MT path: mt_intersect_pallas and mt_intersect_stream on the headline primary rays")
+    for fn in counters.values():
+        fn.launches = 0
+    hits = {name: fn(tri_pos, ro, rd) for name, fn in kernels.items()}
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    print(f"  launches {launches}")
+    for name in kernels:
+        _check(launches[name] == 1, f"{name} launches {launches}")
+    _check(not _mt_launched(launches, kernels), f"other kernels launched: {launches}")
+    out = {}
+    for name in kernels:
+        err, stats = _r2_check(mt_intersect, name, tri_pos, ro, rd, hits[name], results, "headline")
+        vs_nf = int(((hits[name].hit != nf_hit.hit) | (hits[name].tri != nf_hit.tri)).sum())
+        results[f"{name}_headline"]["mismatches_vs_nf"] = vs_nf
+        print(f"{name} headline: hit/tri mismatches against nf {vs_nf} (information)")
+        out[name] = dict(launches=launches[name], max_abs_err=err,
+                         **_r2_timing(mt_intersect, name, tri_pos, ro, rd, stats, results,
+                                      "headline", tag))
+    for a, b in zip(*hits.values()):
+        _check(torch.equal(a, b), "mt_pallas_r2 and mt_stream_r2 differ")
+    print("mt_pallas_r2 and mt_stream_r2 agree bit for bit on the headline primary rays")
+    return out
+
+
+def _intersector_phase(trace, data, frame_params, kw, ref, counters, results, tag):
+    """`render_frame` through 'mt', 'bvh' and 'bvh8' (the plain loop over a
+    row-major grid, torch ops only) against the near-to-far kernel's frame
+    `ref` under the outlier rule; no MT kernel may launch.  Times each."""
+    import torch
+
+    paths = WIDTH * HEIGHT
+    for it in INTERSECTORS:
+        for fn in counters.values():
+            fn.launches = 0
+        img = trace.render_frame(data, frame_params, intersector=it, **kw)
+        torch.cuda.synchronize()
+        launched = _mt_launched({n: fn.launches for n, fn in counters.items()})
+        _check(not launched, f"intersector {it!r} launched MT kernels: {launched}")
+        _check(img.shape == ref.shape and bool(torch.isfinite(img).all()),
+               f"{it} frame not finite")
+        _check(float(img.min()) >= 0.0, f"{it} frame has negative radiance")
+        frac, agree = _outlier_rule(img, ref)
+        ms = _time_ms(lambda: trace.render_frame(data, frame_params, intersector=it, **kw), 1, 3)
+        print(f"intersector {it}: frame vs nf frame outlier fraction {frac:.2e}, non-outlier mean "
+              f"diff {agree:.2e}; MT kernels launched none")
+        print(f"timing {tag}: headline frame intersector {it} {ms:.3f} ms "
+              f"({paths / ms / 1e3:.3f} Mpaths/s)")
+        results[f"frame_{it}"] = dict(ms=ms, outlier_frac=frac, mean_diff=agree)
+
+
+def _mesh_scene(pt, segments: int):
+    """The JAX bench's mesh_scene(segments) (bench.py:84-91): a sphere of
+    radius 0.5 and a 4x4 plane under a 512x1024 gradient sky."""
+    from tpu_pathtracer_torch.scene import primitives
+    from tpu_pathtracer_torch.scene.envmap import gradient_sky
+    from tpu_pathtracer_torch.scene.host import rotation_x
+
+    scene = pt.Scene()
+    scene.add(pt.Mesh(*primitives.sphere(0.5, segments, segments // 2),
+                      pt.Material(color=(0.8, 0.7, 0.6))))
+    scene.add(pt.Mesh(*primitives.plane(4, 4), pt.Material(), transform=rotation_x(-math.pi / 2)))
+    scene.set_environment(gradient_sky(512, 1024))
+    return scene
+
+
+def _large_phase(pt, trace, intersect, counters, results, tag, profile: bool):
+    """The slice's full-width path: Renderer(mesh_scene(640)).render_all()
+    and display() with every launch count set to 0 just before and read
+    just after ('auto' must take 'bvh8' and no MT kernel may launch); then
+    'bvh8' against 'bvh' on the primary rays (the same hits and t; the
+    triangles may differ only on exact-t ties), and the times."""
+    import torch
+
+    dev = torch.device("cuda")
+    config = pt.RenderConfig(width=WIDTH, height=HEIGHT, frames=LARGE_FRAMES,
+                             samples_per_frame=1, max_bounces=LARGE_BOUNCES)
+    renderer = pt.Renderer(_mesh_scene(pt, LARGE_SEGMENTS), pt.Camera.create(**CAMERA), config,
+                           pt.PostConfig(), device=dev)
+    t0 = time.perf_counter()
+    data = renderer.scene_data
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    n_pad, n_real = data.packed.tri_pos.shape[0], int((data.packed.tri_perm >= 0).sum())
+    kind = trace.resolve_intersector("auto", n_pad)
+    print(f"large scene: {n_real} triangles padded to {n_pad}, {data.packed.nodes.shape[0]} "
+          f"skip-link and {data.packed.fat_nodes.shape[0]} fat-leaf node rows; compiled in "
+          f"{compile_s:.2f} s; intersector {kind}")
+    _check(n_pad == 524288 and kind == "bvh8", f"large scene {n_pad} triangles -> {kind}")
+
+    print("large-scene main path:")
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    renderer.render_all()
+    image = renderer.display()
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    png = ROOT / "build" / "chip_smoke_large.png"
+    _check_display(renderer, image, config, png)
+    print(f"  {LARGE_FRAMES} frames + display in {main_s:.2f} s; launches {launches}; image mean "
+          f"{float(image.mean()):.4f}, written to {png.relative_to(ROOT)}")
+    _check(not _mt_launched(launches), f"MT kernels launched on the bvh8 path: {launches}")
+    _check(launches["denoise"] >= 1, "denoise kernel not launched")
+
+    params = pt.RenderParams.create(renderer.camera, frame=3)
+    kw = dict(width=WIDTH, height=HEIGHT, aspect=WIDTH / HEIGHT, max_bounces=LARGE_BOUNCES)
+    frame_ms = _time_ms(lambda: trace.render_frame(data, params, **kw), 0, 2)
+    if profile:
+        _profile(lambda: trace.render_frame(data, params, **kw), tag, results, "large")
+
+    o, d, _ = _primary_rays(renderer.camera, dev)
+    ro, rd = o.T.contiguous(), d.T.contiguous()
+    fat, nodes, tri_pos = data.packed.fat_nodes, data.packed.nodes, data.packed.tri_pos
+    h8 = intersect.bvh_fat_intersect(fat, ro, rd, ray_batch=0)
+    hb = intersect.bvh_intersect(nodes, tri_pos, ro, rd)
+    torch.cuda.synchronize()
+    _check(torch.equal(h8.hit, hb.hit), "bvh8 and bvh differ in hits")
+    _check(torch.equal(h8.t, hb.t), "bvh8 and bvh differ in t")
+    ties = int((h8.tri != hb.tri).sum())
+    hits = int(h8.hit.sum())
+    bvh8_ms = _time_ms(lambda: intersect.bvh_fat_intersect(fat, ro, rd, ray_batch=0), 1, 3)
+    bvh_ms = _time_ms(lambda: intersect.bvh_intersect(nodes, tri_pos, ro, rd), 1, 3)
+    print(f"large scene primary rays: bvh8 vs bvh: {hits} hits, equal hits and t, "
+          f"{ties} triangles differ on exact-t ties")
+    print(f"timing {tag}: large frame (bvh8, {LARGE_BOUNCES} bounces) {frame_ms:.3f} ms "
+          f"({WIDTH * HEIGHT / frame_ms / 1e3:.3f} Mpaths/s); primary-ray walk bvh8 "
+          f"{bvh8_ms:.3f} ms, bvh {bvh_ms:.3f} ms; scene compile {compile_s:.2f} s")
+    results.update(large_compile_s=compile_s, large_main_path_s=main_s, large_launches=launches,
+                   large_image_mean=float(image.mean()), large_frame_ms=frame_ms,
+                   large_bvh8_walk_ms=bvh8_ms, large_bvh_walk_ms=bvh_ms,
+                   large_primary_hits=hits, large_bvh8_bvh_ties=ties)
 
 
 def main(argv=None) -> int:
@@ -425,12 +782,10 @@ def main(argv=None) -> int:
 
     import tpu_pathtracer_torch as pt
     from tpu_pathtracer_torch import _build
-    from tpu_pathtracer_torch.ops import trace
+    from tpu_pathtracer_torch.ops import intersect, trace
     from tpu_pathtracer_torch.ops.kernels import denoise as kdenoise
-    from tpu_pathtracer_torch.ops.kernels import mt_shade, mt_stream
-    from tpu_pathtracer_torch.scene import primitives
+    from tpu_pathtracer_torch.ops.kernels import mt_intersect, mt_shade, mt_stream
     from tpu_pathtracer_torch.scene.envmap import gradient_sky
-    from tpu_pathtracer_torch.scene.host import rotation_x
 
     dev = torch.device("cuda")
     card = _card()
@@ -443,6 +798,8 @@ def main(argv=None) -> int:
                 "mt_list": mt_shade.mt_intersect_list_phi,
                 "mt_cond": mt_shade.mt_intersect_cond_phi,
                 "mt_stream": mt_stream.mt_intersect_stream2_phi,
+                "mt_pallas_r2": mt_intersect.mt_intersect_pallas,
+                "mt_stream_r2": mt_intersect.mt_intersect_stream,
                 "denoise": kdenoise.smart_denoise}
 
     # --- build --------------------------------------------------------------
@@ -468,6 +825,14 @@ def main(argv=None) -> int:
 
     # --- cull phase: nf, list and cond at sub 32/64/128 vs plain ---------------
     culls = _cull_phase(mt_shade, tri_pos, rays, results, tag)
+    cull_bounds = {cull: _cull_bound(mt_shade, tri_pos, phi_primary, cull) for cull in CULLS}
+    for cull, (bound_ms, bound_by) in cull_bounds.items():
+        print(f"bound: mt_{cull} primary wrapper (sub 64) {bound_ms:.4f} ms ({bound_by})")
+        results[f"mt_{cull}_bound_ms"] = bound_ms
+
+    # --- round-2 phase: mt_intersect_pallas / mt_intersect_stream vs plain ------
+    r2 = _r2_phase(mt_intersect, counters, tri_pos, phi_primary,
+                   mt_shade.mt_intersect_nf_phi(tri_pos, phi_primary), results, tag)
 
     # --- denoise phase ------------------------------------------------------
     den_err = 0.0
@@ -489,8 +854,8 @@ def main(argv=None) -> int:
     launches, main_s, renderer, mean = _drive(pt, scene, config, counters,
                                               ROOT / "build" / "chip_smoke_headline.png")
     _check(FRAMES <= launches["mt_nf"] <= FRAMES * BOUNCES, f"mt_nf launches {launches}")
-    for other in ("mt_list", "mt_cond", "mt_stream"):
-        _check(launches[other] == 0, f"{other} launched on the headline path: {launches}")
+    _check(not _mt_launched(launches, ("mt_nf",)),
+           f"other MT kernels launched on the headline path: {launches}")
     _check(launches["denoise"] >= 1, "denoise kernel not launched")
     results.update(main_path_s=main_s, launches=launches, image_mean=mean)
 
@@ -516,6 +881,7 @@ def main(argv=None) -> int:
         np.random.default_rng(0).random((HEIGHT, WIDTH, 3), np.float32)).to(dev)
     den_ms = _time_ms(lambda: kdenoise.smart_denoise(img512), 3, 30)
     den_plain_ms = _time_ms(lambda: kdenoise.smart_denoise_plain(img512), 1, 5)
+    den_bound = _denoise_bound(img512)
     display_ms = _time_ms(renderer.display, 2, 10)
     print(f"timing {tag}: headline frame kernel path {ms_k:.3f} ms "
           f"({paths / ms_k / 1e3:.2f} Mpaths/s), plain path {ms_p:.3f} ms "
@@ -523,21 +889,20 @@ def main(argv=None) -> int:
     print(f"timing {tag}: mt primary wrapper {mt_ms:.3f} ms (precull {prep_ms:.3f} ms, kernel "
           f"walk {walk_ms:.3f} ms), plain wrapper {mt_plain_ms:.3f} ms (plain walk "
           f"{walk_plain_ms:.3f} ms)")
-    print(f"timing {tag}: denoise 512x512 kernel {den_ms:.3f} ms, plain {den_plain_ms:.3f} ms; "
-          f"display() {display_ms:.3f} ms")
+    print(f"timing {tag}: denoise 512x512 kernel {den_ms:.3f} ms, plain {den_plain_ms:.3f} ms "
+          f"(bound {den_bound[0]:.4f} ms, {den_bound[1]}); display() {display_ms:.3f} ms")
     results.update(frame_ms=ms_k, frame_plain_ms=ms_p, mt_ms=mt_ms, mt_plain_ms=mt_plain_ms,
                    mt_walk_ms=walk_ms, mt_walk_plain_ms=walk_plain_ms, mt_prepare_ms=prep_ms,
                    denoise_ms=den_ms, denoise_plain_ms=den_plain_ms, display_ms=display_ms)
     if opts.profile:
         _profile(lambda: trace.render_frame(data, frame_params, **kw), tag, results, "headline")
+
+    # --- intersector phase: 'mt', 'bvh', 'bvh8' frames vs the nf frame ----------
+    _intersector_phase(trace, data, frame_params, kw, img_k, counters, results, tag)
     del renderer, img_k, img_p, prep
 
     # --- stress: streamed MT kernel vs plain on the stress scene's rays ------
-    stress = pt.Scene()
-    stress.add(pt.Mesh(*primitives.sphere(*STRESS_SPHERE), pt.Material(color=(0.8, 0.7, 0.6))))
-    stress.add(pt.Mesh(*primitives.plane(4, 4), pt.Material(),
-                       transform=rotation_x(-math.pi / 2)))
-    stress.set_environment(gradient_sky(512, 1024))
+    stress = _mesh_scene(pt, STRESS_SEGMENTS)
     t0 = time.perf_counter()
     sdata = stress.compile(device=dev)
     compile_s = time.perf_counter() - t0
@@ -560,6 +925,12 @@ def main(argv=None) -> int:
         results[f"mt_stream_{what}"].update(supers_walked=walked, chunks_staged=staged,
                                             subs_evaluated=evaluated)
     results["stress_compile_s"] = compile_s
+    # the streamed round-2 kernel at its cap (131,072 triangles) vs plain
+    s_ro, s_rd = s_primary[1:4].T.contiguous(), s_primary[4:7].T.contiguous()
+    r2_stats = _r2_check(mt_intersect, "mt_stream_r2", s_tri, s_ro, s_rd,
+                         mt_intersect.mt_intersect_stream(s_tri, s_ro, s_rd), results, "stress")[1]
+    _r2_timing(mt_intersect, "mt_stream_r2", s_tri, s_ro, s_rd, r2_stats, results, "stress", tag,
+               plain_reps=1)
 
     # --- stress main path: Renderer.render_all() + display() -----------------
     s_config = pt.RenderConfig(width=WIDTH, height=HEIGHT, frames=STRESS_FRAMES,
@@ -569,8 +940,8 @@ def main(argv=None) -> int:
                                                       ROOT / "build" / "chip_smoke_stress.png")
     _check(STRESS_FRAMES <= s_launches["mt_stream"] <= STRESS_FRAMES * STRESS_BOUNCES,
            f"mt_stream launches {s_launches}")
-    for other in ("mt_nf", "mt_list", "mt_cond"):
-        _check(s_launches[other] == 0, f"{other} launched on the stress path: {s_launches}")
+    _check(not _mt_launched(s_launches, ("mt_stream",)),
+           f"other MT kernels launched on the stress path: {s_launches}")
     results.update(stress_main_path_s=s_main_s, stress_launches=s_launches,
                    stress_image_mean=s_mean)
     del s_renderer
@@ -582,7 +953,23 @@ def main(argv=None) -> int:
     print(f"stress frame kernel vs plain: outlier fraction {frac:.2e}, "
           f"non-outlier mean diff {agree:.2e}")
     results.update(stress_frame_outlier_frac=frac, stress_frame_mean_diff=agree)
-    del img_k, img_p
+    # the same frame through the fat-leaf BVH walk (no MT kernel)
+    for fn in counters.values():
+        fn.launches = 0
+    img_b8 = trace.render_frame(sdata, frame_params, intersector="bvh8", **s_kw)
+    torch.cuda.synchronize()
+    launched = _mt_launched({n: fn.launches for n, fn in counters.items()})
+    _check(not launched, f"the bvh8 stress frame launched MT kernels: {launched}")
+    frac, agree = _outlier_rule(img_b8, img_k)
+    b8_ms = _time_ms(lambda: trace.render_frame(sdata, frame_params, intersector="bvh8", **s_kw),
+                     0, 2)
+    print(f"stress frame bvh8 vs mt_stream: outlier fraction {frac:.2e}, non-outlier mean diff "
+          f"{agree:.2e}; MT kernels launched none")
+    print(f"timing {tag}: stress frame intersector bvh8 {b8_ms:.3f} ms "
+          f"({paths / b8_ms / 1e3:.3f} Mpaths/s)")
+    results.update(stress_bvh8_outlier_frac=frac, stress_bvh8_mean_diff=agree,
+                   stress_bvh8_frame_ms=b8_ms)
+    del img_k, img_p, img_b8
 
     s_ms = _time_ms(lambda: trace.render_frame(sdata, frame_params, **s_kw), 1, 5)
     s_ms_p = _time_ms(lambda: trace.render_frame(sdata, frame_params, plain=True, **s_kw), 0, 2)
@@ -593,12 +980,20 @@ def main(argv=None) -> int:
     st_walk_ms = _time_ms(lambda: mt_stream._walk_cuda(*s_prep), 2, 10)
     st_walk_plain_ms = _time_ms(lambda: mt_stream._walk_plain(*s_prep), 1, 2)
     st_prep_ms = _time_ms(lambda: mt_stream._prepare(s_tri, s_primary, None), 2, 10)
+    walked, staged, evaluated = (results["mt_stream_primary"][k] for k in (
+        "supers_walked", "chunks_staged", "subs_evaluated"))
+    s_tile, s_supers = s_prep[-1], s_prep[5].shape[1]
+    st_bound = _bound(
+        evaluated * mt_stream.SUB_TRIS * s_tile * PAIR_OPS_NF
+        + (s_prep[0].shape[1] * s_supers + (walked * mt_stream.CHUNKS_PER_SUPER
+                                            + staged * mt_stream.SUBS_PER_CHUNK) * s_tile)
+        * SLAB_OPS, _mt_bytes(s_tri.shape[0], s_primary.shape[1]))
     print(f"timing {tag}: stress frame kernel path {s_ms:.3f} ms "
           f"({paths / s_ms / 1e3:.3f} Mpaths/s), plain path {s_ms_p:.3f} ms "
           f"({paths / s_ms_p / 1e3:.3f} Mpaths/s)")
     print(f"timing {tag}: mt_stream primary wrapper {st_ms:.3f} ms (precull {st_prep_ms:.3f} ms, "
           f"kernel walk {st_walk_ms:.3f} ms), plain wrapper {st_plain_ms:.3f} ms (plain walk "
-          f"{st_walk_plain_ms:.3f} ms)")
+          f"{st_walk_plain_ms:.3f} ms); bound {st_bound[0]:.4f} ms ({st_bound[1]})")
     results.update(stress_frame_ms=s_ms, stress_frame_plain_ms=s_ms_p, stream_ms=st_ms,
                    stream_plain_ms=st_plain_ms, stream_walk_ms=st_walk_ms,
                    stream_walk_plain_ms=st_walk_plain_ms, stream_prepare_ms=st_prep_ms)
@@ -607,25 +1002,40 @@ def main(argv=None) -> int:
 
     del s_prep
 
-    # --- training main path: diff.invert, then list/cond gradients ------------
+    # --- large-scene main path: Renderer on mesh_scene(640) through bvh8 ------
+    _large_phase(pt, trace, intersect, counters, results, tag, opts.profile)
+
+    # --- training main path: diff.invert, then list/cond/bvh8 gradients --------
     cull_launches = _training_phase(pt, counters, results, tag, opts.profile)
 
+    def bound(b):
+        return {"bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+
+    r2_src = "tpu_pathtracer_torch/csrc/mt_intersect.cu"
     kernels = [
         {"name": "mt_nf", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/mt_shade.cu",
          "replaces": "tpu_pathtracer/ops/pallas/mt_shade.py:308", "launches": launches["mt_nf"],
-         "max_abs_err": max(mt_err, culls["nf"][0]), "ms": mt_ms, "plain_ms": mt_plain_ms},
+         "max_abs_err": max(mt_err, culls["nf"][0]), "ms": mt_ms, "plain_ms": mt_plain_ms,
+         **bound(cull_bounds["nf"])},
         {"name": "denoise", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/denoise.cu",
          "replaces": "tpu_pathtracer/ops/pallas/denoise.py:33",
          "launches": launches["denoise"], "max_abs_err": den_err, "ms": den_ms,
-         "plain_ms": den_plain_ms},
+         "plain_ms": den_plain_ms, **bound(den_bound)},
         {"name": "mt_stream", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/mt_stream.cu",
          "replaces": "tpu_pathtracer/ops/pallas/mt_shade.py:628",
          "launches": s_launches["mt_stream"], "max_abs_err": stream_err, "ms": st_ms,
-         "plain_ms": st_plain_ms},
+         "plain_ms": st_plain_ms, **bound(st_bound)},
         *({"name": f"mt_{cull}", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/mt_shade.cu",
            "replaces": f"tpu_pathtracer/ops/pallas/mt_shade.py:{line}",
            "launches": cull_launches[cull], "max_abs_err": culls[cull][0], "ms": culls[cull][1],
-           "plain_ms": culls[cull][2]} for cull, line in (("list", 255), ("cond", 183))),
+           "plain_ms": culls[cull][2], **bound(cull_bounds[cull])}
+          for cull, line in (("list", 255), ("cond", 183))),
+        *({"name": name, "route": "cuda", "source": r2_src,
+           "replaces": f"tpu_pathtracer/ops/pallas/mt_intersect.py:{line}",
+           "launches": r2[name]["launches"], "max_abs_err": r2[name]["max_abs_err"],
+           "ms": r2[name]["ms"], "plain_ms": r2[name]["plain_ms"],
+           **bound((r2[name]["bound_ms"], r2[name]["bound_by"]))}
+          for name, line in (("mt_pallas_r2", 62), ("mt_stream_r2", 293))),
     ]
     results["kernels"] = kernels
     if opts.out:

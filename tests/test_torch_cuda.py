@@ -18,7 +18,7 @@ import tpu_pathtracer_torch as tpt
 from tpu_pathtracer_torch.ops import camera as camera_ops
 from tpu_pathtracer_torch.ops import trace
 from tpu_pathtracer_torch.ops.kernels import denoise as kdenoise
-from tpu_pathtracer_torch.ops.kernels import mt_shade, mt_stream
+from tpu_pathtracer_torch.ops.kernels import mt_intersect, mt_shade, mt_stream
 from tpu_pathtracer_torch.ops.mt_matmul import ray_features
 from tpu_pathtracer_torch.scene import envmap, primitives
 from tpu_pathtracer_torch.scene.convert import leaves_to_numpy
@@ -250,3 +250,76 @@ def test_denoise_kernel_matches_plain(cuda, hw):
     out = kdenoise.smart_denoise(img)
     assert kdenoise.smart_denoise.launches == before + 1
     torch.testing.assert_close(out, kdenoise.smart_denoise_plain(img), atol=2e-5, rtol=1e-4)
+
+
+R2_WRAPPERS = {
+    False: (mt_intersect.mt_intersect_pallas, mt_intersect.mt_intersect_pallas_plain),
+    True: (mt_intersect.mt_intersect_stream, mt_intersect.mt_intersect_stream_plain),
+}
+
+
+def _rays(phi_t):
+    return phi_t[1:4].T.contiguous(), phi_t[4:7].T.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", [False, True], ids=["pallas", "stream"])
+@pytest.mark.parametrize("n_tris,n_rays", [
+    (2000, 40000),   # chunks of 128, a partial last tile
+    (700, 1300),     # a partial last chunk of padding rows
+    (61, 3000),      # chunks of 64 (the chunk rule for small scenes)
+    (8192, 20480),   # the whole-scene cap, whole tiles
+])
+def test_r2_kernels_match_plain_bit_for_bit(cuda, stream, n_tris, n_rays):
+    """The round-2 kernels (mt_intersect_pallas / mt_intersect_stream)
+    against their plain versions on soups with parked rays: one launch,
+    bit-equal hits and t/u/v, equal walk counts."""
+    rng = np.random.default_rng(n_tris + n_rays)
+    tri = torch.from_numpy(_soup(rng, n_tris)).to(cuda)
+    phi_t, park = _parked_rays(rng, n_rays)
+    ro, rd = (x.to(cuda) for x in _rays(phi_t))
+    kernel, plain = R2_WRAPPERS[stream]
+    before = kernel.launches
+    hk = kernel(tri, ro, rd)
+    assert kernel.launches == before + 1
+    hp = plain(tri, ro, rd)
+    assert int(hk.hit.sum()) > 0 and not hk.hit[torch.from_numpy(park).to(cuda)].any()
+    for a, b in zip(hk, hp):
+        assert torch.equal(a, b)
+    stats = mt_intersect.walk_stats(tri, ro, rd, stream=stream)
+    assert torch.equal(stats, mt_intersect.walk_stats(tri, ro, rd, stream=stream, plain=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", [False, True], ids=["pallas", "stream"])
+def test_r2_kernels_cull_like_plain_on_a_mesh(cuda, stream):
+    """Camera rays on the BVH-ordered default scene, where chunk culling
+    (and, for the streamed kernel, skipped copies) decide what is
+    evaluated: hits and walk counts must equal the plain version's, and
+    the culling must skip chunks."""
+    tri = tpt.default_scene().compile(device=cuda).packed.tri_pos
+    ro, rd = _rays(_camera_rays(cuda))
+    kernel, plain = R2_WRAPPERS[stream]
+    hk, hp = kernel(tri, ro, rd), plain(tri, ro, rd)
+    assert int(hk.hit.sum()) > 10000
+    for a, b in zip(hk, hp):
+        assert torch.equal(a, b)
+    stats = mt_intersect.walk_stats(tri, ro, rd, stream=stream)
+    assert torch.equal(stats, mt_intersect.walk_stats(tri, ro, rd, stream=stream, plain=True))
+    evaluated, copied = (int(x) for x in stats.sum(dim=0))
+    assert 0 < evaluated < stats.shape[0] * tri.shape[0] // mt_intersect.CHUNK_TRIS
+    assert copied >= evaluated and (copied == evaluated or stream)
+
+
+@pytest.mark.cuda
+def test_r2_kernels_empty_and_oversized_scenes_launch_nothing(cuda):
+    ro = torch.zeros((64, 3), device=cuda)
+    rd = torch.ones((64, 3), device=cuda)
+    for stream, cap in ((False, 8192), (True, 131072)):
+        kernel = R2_WRAPPERS[stream][0]
+        before = kernel.launches
+        h = kernel(torch.zeros((0, 9), device=cuda), ro, rd)
+        assert not h.hit.any() and (h.t == 1e20).all()
+        with pytest.raises(ValueError, match="bvh8"):
+            kernel(torch.zeros((cap + 1, 9), device=cuda), ro, rd)
+        assert kernel.launches == before

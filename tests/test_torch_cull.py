@@ -207,7 +207,7 @@ def test_cond_walk_counts_cull_on_a_mesh():
     """Camera rays on the BVH-ordered default scene: the plain cond walk's
     chunk and sub tests skip work (random soups keep every box live), its
     walk counts are consistent, and its hits equal the nf walk's."""
-    data = tpt.default_scene().compile()
+    data = tpt.default_scene().compile(device="cpu")
     tri = data.packed.tri_pos
     cam = tpt.Camera.create(position=(0, 1, 4), look_at=(0, 0.5, 0), fov=45)
     xs, ys = ttrace.blocked_pixel_grid(32, 32)
@@ -229,7 +229,7 @@ def test_cond_walk_counts_cull_on_a_mesh():
 def test_render_options_read_the_environment(monkeypatch):
     """TPT_TILE_RAYS and TPT_SORT_BOUNCES reach render_frame (a bad value
     raises instead of being dropped)."""
-    data = tpt.default_scene(gradient_sky(8, 16)).compile()
+    data = tpt.default_scene(gradient_sky(8, 16)).compile(device="cpu")
     params = tpt.RenderParams.create(tpt.Camera.create(), frame=1)
     kw = dict(width=8, height=8, aspect=1.0, max_bounces=1)
     monkeypatch.setenv("TPT_TILE_RAYS", "100")
@@ -261,7 +261,7 @@ def test_fused_frame_under_cond_matches_jax(monkeypatch):
     a = jtrace.render_frame(jpt.default_scene(j_gradient_sky(8, 16)).compile(),
                             jpt.RenderParams.create(jpt.Camera.create(**cam), frame=2),
                             intersector="mt_pallas", **kw)
-    b = ttrace.render_frame(tpt.default_scene(gradient_sky(8, 16)).compile(),
+    b = ttrace.render_frame(tpt.default_scene(gradient_sky(8, 16)).compile(device="cpu"),
                             tpt.RenderParams.create(tpt.Camera.create(**cam), frame=2), **kw)
     assert b.shape == (16, 16, 3) and torch.isfinite(b).all()
     assert_images_close(np.asarray(a), b.numpy())

@@ -49,7 +49,7 @@ GRAD_PATHS = ["materials.color", "materials.emission_strength", "env.radiance", 
 
 def _jax_leaves(sd):
     return {f"{group}.{f.name}": np.asarray(getattr(getattr(sd, group), f.name))
-            for group in ("triangles", "materials", "packed", "env")
+            for group in ("triangles", "materials", "bvh", "links", "packed", "env")
             for f in dataclasses.fields(getattr(sd, group))}
 
 
@@ -144,8 +144,7 @@ def test_trace_rays_matches_jax(scenes):
     assert float(inc_t.abs().sum()) > 0
 
 
-@pytest.mark.parametrize("kw", [dict(intersector="bvh8"), dict(intersector="mt"),
-                                dict(env_importance=True)], ids=["bvh8", "mt", "env_importance"])
+@pytest.mark.parametrize("kw", [dict(env_importance=True)], ids=["env_importance"])
 def test_trace_rays_unported_options_raise(scenes, kw):
     ro = torch.zeros((4, 3))
     with pytest.raises(NotImplementedError):
@@ -223,6 +222,50 @@ def test_grads_match_jax(path, jax_grads, port_grads):
     got, want = port_grads[path], jax_grads[path]
     assert got.shape == want.shape and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-6, err_msg=path)
+
+
+def _jax_tree_leaves(tree, prefix=""):
+    """A JAX gradient tree (scene or params) as numpy arrays keyed by path."""
+    out = {}
+    for f in dataclasses.fields(tree):
+        value = getattr(tree, f.name)
+        if dataclasses.is_dataclass(value):
+            out.update(_jax_tree_leaves(value, f"{prefix}{f.name}."))
+        else:
+            out[f"{prefix}{f.name}"] = np.asarray(value)
+    return out
+
+
+@pytest.mark.parametrize("intersector", ["bvh", "bvh8"])
+def test_grads_through_bvh_walks_match_jax(scenes, target, intersector):
+    """`diff.grads` with the triangles chosen by a BVH walk against
+    `jax.grad` of the same loss, leaf by leaf over the whole scene and
+    params: float leaves within rtol 1e-3 / atol 1e-6 (the BVH's float
+    leaves, which only steer the detached walk, get zeros in both), integer
+    leaves None where JAX gives float0."""
+    jsd, tsd = scenes
+    tgt = _grad_target(target)
+
+    def jloss(s, p):
+        img = jtrace.render_frame(s, p, differentiable=True, intersector=intersector, **KW)
+        return jdiff.l2_image_loss(img, jnp.asarray(tgt.numpy()))
+
+    jvalue, (jg_s, jg_p) = jax.value_and_grad(jloss, argnums=(0, 1), allow_int=True)(
+        jsd, _jparams())
+    loss = tdiff.make_loss(tgt, intersector=intersector, **LOSS_KW)
+    np.testing.assert_allclose(float(loss(tsd, _tparams())), float(jvalue), rtol=1e-5)
+    tg_s, tg_p = tdiff.grads(loss, tsd, _tparams())
+    got = {**leaves_to_numpy(tg_s), **leaves_to_numpy(tg_p)}
+    want = {**_jax_tree_leaves(jg_s), **_jax_tree_leaves(jg_p)}
+    assert set(got) == set(want) and {"packed.nodes", "packed.fat_nodes", "bvh.node_min"} <= set(got)
+    for path, g in got.items():
+        if g is None:
+            assert want[path].dtype == jax.dtypes.float0, path
+            continue
+        np.testing.assert_allclose(g, want[path], rtol=1e-3, atol=1e-6, err_msg=path)
+    for path in ("packed.nodes", "packed.fat_nodes", "bvh.node_min", "links.node_max"):
+        assert not got[path].any(), path
+    assert np.abs(got["materials.color"]).max() > 0 and np.abs(got["env.radiance"]).max() > 0
 
 
 def _fd_check(loss_p, values, path, idx, eps, atol, rtol):

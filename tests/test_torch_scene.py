@@ -13,12 +13,13 @@ import torch
 import tpu_pathtracer as jpt
 from tpu_pathtracer.accel.bvh import build_bvh_flat as j_build_bvh_flat
 from tpu_pathtracer.accel.bvh import flat_to_links as j_flat_to_links
+from tpu_pathtracer.accel.bvh import links_to_fat as j_links_to_fat
 from tpu_pathtracer.scene import primitives as jprim
 from tpu_pathtracer.scene.envmap import gradient_sky as j_gradient_sky
 from tpu_pathtracer.scene.types import Camera as JCamera
 from tpu_pathtracer.scene.types import RenderParams as JParams
 import tpu_pathtracer_torch as tpt
-from tpu_pathtracer_torch.accel.bvh import build_bvh_flat, flat_to_links
+from tpu_pathtracer_torch.accel.bvh import build_bvh_flat, flat_to_links, links_to_fat
 from tpu_pathtracer_torch.scene import primitives as tprim
 from tpu_pathtracer_torch.scene.convert import params_from_numpy, scene_from_numpy
 from tpu_pathtracer_torch.scene.envmap import gradient_sky
@@ -27,7 +28,9 @@ GROUPS = {
     "triangles": ("p0", "p1", "p2", "n0", "n1", "n2", "material"),
     "materials": ("color", "specular_color", "roughness", "metalness",
                   "emission_color", "emission_strength"),
-    "packed": ("tri_pos", "tri_shade", "tri_perm"),
+    "bvh": ("node_min", "node_max", "left", "right", "tri", "is_leaf"),
+    "links": ("node_min", "node_max", "tri", "miss"),
+    "packed": ("nodes", "tri_pos", "tri_shade", "tri_perm", "fat_nodes"),
     "env": ("radiance", "marginal_cdf", "conditional_cdf", "pdf", "sample_pdf"),
 }
 
@@ -45,7 +48,7 @@ def jax_leaves(sd):
 @pytest.fixture(scope="module")
 def scenes():
     jsd = jpt.default_scene(j_gradient_sky(8, 16)).compile()
-    tsd = tpt.default_scene(gradient_sky(8, 16)).compile()
+    tsd = tpt.default_scene(gradient_sky(8, 16)).compile(device="cpu")
     return jsd, tsd
 
 
@@ -79,6 +82,41 @@ def test_bvh_and_links_match_jax_numpy_builder():
     links, jlinks = flat_to_links(flat), j_flat_to_links(jflat, native=False)
     for k in jlinks:
         _assert_same_bytes(links[k], jlinks[k], k)
+    # the fat-leaf layout, over packed rows in DFS leaf order
+    order = links["tri"][links["tri"] >= 0]
+    packed_id = np.where(links["tri"] >= 0, np.argsort(order)[np.clip(links["tri"], 0, None)],
+                         -1).astype(np.int32)
+    tri_pos = np.concatenate([p0, p1, p2], axis=1)[order]
+    for max_leaf, end in ((8, None), (4, 1024)):
+        _assert_same_bytes(links_to_fat(links, tri_pos, packed_id, max_leaf, end),
+                           j_links_to_fat(jlinks, tri_pos, packed_id, max_leaf, end),
+                           f"fat_nodes max_leaf={max_leaf}")
+
+
+def test_every_jax_scene_key_has_a_port_field(scenes):
+    """scene_from_numpy carries every leaf of the JAX scene, and the port's
+    scene has no leaf the JAX scene lacks."""
+    jsd, tsd = scenes
+    from tpu_pathtracer_torch.scene.convert import leaves_to_numpy
+
+    assert set(leaves_to_numpy(tsd)) == set(jax_leaves(jsd))
+    assert set(jax_leaves(jsd)) == {f"{g}.{f}" for g, fs in GROUPS.items() for f in fs}
+
+
+def test_traversal_tables_keep_their_int_columns(scenes):
+    """The link columns of nodes (6-7) and fat_nodes (6-8) are int32 bit
+    patterns (-1 is a NaN pattern): read through an int32 view they hold
+    the JAX compile's links, and padded rows end the walk."""
+    jsd, tsd = scenes
+    nodes = tsd.packed.nodes[:, 6:8].contiguous().view(torch.int32).numpy()
+    fat = tsd.packed.fat_nodes[:, 6:9].contiguous().view(torch.int32).numpy()
+    np.testing.assert_array_equal(nodes, np.asarray(jsd.packed.nodes)[:, 6:8].view(np.int32))
+    np.testing.assert_array_equal(fat, np.asarray(jsd.packed.fat_nodes)[:, 6:9].view(np.int32))
+    k, k2 = nodes.shape[0], fat.shape[0]
+    assert (nodes[:, 0] >= -1).all() and (nodes[:, 0] < 2048).all() and (nodes[:, 1] <= k).all()
+    assert (fat[:, 0] <= k2).all() and (fat[:, 2] <= 8).all() and (fat[:, 2] >= 0).all()
+    pad = np.isinf(tsd.packed.fat_nodes[:, 0].numpy())  # the inverted boxes of padded rows
+    assert pad.any() and (fat[pad, 2] == 0).all() and (fat[pad, 0] == k2).all()
 
 
 def test_scene_from_numpy_roundtrip(scenes):
@@ -98,7 +136,7 @@ def test_scene_from_numpy_carries_a_large_scene():
     ts = tpt.Scene()
     ts.add(tpt.Mesh(*tprim.sphere(1.0, 80, 60), tpt.Material(color=(0.8, 0.7, 0.6))))
     carried = scene_from_numpy(jax_leaves(js.compile()))
-    tsd = ts.compile()
+    tsd = ts.compile(device="cpu")
     assert carried.packed.tri_pos.shape == (16384, 9)
     for group, fields in GROUPS.items():
         for field in fields:

@@ -141,12 +141,12 @@ RESOLVE = [
     ("auto", 8192, "mt_pallas"),
     ("auto", 8193, "mt_stream"),
     ("auto", 262144, "mt_stream"),
-    ("auto", 262145, NotImplementedError),
+    ("auto", 262145, "bvh8"),
     ("mt_stream", 100, "mt_stream"),
     ("mt_pallas", 9000, "mt_pallas"),  # the wrapper rejects it, as in JAX
-    ("bvh8", 100, NotImplementedError),
-    ("bvh", 100, NotImplementedError),
-    ("mt", 100, NotImplementedError),
+    ("bvh8", 100, "bvh8"),
+    ("bvh", 100, "bvh"),
+    ("mt", 100, "mt"),
     ("nope", 100, ValueError),
 ]
 
@@ -157,7 +157,7 @@ def test_resolve_intersector(name, n_tris, want):
     if isinstance(want, str):
         assert ttrace.resolve_intersector(name, n_tris) == want
     else:
-        with pytest.raises(want, match="bvh8" if n_tris > 262144 else None):
+        with pytest.raises(want):
             ttrace.resolve_intersector(name, n_tris)
 
 
@@ -195,7 +195,8 @@ def test_header_edit_changes_library_path(tmp_path, monkeypatch):
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     before = _build.library_path()
-    assert [p.name for p in _build._sources()] == ["denoise.cu", "mt_shade.cu", "mt_stream.cu"]
+    assert [p.name for p in _build._sources()] == ["denoise.cu", "mt_intersect.cu", "mt_shade.cu",
+                                                   "mt_stream.cu"]
     header = csrc / "mt_common.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = _build.library_path()
@@ -215,7 +216,7 @@ def _scenes():
     ts.add(tpt.Mesh(*tprim.sphere(0.5, 48, 24), tpt.Material(color=(0.8, 0.7, 0.6))))
     ts.add(tpt.Mesh(*tprim.plane(4, 4), tpt.Material(), transform=rotation_x(-math.pi / 2)))
     ts.set_environment(gradient_sky(8, 16))
-    return js.compile(), ts.compile()
+    return js.compile(), ts.compile(device="cpu")
 
 
 @pytest.fixture(scope="module")

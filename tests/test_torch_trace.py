@@ -40,7 +40,7 @@ CAM = dict(position=(0, 1, 4), look_at=(0, 0.5, 0), fov=45, aperture=0.05, focal
 @pytest.fixture(scope="module")
 def scenes():
     return (jpt.default_scene(j_gradient_sky(8, 16)).compile(),
-            tpt.default_scene(gradient_sky(8, 16)).compile())
+            tpt.default_scene(gradient_sky(8, 16)).compile(device="cpu"))
 
 
 def test_render_frame_matches_jax_fused(scenes):
@@ -160,7 +160,6 @@ def test_blocked_grid_direction_bin_and_key_match_jax():
 UNPORTED = [
     ("env_importance", dict(env_importance=True)),
     ("blue_noise", dict(blue_noise=np.zeros((4, 4, 2), np.float32))),
-    ("intersector_bvh", dict(intersector="bvh")),
     ("sort_window", dict(sort_window=256)),
 ]
 
@@ -195,7 +194,7 @@ LARGE_CAM = dict(position=(0, 0.5, 3), look_at=(0, 0, 0), fov=45)
 
 
 def test_large_scene_auto_renders_through_mt_stream(large_scene, monkeypatch):
-    data = large_scene.compile()
+    data = large_scene.compile(device="cpu")
     assert data.packed.tri_pos.shape == (16384, 9) and dataclasses.is_dataclass(data)
     calls = []
     stream = ttrace.mt_intersect_stream2_phi
@@ -214,7 +213,7 @@ def test_large_scene_auto_renders_through_mt_stream(large_scene, monkeypatch):
 def test_large_scene_mt_pallas_raises_value_error(large_scene):
     params = tpt.RenderParams.create(tpt.Camera.create(**LARGE_CAM), frame=1)
     with pytest.raises(ValueError, match="mt_stream"):
-        ttrace.render_frame(large_scene.compile(), params, width=8, height=8, aspect=1.0,
+        ttrace.render_frame(large_scene.compile(device="cpu"), params, width=8, height=8, aspect=1.0,
                             intersector="mt_pallas")
 
 
@@ -230,9 +229,18 @@ def test_large_scene_renderer_completes(large_scene, intersector):
 
 
 def test_renderer_rejects_unported_intersector():
-    with pytest.raises(NotImplementedError):
+    """Every intersector of the JAX package is ported: the Renderer renders
+    through 'bvh8', and rejects only a name no intersector has."""
+    with pytest.raises(ValueError, match="unknown intersector"):
         tpt.Renderer(tpt.default_scene(), tpt.Camera.create(), device="cpu",
-                     config=tpt.RenderConfig(intersector="bvh8"))
+                     config=tpt.RenderConfig(intersector="bvh16"))
+    r = tpt.Renderer(tpt.default_scene(gradient_sky(8, 16)),
+                     tpt.Camera.create(position=(0, 1, 4), look_at=(0, 0.5, 0), fov=45),
+                     tpt.RenderConfig(width=8, height=8, frames=2, max_bounces=2,
+                                      intersector="bvh8"), device="cpu")
+    acc = r.render_all()
+    assert r.status == "idle" and r.frame == 3 and torch.isfinite(acc).all()
+    assert float(acc.std()) > 0.0
 
 
 def test_envsample_matches_jax():

@@ -104,6 +104,8 @@ def load() -> ctypes.CDLL:
     lib.tpt_mt_cond.restype = i
     lib.tpt_mt_stream.argtypes = [p] * 12 + [i] * 6 + [p]
     lib.tpt_mt_stream.restype = i
+    lib.tpt_mt_r2.argtypes = [p] * 8 + [i] * 4 + [p]
+    lib.tpt_mt_r2.restype = i
     lib.tpt_denoise.argtypes = [p, p, p, i, i, i, f, p]
     lib.tpt_denoise.restype = i
     lib.tpt_error_string.argtypes = [i]

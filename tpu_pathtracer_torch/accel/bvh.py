@@ -1,13 +1,14 @@
 """Top-down sweep-SAH BVH builder with breadth-first flattening (numpy).
 
 The numpy path of `tpu_pathtracer.accel.bvh` (`build_bvh_flat`,
-`flat_to_links`), which produces exactly the tree the reference builder
-produces (reference: src/passes/raytrace.ts:540-694): one leaf per triangle,
-longest-axis split with the reference's tie-breaking, stable centroid sort,
+`flat_to_links`, `links_to_fat`), which produces exactly the tree the
+reference builder produces (reference: src/passes/raytrace.ts:540-694):
+one leaf per triangle, longest-axis split with the reference's tie-breaking, stable centroid sort,
 full-sweep SAH with the first minimum, BFS flattening.  The JAX package's
 native C++ builder gives bit-identical output (tests/test_native_bvh.py), so
 the packed layout the port derives from this tree matches the reference's.
-The scene compile uses it only for the DFS leaf order of the triangle rows.
+The scene compile derives from it the DFS leaf order of the triangle rows
+and the skip-link (`nodes`) and fat-leaf (`fat_nodes`) traversal layouts.
 """
 
 from __future__ import annotations
@@ -208,3 +209,91 @@ def flat_to_links(flat: Dict[str, np.ndarray],
         "tri": np.where(is_leaf[preorder] == 1, flat["tri"][preorder], -1).astype(np.int32),
         "miss": miss.astype(np.int32),
     }
+
+
+def links_to_fat(links: Dict[str, np.ndarray], packed_tri_pos: np.ndarray,
+                 tri_packed_id: np.ndarray, max_leaf: int = 8,
+                 end: int | None = None) -> np.ndarray:
+    """Collapse the 1-triangle-leaf skip-link BVH into a fat-leaf layout and
+    pack each node's box AND its leaf triangles into ONE wide row.
+
+    A traversal's cost is mostly per step (one gather per visited node), so
+    a leaf holding up to `max_leaf` triangles inline cuts both the node
+    count (~max_leaf x fewer leaves) and the per-visit gather count (box +
+    all triangles in one row); the extra triangle tests are elementwise.
+
+    Works on the DFS-preorder skip-link arrays from `flat_to_links` (before
+    padding): a node's subtree is the contiguous span [i, skip(i)), and the
+    packed triangle rows (scene compile lays triangles in DFS *leaf order*)
+    of that subtree form a contiguous range — so a fat leaf is just
+    (tri_start, count) plus the inlined vertex rows.
+
+    Row layout (width 9 + 9*max_leaf):
+      [min(3), max(3), bitcast(miss), bitcast(tri_start), bitcast(count),
+       tri_pos rows of the leaf's triangles (padded with degenerate zeros)]
+    Internal nodes have count == 0.  The termination sentinel is the
+    returned node count, re-targeted to `end` when given (for padding).
+
+    `tri_packed_id[j]` = packed (DFS leaf order) triangle row of skip-link
+    node j's triangle (-1 for internal nodes).
+    """
+    k = links["tri"].shape[0]
+    width = 9 + 9 * max_leaf
+    if k == 0:
+        return np.zeros((0, width), np.float32)
+
+    miss = links["miss"].astype(np.int64)
+    tri = links["tri"].astype(np.int64)
+    is_leaf = tri >= 0
+    leaf_pre = np.concatenate([[0], np.cumsum(is_leaf)])
+
+    def span_end(i):  # first preorder index NOT in i's subtree
+        # miss links may carry a padded sentinel (> k): any target past the
+        # real node count means "end of tree"
+        return min(int(miss[i]), k) if miss[i] > i else k
+
+    def collapsed(n):
+        return is_leaf[n] or (leaf_pre[span_end(n)] - leaf_pre[n]) <= max_leaf
+
+    # preorder emission, skipping the interiors of collapsed subtrees
+    order = []
+    stack = [0]
+    while stack:
+        n = stack.pop()
+        order.append(n)
+        if collapsed(n):
+            continue
+        c1 = n + 1  # first child follows in preorder
+        c2 = span_end(c1)  # second child = end of first child's subtree
+        stack.append(c2)
+        stack.append(c1)
+    new_id = {old: new for new, old in enumerate(order)}
+    k2 = len(order)
+    sentinel = k2 if end is None else end
+
+    out = np.zeros((k2, width), np.float32)
+    ivals = np.zeros(3, np.int32)
+    for new, old in enumerate(order):
+        e = span_end(old)
+        out[new, 0:3] = links["min"][old]
+        out[new, 3:6] = links["max"][old]
+        # e is always either an emitted node or the end of the whole tree
+        ivals[0] = new_id.get(e, sentinel) if e < k else sentinel
+        if collapsed(old):
+            leaf_nodes = np.arange(old, e)[is_leaf[old:e]]
+            packed_ids = tri_packed_id[leaf_nodes]
+            tstart = int(packed_ids.min())
+            count = len(packed_ids)
+            assert int(packed_ids.max()) == tstart + count - 1, (
+                "packed triangle rows of a subtree must be contiguous"
+            )
+            ivals[1] = tstart
+            ivals[2] = count
+            out[new, 9 : 9 + 9 * count] = (
+                packed_tri_pos[tstart : tstart + count].reshape(-1)
+            )
+        else:
+            ivals[1] = -1
+            ivals[2] = 0
+        out[new, 6:9] = ivals.view(np.float32)
+    return out

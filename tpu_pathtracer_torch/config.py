@@ -26,7 +26,9 @@ class RenderConfig:
     Defaults follow the reference: 64 frames x 1 spp progressive budget,
     4 bounces, scaling factor 1.  `intersector` accepts 'auto' (the
     near-to-far MT kernel up to 8,192 padded triangles, the streamed one up
-    to 262,144), 'mt_pallas' and 'mt_stream'; `blue_noise` and a non-zero
+    to 262,144, the fat-leaf BVH walk above), 'mt_pallas', 'mt_stream',
+    'mt' (the all-pairs MT oracle), 'bvh' and 'bvh8'
+    (`ops.trace.resolve_intersector`); `blue_noise` and a non-zero
     `sort_window` are not ported yet and raise NotImplementedError.
     `tile_rays` is the MT kernels' ray-tile width (positive multiple of
     128, default 512); `sort_bounces` is how many leading bounces re-bin

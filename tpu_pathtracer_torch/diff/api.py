@@ -2,18 +2,22 @@
 scene and the camera.
 
 The port of `tpu_pathtracer.diff.api`.  The frame runs with
-`differentiable=True` (`ops.trace.trace_rays`): the MT kernel picks the
-triangles on detached inputs and their (t, u, v) are replayed analytically
-(`ops.intersect.replay_hit`), so torch autograd differentiates the frame
-with the discrete decisions (specular-vs-diffuse, visibility) held fixed.
-The kernels have no backward pass and need none.  RNG streams are integer
+`differentiable=True` (`ops.trace.trace_rays`): the intersector (an MT
+kernel, the MT oracle or a BVH walk; `intersector` as in `render_frame`)
+picks the triangles on detached inputs and their (t, u, v) are replayed
+analytically (`ops.intersect.replay_hit`), so torch autograd differentiates
+the frame with the discrete decisions (specular-vs-diffuse, visibility)
+held fixed.  The intersectors have no backward pass and need none.  RNG streams are integer
 and identical in every evaluation, so the loss is a deterministic function
 of the leaves.
 
 Differentiable leaves: every float field of `Materials`, `env.radiance`,
 the `Camera` fields, `env_intensity` / `env_rotation`, and the packed
-vertex rows `packed.tri_pos`.  Leaves are named by their attribute path,
-e.g. "materials.color", "camera.position".
+vertex rows `packed.tri_pos`.  The BVH's float leaves (`bvh.node_min`,
+`links.node_max`, `packed.nodes`, `packed.fat_nodes`, ...) only steer the
+detached walks, so their gradient is zero, as in the JAX package.  Leaves
+are named by their attribute path, e.g. "materials.color",
+"camera.position".
 """
 
 from __future__ import annotations
@@ -29,13 +33,15 @@ from ..scene.types import RenderParams, SceneData
 
 def render_frame_diff(scene, params, *, width: int, height: int, aspect: float,
                       samples_per_frame: int = 1, max_bounces: int = 4,
-                      env_importance: bool = False, plain: bool = False):
+                      env_importance: bool = False, intersector: str = "auto",
+                      plain: bool = False):
     """`ops.trace.render_frame` with the differentiable intersect path.
-    `plain=True` intersects through the kernels' plain versions."""
+    `plain=True` intersects through the MT kernels' plain versions."""
     return render_frame(
         scene, params, width=width, height=height, aspect=aspect,
         samples_per_frame=samples_per_frame, max_bounces=max_bounces,
-        env_importance=env_importance, differentiable=True, plain=plain,
+        env_importance=env_importance, differentiable=True, intersector=intersector,
+        plain=plain,
     )
 
 
@@ -45,14 +51,16 @@ def l2_image_loss(img, target):
 
 def make_loss(target, *, width: int, height: int, aspect: float,
               samples_per_frame: int = 1, max_bounces: int = 4,
-              loss_fn: Callable = l2_image_loss, plain: bool = False):
+              loss_fn: Callable = l2_image_loss, intersector: str = "auto",
+              plain: bool = False):
     """loss(scene, params) -> scalar tensor, differentiable with respect to
     the float leaves of both."""
 
     def loss(scene: SceneData, params: RenderParams):
         img = render_frame_diff(
             scene, params, width=width, height=height, aspect=aspect,
-            samples_per_frame=samples_per_frame, max_bounces=max_bounces, plain=plain,
+            samples_per_frame=samples_per_frame, max_bounces=max_bounces,
+            intersector=intersector, plain=plain,
         )
         return loss_fn(img, target)
 

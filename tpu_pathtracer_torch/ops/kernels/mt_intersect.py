@@ -1,0 +1,351 @@
+"""Round-2 fused Möller–Trumbore intersection with one level of treelet
+culling: the wrappers, their plain PyTorch versions, the CUDA kernels'
+bindings, and the helpers the other MT kernel modules share.
+
+Replaces the two TPU kernels of tpu_pathtracer/ops/pallas/mt_intersect.py:
+
+  * `_kernel` behind `mt_intersect_pallas` (N <= 8,192): the coefficient
+    table is read from device memory chunk by chunk;
+  * `_kernel_stream` behind `mt_intersect_stream` (N <= 131,072): the same
+    walk over a chunk-major table, each chunk copied into shared memory
+    ahead of its use (csrc/mt_intersect.cu).
+
+The contract is the JAX wrappers':
+
+  * chunks of min(128, max(8, ceil(N/8)*8)) triangles; triangles pad with
+    zero rows (never hit) to a chunk multiple; one box per chunk from
+    `treelet_boxes`, padding rows included;
+  * phi = [1, ro, rd, ro x rd] per ray, padded with 1e30 in all ten rows
+    to a multiple of TILE_RAYS rays;
+  * per 1,024-ray tile, chunks in ascending order: a chunk is evaluated
+    only if some lane of the tile (padding lanes included) enters its box
+    before its current best t.  Every lane starts at t = INF;
+  * the round-2 epilogue: f = 1/a where |a| >= EPSILON (else 1), t = ta*f,
+    valid = |a| >= EPSILON, 0 <= u*a*sign(a) <= |a|, v*a*sign(a) >= 0, their
+    sum <= |a|, and t > EPSILON (the divided form; the near-to-far kernels
+    test ts > EPSILON*|a|, so the two may differ on borderline t).  The
+    winner's u = ua*f and v = va*f;
+  * the lowest row of a chunk's smallest t wins the chunk, and it replaces
+    the best only if strictly nearer, so the lowest triangle index wins
+    exact-t ties;
+  * an empty scene misses everywhere; past each cap, JAX's ValueError.
+
+`mt_intersect_pallas` and `mt_intersect_stream` launch the CUDA kernels for
+CUDA tensors (counting launches in `.launches`) and run their plain
+versions for CPU tensors.  The plain versions make the same decisions in
+the same order with the same elementwise arithmetic, vectorised over
+tiles, so kernel and plain version agree bit for bit, and so do their
+per-tile walk counts (`walk_stats`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..mt_matmul import Hit, determinants, miss_hit, nearest, ray_features, triangle_columns
+from ..vecmath import EPSILON, INF
+
+TILE_RAYS = 1024  # rays per tile (one CUDA block)
+CHUNK_TRIS = 128  # the culling granule
+MT_PALLAS_MAX_TRIS = 8192
+MT_STREAM_MAX_TRIS = 131072
+_TILES_PER_FOLD = 32  # tiles evaluated together by the plain walk (bounds its memory)
+
+
+# --- helpers shared with mt_shade.py and mt_stream.py -------------------------
+
+
+def _pad_to(x, size: int, dim: int, value: float = 0.0):
+    pad = size - x.shape[dim]
+    if pad <= 0:
+        return x
+    shape = list(x.shape)
+    shape[dim] = pad
+    return torch.cat([x, torch.full(shape, value, dtype=x.dtype, device=x.device)], dim=dim)
+
+
+def treelet_boxes(tri_pos, chunk: int = CHUNK_TRIS):
+    """AABBs of consecutive `chunk`-row treelets: (N, 9) -> (M, 8) f32
+    [min3, max3, 0, 0].  All-zero padding rows pull the last box toward the
+    origin, which is conservative."""
+    n = tri_pos.shape[0]
+    m = -(-n // chunk)
+    verts = _pad_to(tri_pos, m * chunk, 0).reshape(m, chunk * 3, 3)
+    bmin = verts.amin(dim=1)
+    bmax = verts.amax(dim=1)
+    return torch.cat([bmin, bmax, torch.zeros_like(bmin[:, :2])], dim=1)
+
+
+def _slab_entries(boxes, ro, rd, par, inv):
+    """Conservative slab entry distances of (..., K, 8) boxes vs (..., 3, R)
+    rays (leading dims equal): (..., K, R) f32 entry distance, INF where the
+    box is missed.  Parallel axes require containment."""
+    inf = float(INF)
+    shape = (*boxes.shape[:-1], ro.shape[-1])
+    hit_par = torch.ones(shape, dtype=torch.bool, device=ro.device)
+    tmin_all = torch.full(shape, -inf, device=ro.device)
+    tmax_all = torch.full(shape, inf, device=ro.device)
+    for k in range(3):
+        pk = par[..., k, None, :]
+        o = ro[..., k, None, :]
+        lo_b = boxes[..., k, None]
+        hi_b = boxes[..., k + 3, None]
+        lo = (lo_b - o) * inv[..., k, None, :]
+        hi = (hi_b - o) * inv[..., k, None, :]
+        tn = torch.where(pk, -inf, torch.minimum(lo, hi))
+        tf = torch.where(pk, inf, torch.maximum(lo, hi))
+        inside = (o >= lo_b) & (o <= hi_b)
+        hit_par &= ~pk | inside
+        tmin_all = torch.maximum(tmin_all, tn)
+        tmax_all = torch.minimum(tmax_all, tf)
+    box_hit = hit_par & (tmax_all >= torch.clamp(tmin_all, min=0.0))
+    return torch.where(box_hit, tmin_all, inf)
+
+
+def _slab_setup(ro, rd):
+    """(par, inv) for `_slab_entries`: axes with |rd| < EPSILON are parallel."""
+    par = torch.abs(rd) < float(EPSILON)
+    inv = 1.0 / torch.where(par, torch.ones_like(rd), rd)
+    return par, inv
+
+
+def _check_inputs(what, *pairs, device):
+    for x, dt in pairs:
+        if x.dtype != dt or not x.is_contiguous() or x.device != device:
+            raise ValueError(f"{what} kernel: bad input dtype, layout or device")
+
+
+def _outputs(r_pad: int, device):
+    t = torch.empty((r_pad,), dtype=torch.float32, device=device)
+    return t, torch.empty((r_pad,), dtype=torch.int32, device=device), torch.empty_like(t), \
+        torch.empty_like(t)
+
+
+def _ptr(x):
+    return ctypes.c_void_p(None if x is None else x.data_ptr())
+
+
+def _stream(device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _counted(wrapper, walk):
+    """`walk`, counting each call in `wrapper.launches`."""
+    def launch(*args, **kw):
+        wrapper.launches += 1
+        return walk(*args, **kw)
+
+    return launch
+
+
+def _launches_kernel(x) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (run the plain version); other devices raise."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise NotImplementedError(f"no MT kernel for device {x.device}")
+    return True
+
+
+# --- the round-2 kernels -------------------------------------------------------
+
+
+def _chunk_tris(n: int) -> int:
+    return min(CHUNK_TRIS, max(8, -(-n // 8) * 8))
+
+
+def _check_size(n: int, stream: bool) -> None:
+    if stream and n > MT_STREAM_MAX_TRIS:
+        raise ValueError(
+            f"mt_stream's cull table scales with N/{CHUNK_TRIS} and supports "
+            f"<= {MT_STREAM_MAX_TRIS} triangles (got {n}); use 'bvh8'")
+    if not stream and n > MT_PALLAS_MAX_TRIS:
+        raise ValueError(
+            f"mt_pallas holds the whole scene in VMEM and supports <= {MT_PALLAS_MAX_TRIS} "
+            f"triangles (got {n}); use intersector='bvh8' (the auto default for large scenes) "
+            "or 'mt'")
+
+
+def _prepare(tri_pos, ro, rd, stream: bool):
+    """Padding, coefficient layout, chunk boxes and ray features, shared by
+    each kernel and its plain version: (phi_pad (10, Rp), rows, boxes (M, 8),
+    chunk).  `rows` is quantity-major (4*Np, 10) for `mt_intersect_pallas`
+    (row q*Np + j holds quantity q of triangle j) and chunk-major (M, 4*C,
+    10) for `mt_intersect_stream`; the same values either way."""
+    n = tri_pos.shape[0]
+    _check_size(n, stream)
+    chunk = _chunk_tris(n)
+    n_pad = -(-n // chunk) * chunk
+    tri_padded = _pad_to(tri_pos, n_pad, 0)
+    coef = triangle_columns(tri_padded).permute(1, 2, 0)  # (4, Np, 10)
+    if stream:
+        rows = coef.reshape(4, n_pad // chunk, chunk, 10).permute(1, 0, 2, 3).reshape(
+            n_pad // chunk, 4 * chunk, 10).contiguous()
+    else:
+        rows = coef.reshape(4 * n_pad, 10).contiguous()
+    r_pad = -(-ro.shape[0] // TILE_RAYS) * TILE_RAYS
+    phi_pad = _pad_to(ray_features(ro, rd).T, r_pad, 1, value=1e30).contiguous()
+    return phi_pad, rows, treelet_boxes(tri_padded, chunk), chunk
+
+
+def _epilogue_r2(a, ua, va, ta):
+    """The round-2 epilogue on (..., C, R) determinants: (t, u, v) per pair,
+    t = INF where invalid (validity by the divided form t > EPSILON)."""
+    abs_a = torch.abs(a)
+    sa = torch.sign(a)
+    us = ua * sa
+    vs = va * sa
+    ok_a = abs_a >= float(EPSILON)
+    f = 1.0 / torch.where(ok_a, a, torch.ones_like(a))
+    t_raw = ta * f
+    valid = ok_a & (us >= 0.0) & (us <= abs_a) & (vs >= 0.0) & (us + vs <= abs_a) & (
+        t_raw > float(EPSILON))
+    return torch.where(valid, t_raw, torch.full_like(a, float(INF))), ua * f, va * f
+
+
+def _walk_plain(phi_pad, rows, boxes, chunk: int, stream: bool, stats=None):
+    """The kernels' walk in torch ops, vectorised over tiles.  For chunk
+    c = 0, 1, ...: every tile in which some lane enters box c before its
+    current t evaluates the chunk and keeps its winner where strictly
+    nearer.  `stats`, a zeroed (T, 2) int32 tensor, receives each tile's
+    walk counts: chunks evaluated, chunks copied into shared memory.  The
+    streamed kernel copies chunk c+1 while chunk c is evaluated, if some
+    lane enters box c+1 before its t as it stands before chunk c (t only
+    falls, so no chunk it skips could be evaluated); the other kernel
+    copies exactly the chunks it evaluates."""
+    inf = float(INF)
+    n_tiles = phi_pad.shape[1] // TILE_RAYS
+    n_chunks = boxes.shape[0]
+    if stats is None:
+        stats = torch.zeros((n_tiles, 2), dtype=torch.int32, device=phi_pad.device)
+    coef = rows.reshape(n_chunks, 4, chunk, 10) if stream else rows.reshape(
+        4, n_chunks, chunk, 10).permute(1, 0, 2, 3)
+    phi = phi_pad.reshape(10, n_tiles, TILE_RAYS).permute(1, 0, 2)  # (T, 10, TR)
+    ro, rd = phi[:, 1:4], phi[:, 4:7]
+    par, inv = _slab_setup(ro, rd)
+    t = torch.full((n_tiles, TILE_RAYS), inf, device=phi.device)
+    idx = torch.full_like(t, -1, dtype=torch.int32)
+    u, v = torch.zeros_like(t), torch.zeros_like(t)
+
+    def entries(c):  # (T, TR) entry distances of every lane into box c
+        return _slab_entries(boxes[c].expand(n_tiles, 1, 8), ro, rd, par, inv)[:, 0]
+
+    def copied(entry):  # the streamed kernel's prefetch vote
+        if stream:
+            stats[:, 1] += (entry < t).any(dim=1).to(torch.int32)
+
+    e_next = entries(0)
+    copied(e_next)
+    for c in range(n_chunks):
+        live = (e_next < t).any(dim=1)
+        if c + 1 < n_chunks:
+            e_next = entries(c + 1)
+            copied(e_next)
+        tiles = live.nonzero().squeeze(1)
+        stats[tiles, 0] += 1
+        if not stream:
+            stats[tiles, 1] += 1
+        for g in range(0, tiles.numel(), _TILES_PER_FOLD):
+            tg = tiles[g:g + _TILES_PER_FOLD]
+            tt, uu, vv = _epilogue_r2(*determinants(phi[tg], coef[c]))  # (Tg, C, TR)
+            tmin, imin, u_w, v_w = nearest(tt, uu, vv, c * chunk)
+            take = tmin < t[tg]
+            t[tg] = torch.where(take, tmin, t[tg])
+            idx[tg] = torch.where(take, imin, idx[tg])
+            # + 0.0: the TPU kernel sums the winner's u over the chunk's rows,
+            # all others 0.0, which turns a -0.0 into +0.0
+            u[tg] = torch.where(take, u_w + 0.0, u[tg])
+            v[tg] = torch.where(take, v_w + 0.0, v[tg])
+    return tuple(x.reshape(-1) for x in (t, idx, u, v))
+
+
+def _walk_cuda(phi_pad, rows, boxes, chunk: int, stream: bool, stats=None):
+    """Launch csrc/mt_intersect.cu on the current stream; outputs (R_pad,)
+    x4.  `stats`, if given, a (T, 2) int32 tensor, receives the walk
+    counts."""
+    from ... import _build
+
+    lib = _build.load()
+    dev = phi_pad.device
+    what = "mt_stream_r2" if stream else "mt_pallas_r2"
+    _check_inputs(what, (phi_pad, torch.float32), (rows, torch.float32),
+                  (boxes, torch.float32), device=dev)
+    n_tiles, n_chunks = phi_pad.shape[1] // TILE_RAYS, boxes.shape[0]
+    if rows.numel() != 40 * n_chunks * chunk or rows.data_ptr() % 16 or chunk % 8 \
+            or chunk > CHUNK_TRIS or phi_pad.shape != (10, n_tiles * TILE_RAYS):
+        raise ValueError(f"{what} kernel: coefficient table, boxes or rays do not match")
+    if stats is not None:
+        _check_inputs(what, (stats, torch.int32), device=dev)
+        if stats.shape != (n_tiles, 2):
+            raise ValueError(f"{what} kernel: walk stats must be a (T, 2) int32 tensor")
+    out = _outputs(phi_pad.shape[1], dev)
+    err = lib.tpt_mt_r2(*map(_ptr, (phi_pad, rows, boxes, *out, stats)),
+                        phi_pad.shape[1], n_chunks, chunk, int(stream), _stream(dev))
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: {_build.error_string(err)}")
+    return out
+
+
+def _intersect(tri_pos, ro, rd, stream: bool, walk) -> Hit:
+    r = ro.shape[0]
+    if tri_pos.shape[0] == 0:
+        return miss_hit(r, ro.device)
+    phi_pad, rows, boxes, chunk = _prepare(tri_pos, ro, rd, stream)
+    t, idx, u, v = walk(phi_pad, rows, boxes, chunk, stream)
+    idx = idx[:r]
+    return Hit(idx >= 0, t[:r], idx, u[:r], v[:r])
+
+
+def mt_intersect_pallas_plain(tri_pos, ro, rd) -> Hit:
+    """Plain PyTorch version of the whole-scene round-2 kernel, on any
+    device.  tri_pos: (N, 9) packed rows; ro, rd: (R, 3)."""
+    return _intersect(tri_pos, ro, rd, False, _walk_plain)
+
+
+def mt_intersect_pallas(tri_pos, ro, rd) -> Hit:
+    """Round-2 MT intersection with chunk culling of (R, 3) rays against
+    (N, 9) packed triangle rows, N <= 8,192; returns `Hit` (t is INF on a
+    miss).  A CUDA tensor launches the kernel (counted in
+    `mt_intersect_pallas.launches`); a CPU tensor runs the plain version."""
+    if not _launches_kernel(ro):
+        return mt_intersect_pallas_plain(tri_pos, ro, rd)
+    return _intersect(tri_pos, ro, rd, False, _counted(mt_intersect_pallas, _walk_cuda))
+
+
+mt_intersect_pallas.launches = 0
+
+
+def mt_intersect_stream_plain(tri_pos, ro, rd) -> Hit:
+    """Plain PyTorch version of the streamed round-2 kernel, on any device."""
+    return _intersect(tri_pos, ro, rd, True, _walk_plain)
+
+
+def mt_intersect_stream(tri_pos, ro, rd) -> Hit:
+    """`mt_intersect_pallas`'s walk over a chunk-major table with chunks
+    copied ahead of their use, N <= 131,072; returns `Hit`.  A CUDA tensor
+    launches the kernel (counted in `mt_intersect_stream.launches`); a CPU
+    tensor runs the plain version."""
+    if not _launches_kernel(ro):
+        return mt_intersect_stream_plain(tri_pos, ro, rd)
+    return _intersect(tri_pos, ro, rd, True, _counted(mt_intersect_stream, _walk_cuda))
+
+
+mt_intersect_stream.launches = 0
+
+
+def walk_stats(tri_pos, ro, rd, *, stream: bool, plain: bool = False):
+    """Per-tile walk counts of the round-2 kernel (`stream` picks which; with
+    `plain=True` or a CPU tensor, of its plain version) on these inputs:
+    (T, 2) int32, [chunks evaluated, chunks copied].  Kernel and plain
+    version must agree on them exactly.  Tiles are independent, so the rays
+    of whole tiles (a multiple of TILE_RAYS from a tile boundary) give those
+    tiles' counts.  Launches made here are not counted."""
+    phi_pad, rows, boxes, chunk = _prepare(tri_pos, ro, rd, stream)
+    stats = torch.zeros((phi_pad.shape[1] // TILE_RAYS, 2), dtype=torch.int32,
+                        device=ro.device)
+    walk = _walk_plain if plain or not _launches_kernel(ro) else _walk_cuda
+    walk(phi_pad, rows, boxes, chunk, stream, stats=stats)
+    return stats

@@ -43,13 +43,24 @@ version agree bit for bit.
 
 from __future__ import annotations
 
-import ctypes
 import os
 
 import torch
 
 from ..mt_matmul import Hit, determinants, epilogue, miss_hit, nearest, ray_features, triangle_columns
-from ..vecmath import EPSILON, INF
+from ..vecmath import INF
+from .mt_intersect import (
+    _check_inputs,
+    _counted,
+    _launches_kernel,
+    _outputs,
+    _pad_to,
+    _ptr,
+    _slab_entries,
+    _slab_setup,
+    _stream,
+    treelet_boxes,
+)
 
 TILE_RAYS = 512  # rays per tile (one CUDA block)
 CHUNK_TRIS = 128  # triangle padding granule and the 'cond' chunk
@@ -102,60 +113,6 @@ def _mxu_dets(override=None) -> bool:
             "MXU determinants (mxu_dets / TPT_MXU_DETS, `_mt_mxu_block`) are not ported yet "
             "(ROADMAP.md §2, kernel #5)")
     return False
-
-
-def _pad_to(x, size: int, dim: int, value: float = 0.0):
-    pad = size - x.shape[dim]
-    if pad <= 0:
-        return x
-    shape = list(x.shape)
-    shape[dim] = pad
-    return torch.cat([x, torch.full(shape, value, dtype=x.dtype, device=x.device)], dim=dim)
-
-
-def treelet_boxes(tri_pos, chunk: int = CHUNK_TRIS):
-    """AABBs of consecutive `chunk`-row treelets: (N, 9) -> (M, 8) f32
-    [min3, max3, 0, 0].  All-zero padding rows pull the last box toward the
-    origin, which is conservative."""
-    n = tri_pos.shape[0]
-    m = -(-n // chunk)
-    verts = _pad_to(tri_pos, m * chunk, 0).reshape(m, chunk * 3, 3)
-    bmin = verts.amin(dim=1)
-    bmax = verts.amax(dim=1)
-    return torch.cat([bmin, bmax, torch.zeros_like(bmin[:, :2])], dim=1)
-
-
-def _slab_entries(boxes, ro, rd, par, inv):
-    """Conservative slab entry distances of (..., K, 8) boxes vs (..., 3, R)
-    rays (leading dims equal): (..., K, R) f32 entry distance, INF where the
-    box is missed.  Parallel axes require containment."""
-    inf = float(INF)
-    shape = (*boxes.shape[:-1], ro.shape[-1])
-    hit_par = torch.ones(shape, dtype=torch.bool, device=ro.device)
-    tmin_all = torch.full(shape, -inf, device=ro.device)
-    tmax_all = torch.full(shape, inf, device=ro.device)
-    for k in range(3):
-        pk = par[..., k, None, :]
-        o = ro[..., k, None, :]
-        lo_b = boxes[..., k, None]
-        hi_b = boxes[..., k + 3, None]
-        lo = (lo_b - o) * inv[..., k, None, :]
-        hi = (hi_b - o) * inv[..., k, None, :]
-        tn = torch.where(pk, -inf, torch.minimum(lo, hi))
-        tf = torch.where(pk, inf, torch.maximum(lo, hi))
-        inside = (o >= lo_b) & (o <= hi_b)
-        hit_par &= ~pk | inside
-        tmin_all = torch.maximum(tmin_all, tn)
-        tmax_all = torch.minimum(tmax_all, tf)
-    box_hit = hit_par & (tmax_all >= torch.clamp(tmin_all, min=0.0))
-    return torch.where(box_hit, tmin_all, inf)
-
-
-def _slab_setup(ro, rd):
-    """(par, inv) for `_slab_entries`: axes with |rd| < EPSILON are parallel."""
-    par = torch.abs(rd) < float(EPSILON)
-    inv = 1.0 / torch.where(par, torch.ones_like(rd), rd)
-    return par, inv
 
 
 def _parked_lanes(rd):
@@ -304,9 +261,11 @@ def _fold_subs(phi, coef, tiles, subs, best, tiles_per_chunk: int = 128):
         v[tc] = torch.where(take, v_w, v[tc])
 
 
-def _walk_plain(phi_pad, cols_rows, counts, lists, emins, tile_rays: int):
+def _walk_plain(phi_pad, cols_rows, counts, lists, emins, tile_rays: int, stats=None):
     """The 'nf' kernel's walk in torch ops: step j evaluates entry j of
-    every tile still walking, then refreshes those tiles' largest live t."""
+    every tile still walking, then refreshes those tiles' largest live t.
+    `stats`, a zeroed (T,) int32 tensor, receives each tile's count of
+    evaluated subs."""
     n_tiles, ms = lists.shape
     phi, best = _walk_start(phi_pad, n_tiles, tile_rays)
     coef = cols_rows.reshape(ms, 4, -1, 10)  # (Ms, 4, sub, 10)
@@ -320,6 +279,8 @@ def _walk_plain(phi_pad, cols_rows, counts, lists, emins, tile_rays: int):
             break
         _fold_subs(phi, coef, tiles, lists[tiles, j], best)
         tmax[tiles] = t[tiles].amax(dim=1)
+        if stats is not None:
+            stats[tiles] += 1
     return tuple(x.reshape(-1) for x in best)
 
 
@@ -376,26 +337,6 @@ def _walk_cond_plain(phi_pad, cols_rows, chunk_boxes, sub_boxes, tile_rays: int,
             stats[ts, 1] += 1
             _fold_subs(phi, coef, ts, subs[s].expand(ts.numel()), best)
     return tuple(x.reshape(-1) for x in best)
-
-
-def _check_inputs(what, *pairs, device):
-    for x, dt in pairs:
-        if x.dtype != dt or not x.is_contiguous() or x.device != device:
-            raise ValueError(f"{what} kernel: bad input dtype, layout or device")
-
-
-def _outputs(r_pad: int, device):
-    t = torch.empty((r_pad,), dtype=torch.float32, device=device)
-    return t, torch.empty((r_pad,), dtype=torch.int32, device=device), torch.empty_like(t), \
-        torch.empty_like(t)
-
-
-def _ptr(x):
-    return ctypes.c_void_p(None if x is None else x.data_ptr())
-
-
-def _stream(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 def _walk_cuda(phi_pad, cols_rows, counts, lists, emins, tile_rays: int):
@@ -470,24 +411,6 @@ def _intersect(tri_pos, phi_t, tile_rays, walk, prepare=_prepare, **prep_kw) -> 
     t, idx, u, v = walk(*prepare(tri_pos, phi_t, tile_rays, **prep_kw))
     idx = idx[:r]
     return Hit(idx >= 0, t[:r], idx, u[:r], v[:r])
-
-
-def _launches_kernel(phi_t) -> bool:
-    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
-    (run the plain version); other devices raise."""
-    if phi_t.device.type == "cpu":
-        return False
-    if phi_t.device.type != "cuda":
-        raise NotImplementedError(f"no MT kernel for device {phi_t.device}")
-    return True
-
-
-def _counted(wrapper, walk):
-    def launch(*args, **kw):
-        wrapper.launches += 1
-        return walk(*args, **kw)
-
-    return launch
 
 
 def mt_intersect_nf_phi_plain(tri_pos, phi_t, *, tile_rays=None, sub=None) -> Hit:

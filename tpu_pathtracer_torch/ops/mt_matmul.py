@@ -159,3 +159,13 @@ def mt_intersect(tri_pos, ro, rd, *, chunk: int = 512, ray_chunk: int = 8192) ->
         outs.append((best_t, best_i, best_u, best_v))
     best_t, best_i, best_u, best_v = (torch.cat(x) for x in zip(*outs))
     return Hit(best_i >= 0, best_t, best_i, best_u, best_v)
+
+
+def mt_intersect_diff(tri_pos, ro, rd, *, chunk: int = 512) -> Hit:
+    """Differentiable variant: the nearest triangle is chosen on detached
+    inputs and its (t, u, v) replayed analytically (`intersect.replay_hit`,
+    the contract of `intersect.bvh_intersect_diff`)."""
+    from .intersect import replay_hit
+
+    h = mt_intersect(tri_pos.detach(), ro.detach(), rd.detach(), chunk=chunk)
+    return replay_hit(tri_pos, ro, rd, h)

@@ -1,13 +1,16 @@
 """The path-trace loops and whole-frame rendering.
 
 The port of `tpu_pathtracer.ops.trace`: the fused branch of `render_frame`
-(-> `trace_rays_fused`), the path every non-differentiable frame takes, and
-the plain loop (`trace_rays`), which carries `differentiable=True`.  Per-ray
-math and RNG streams follow the reference's single compute kernel
-(reference: src/passes/shaders/raytrace.wgsl:373-478):
+(-> `trace_rays_fused`), which the MT kernel intersectors take when the
+frame is not differentiable, and the plain loop (`trace_rays`), which every
+other frame takes: differentiable ones, and those through the all-pairs MT
+oracle ('mt') or a BVH walk ('bvh', 'bvh8').  Per-ray math and RNG streams
+follow the reference's single compute kernel (reference:
+src/passes/shaders/raytrace.wgsl:373-478):
 
-  * per bounce: ray features -> MT kernel (whole-scene up to 8,192 padded
-    triangles, cull 'nf', 'list' or 'cond'; streamed up to 262,144) ->
+  * per bounce: intersection (the MT kernels: whole-scene up to 8,192
+    padded triangles, cull 'nf', 'list' or 'cond', streamed up to 262,144;
+    or the torch-op intersectors of ops/mt_matmul.py and ops/intersect.py) ->
     shading (cosine-hemisphere diffuse or mirror specular chosen with
     probability metalness, blended by roughness without renormalising;
     throughput *= mix(color, specular_color, is_specular); emission added
@@ -21,7 +24,7 @@ math and RNG streams follow the reference's single compute kernel
     event), and the caller's ray order is restored by scattering on the
     carried pixel index;
   * plain loop: row-major state, the environment looked up per bounce
-    (`bounce_shade`).  With `differentiable=True` the kernel picks the
+    (`bounce_shade`).  With `differentiable=True` the intersector picks the
     triangles on detached inputs and `replay_hit` recomputes (t, u, v) for
     them, so torch autograd differentiates the frame with respect to
     materials, environment radiance, camera and vertex positions.
@@ -40,7 +43,7 @@ import torch
 
 from . import camera as camera_ops
 from . import envsample, rng
-from .intersect import replay_hit
+from .intersect import bvh_fat_intersect, bvh_intersect, replay_hit
 from .kernels.mt_shade import (
     CHUNK_TRIS,
     MT_SHADE_MAX_TRIS,
@@ -53,10 +56,9 @@ from .kernels.mt_shade import (
     treelet_boxes,
 )
 from .kernels.mt_stream import mt_intersect_stream2_phi, mt_intersect_stream2_phi_plain
-from .mt_matmul import ray_features
+from .mt_matmul import mt_intersect, ray_features
 from .vecmath import INF, mix, normalize, reflect
 
-_UNPORTED_INTERSECTORS = ("mt", "bvh", "bvh8")
 _SORT_BOUNCES = 2  # default count of leading bounces that re-bin the ray state
 _DIR_BINS = 96  # 6 dominant-axis half-spaces x 4x4 quantized minor axes
 _KEY_SENTINEL = 2**31 - 1  # coherence key of inactive rays: sorts last
@@ -66,22 +68,18 @@ def resolve_intersector(intersector: str, n_tris: int) -> str:
     """Resolve 'auto' as the JAX package does on an accelerator, on every
     device (on the CPU the kernels run their plain versions): the
     near-to-far MT kernel ('mt_pallas') up to 8,192 padded triangles, the
-    streamed MT kernel ('mt_stream') up to 262,144.  Larger scenes need the
-    'bvh8' traversal, which is not ported yet; nor are 'mt' and 'bvh'.  An
-    explicit 'mt_pallas' or 'mt_stream' is returned as it is: its wrapper
-    rejects a scene too large for it."""
+    streamed MT kernel ('mt_stream') up to 262,144, and the fat-leaf BVH
+    walk ('bvh8') above.  'mt' (the all-pairs MT oracle) and 'bvh' (the
+    one-triangle-leaf skip-link walk) are explicit choices only.  An
+    explicit name is returned as it is: an MT kernel's wrapper rejects a
+    scene too large for it."""
     if intersector == "auto":
         if n_tris <= MT_SHADE_MAX_TRIS:
             return "mt_pallas"
         if n_tris <= MT_STREAM2_MAX_TRIS:
             return "mt_stream"
-        raise NotImplementedError(
-            f"scenes above {MT_STREAM2_MAX_TRIS} padded triangles need the 'bvh8' traversal, "
-            "which is not ported yet (ROADMAP.md, modules item 9)")
-    if intersector in _UNPORTED_INTERSECTORS:
-        raise NotImplementedError(
-            f"intersector {intersector!r} is not ported yet; use 'auto' (ROADMAP.md)")
-    if intersector not in ("mt_pallas", "mt_stream"):
+        return "bvh8"
+    if intersector not in ("mt", "mt_pallas", "mt_stream", "bvh", "bvh8"):
         raise ValueError(f"unknown intersector {intersector!r}")
     return intersector
 
@@ -246,20 +244,36 @@ def trace_rays(scene, params, ro, rd, seed, *, max_bounces: int, env_importance:
     plain loop; returns (incoming (R, 3) f32, seed (R,) int64).
 
     `intersector` is 'auto', 'mt_pallas' (through `mt_intersect_pallas2_phi`,
-    so TPT_CULL, TPT_SUB and TPT_TILE_RAYS apply) or 'mt_stream'.  The
-    kernels always see detached inputs.  With `differentiable=True` the
-    (t, u, v) of the chosen triangles are replayed by `replay_hit` on the
-    live tensors, so autograd reaches ray origins, directions and vertex
-    positions through them.  `plain=True` intersects through the kernels'
-    plain versions."""
+    so TPT_CULL, TPT_SUB and TPT_TILE_RAYS apply), 'mt_stream', 'mt' (the
+    all-pairs MT oracle), 'bvh' (the skip-link walk over `packed.nodes`) or
+    'bvh8' (the fat-leaf walk over `packed.fat_nodes`).  The intersectors
+    always see detached inputs.  With `differentiable=True` the (t, u, v) of
+    the chosen triangles are replayed by `replay_hit` on the live tensors,
+    so autograd reaches ray origins, directions and vertex positions
+    through them.  `plain=True` intersects through the MT kernels' plain
+    versions (the other intersectors have no kernel)."""
     if env_importance:
         raise NotImplementedError("env importance sampling is not ported yet (ROADMAP.md)")
     tri_pos = scene.packed.tri_pos
-    base = _intersector_phi(resolve_intersector(intersector, tri_pos.shape[0]), plain)
+    kind = resolve_intersector(intersector, tri_pos.shape[0])
     tri_fixed = tri_pos.detach()
+    if kind in ("mt_pallas", "mt_stream"):
+        base = _intersector_phi(kind, plain)
+        choose = lambda ro, rd: base(tri_fixed, ray_features(ro, rd).T.contiguous())
+    elif kind == "mt":
+        choose = lambda ro, rd: mt_intersect(tri_fixed, ro, rd)
+    elif kind == "bvh":
+        nodes = scene.packed.nodes.detach()
+        choose = lambda ro, rd: bvh_intersect(nodes, tri_fixed, ro, rd)
+    else:
+        # One walk over all rays: it drops finished lanes as it goes, so the
+        # JAX package's 16,384-ray batches, which bound its lockstep cost,
+        # would only multiply the launches per step here.
+        fat = scene.packed.fat_nodes.detach()
+        choose = lambda ro, rd: bvh_fat_intersect(fat, ro, rd, ray_batch=0)
 
     def intersect(ro, rd):
-        h = base(tri_fixed, ray_features(ro.detach(), rd.detach()).T.contiguous())
+        h = choose(ro.detach(), rd.detach())
         return replay_hit(tri_pos, ro, rd, h) if differentiable else h
 
     shade_mat = pack_shade_material_rows(scene)
@@ -407,10 +421,12 @@ def render_frame(scene, params, *, width: int, height: int, aspect: float,
     """Render one progressive frame at (height, width): (H, W, 3) f32 on the
     scene's device.  Row 0 is the bottom of the camera frustum.
 
-    The default takes the fused loop over rays in screen-block order.
-    `differentiable=True` takes the plain loop (`trace_rays`) over a
-    row-major pixel grid, as the JAX package does, and the frame is then
-    differentiable by torch autograd; `sort_bounces`, `sort_window` and
+    The MT kernel intersectors ('mt_pallas', 'mt_stream', and 'auto' up to
+    262,144 padded triangles) take the fused loop over rays in screen-block
+    order.  `differentiable=True`, and the intersectors 'mt', 'bvh' and
+    'bvh8' ('auto' above 262,144), take the plain loop (`trace_rays`) over a
+    row-major pixel grid, as the JAX package does; a differentiable frame is
+    differentiable by torch autograd.  `sort_bounces`, `sort_window` and
     `tile_rays` are options of the fused loop only.
 
     `plain=True` intersects through the kernels' plain PyTorch versions on
@@ -420,13 +436,14 @@ def render_frame(scene, params, *, width: int, height: int, aspect: float,
         raise NotImplementedError("env importance sampling is not ported yet (ROADMAP.md)")
     if blue_noise is not None:
         raise NotImplementedError("blue-noise AA jitter is not ported yet (ROADMAP.md)")
-    if sort_window and not differentiable:
-        raise NotImplementedError("windowed binning sort is not ported yet (ROADMAP.md)")
     tri_pos = scene.packed.tri_pos
     kind = resolve_intersector(intersector, tri_pos.shape[0])
+    fused = kind in ("mt_pallas", "mt_stream") and not differentiable
+    if sort_window and fused:
+        raise NotImplementedError("windowed binning sort is not ported yet (ROADMAP.md)")
     device = tri_pos.device
 
-    if differentiable:
+    if not fused:
         ys, xs = torch.meshgrid(torch.arange(height, device=device),
                                 torch.arange(width, device=device), indexing="ij")
         xs, ys = xs.reshape(-1), ys.reshape(-1)
@@ -438,10 +455,10 @@ def render_frame(scene, params, *, width: int, height: int, aspect: float,
     base_o, base_d = camera_ops.camera_rays(params.camera, uv, aspect)
     resolution = torch.tensor([width, height], dtype=torch.float32, device=device)
 
-    if differentiable:
+    if not fused:
         def trace(o, d, seed):
             return trace_rays(scene, params, o, d, seed, max_bounces=max_bounces,
-                              differentiable=True, intersector=kind, plain=plain)
+                              differentiable=differentiable, intersector=kind, plain=plain)
     else:
         intersect = _intersector_phi(kind, plain)
         shade_mat = pack_shade_material_rows(scene)
@@ -460,7 +477,7 @@ def render_frame(scene, params, *, width: int, height: int, aspect: float,
         light, seed = trace(o, d, seed)
         acc = acc + light
     color = acc / float(np.float32(samples_per_frame))
-    if differentiable:
+    if not fused:
         return color.reshape(height, width, 3)
     return unblock_image(color, height, width)
 

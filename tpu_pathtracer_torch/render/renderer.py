@@ -12,10 +12,13 @@ Renderer's public contract, src/renderer.ts:20-533):
     (frames + 1)`;
   * the device scene is recompiled only when `scene.needs_update` is set.
 
-Everything lives on the `device` the constructor is given; there is no
-default, so a CPU render never stands in for a card silently.  Not ported yet
-(ROADMAP.md): sharding (`shard`), env importance sampling, per-pass timing
-meters and checkpoints (`save_state` / `load_state`).
+Everything lives on the `device` the constructor is given, the card unless
+the caller asks for the CPU.  `RenderConfig.intersector` chooses the
+intersector as `ops.trace.resolve_intersector` does: 'auto' takes the MT
+kernels up to 262,144 padded triangles and the fat-leaf BVH walk ('bvh8')
+above.  Not ported yet (ROADMAP.md): sharding (`shard`), env importance
+sampling, per-pass timing meters and checkpoints (`save_state` /
+`load_state`).
 """
 
 from __future__ import annotations
@@ -59,7 +62,7 @@ class Renderer:
         config: RenderConfig = RenderConfig(),
         post: PostConfig = PostConfig(),
         *,
-        device,
+        device="cuda",
         env_importance: bool = False,
         enable_timing: bool = False,
         shard=None,
@@ -101,7 +104,7 @@ class Renderer:
             raise NotImplementedError("blue-noise AA jitter is not ported yet (ROADMAP.md)")
         if c.sort_window:
             raise NotImplementedError("windowed binning sort is not ported yet (ROADMAP.md)")
-        resolve_intersector(c.intersector, 0)  # rejects unknown and unported names
+        resolve_intersector(c.intersector, 0)  # rejects unknown names
         self._step = make_frame_step(
             c.scaled_width, c.scaled_height, aspect=c.width / c.height,
             samples_per_frame=c.samples_per_frame, max_bounces=c.max_bounces,

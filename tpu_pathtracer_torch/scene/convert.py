@@ -22,6 +22,8 @@ import torch
 from .types import (
     Camera,
     EnvironmentMap,
+    FlatBVH,
+    LinkedBVH,
     Materials,
     PackedGeometry,
     RenderParams,
@@ -42,6 +44,8 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray], device="cpu") -> SceneDat
     return SceneData(
         triangles=_build(Triangles, arrays, "triangles", device),
         materials=_build(Materials, arrays, "materials", device),
+        bvh=_build(FlatBVH, arrays, "bvh", device),
+        links=_build(LinkedBVH, arrays, "links", device),
         packed=_build(PackedGeometry, arrays, "packed", device),
         env=_build(EnvironmentMap, arrays, "env", device),
     )

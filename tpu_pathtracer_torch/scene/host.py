@@ -3,9 +3,10 @@
 The port of `tpu_pathtracer.scene.host`: meshes carry a 4x4 world
 transform; at compile time triangles go to world space (positions by the
 matrix, normals by the inverse-transpose, normalized), materials are
-deduplicated, the SAH BVH is built, and the triangle rows are packed in
-BVH-DFS leaf order.  All of it is numpy on the host; `compile(device=...)`
-hands the result over as tensors on that device.
+deduplicated, the SAH BVH is built and laid out for the traversals (flat,
+skip-link, fat-leaf), and the triangle rows are packed in BVH-DFS leaf
+order.  All of it is numpy on the host; `compile(device=...)` hands the
+result over as tensors on that device, the card by default.
 """
 
 from __future__ import annotations
@@ -17,11 +18,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..accel.bvh import build_bvh_flat, flat_to_links
+from ..accel.bvh import build_bvh_flat, flat_to_links, links_to_fat
 from . import primitives
 from .envmap import build_environment
 from .types import (
     EnvironmentMap,
+    FlatBVH,
+    LinkedBVH,
     Materials,
     PackedGeometry,
     SceneData,
@@ -102,6 +105,28 @@ def _pad(a: np.ndarray, cap: int, fill=0.0) -> np.ndarray:
     return out
 
 
+def _fat_nodes(links_np, packed_tri_pos, tri_packed_id) -> np.ndarray:
+    """The fat-leaf traversal table (`accel.bvh.links_to_fat`, 8 triangles a
+    leaf) padded to a power of two, as the JAX compile pads it: padded rows
+    have the inverted box and a miss link to the padded count, and links
+    that ended the real tree end the padded one."""
+    fat_np = links_to_fat(links_np, packed_tri_pos, tri_packed_id)
+    k2 = fat_np.shape[0]
+    cap_fat = pad_pow2(max(k2, 1), 1)
+    width = fat_np.shape[1] if fat_np.size else 81
+    fat_padded = np.zeros((cap_fat, width), np.float32)
+    fat_padded[:, 0:3] = np.float32(np.inf)  # inverted boxes: never hit
+    fat_padded[:, 3:6] = np.float32(-np.inf)
+    fat_padded[:, 6] = np.int32(cap_fat).view(np.float32)
+    if k2:
+        # re-target the termination sentinel to the padded node count
+        mcol = np.ascontiguousarray(fat_np[:, 6]).view(np.int32)
+        mcol[mcol == k2] = cap_fat
+        fat_np[:, 6] = mcol.view(np.float32)
+        fat_padded[:k2] = fat_np
+    return fat_padded
+
+
 class Scene:
     """Mutable authoring scene; `compile(device=...)` produces `SceneData`.
 
@@ -165,25 +190,53 @@ class Scene:
         mat = np.concatenate(tri_m, axis=0)
         return p0, p1, p2, n0, n1, n2, mat, materials
 
-    def compile(self, pad_triangles: Optional[int] = None,
-                env_size: Optional[tuple] = None, device="cpu") -> SceneData:
-        """Build the device scene (triangles, materials, packed rows, env CDF)
-        as tensors on `device`."""
+    def compile(self, pad_triangles: Optional[int] = None, pad_nodes: Optional[int] = None,
+                env_size: Optional[tuple] = None, device="cuda") -> SceneData:
+        """Build the device scene (triangles, materials, the BVH in its three
+        layouts, packed rows, env CDF) as tensors on `device`, the card unless
+        the caller asks for another."""
         p0, p1, p2, n0, n1, n2, mat, materials = self.gather_triangles()
         n = p0.shape[0]
+
+        bvh_np = build_bvh_flat(p0, p1, p2)
+        k = bvh_np["min"].shape[0]
         cap_tris = pad_triangles if pad_triangles is not None else pad_pow2(n, 1)
-        if cap_tris < n:
-            raise ValueError(f"padding too small: tris {n}>{cap_tris}")
+        cap_nodes = pad_nodes if pad_nodes is not None else pad_pow2(max(k, 1), 1)
+        if cap_tris < n or cap_nodes < k:
+            raise ValueError(f"padding too small: tris {n}>{cap_tris} or nodes {k}>{cap_nodes}")
+
+        inf = np.float32(np.inf)
+        flat = [_pad(bvh_np["min"], cap_nodes, inf), _pad(bvh_np["max"], cap_nodes, -inf),
+                _pad(bvh_np["left"], cap_nodes, np.int32(-1)),
+                _pad(bvh_np["right"], cap_nodes, np.int32(-1)),
+                _pad(bvh_np["tri"], cap_nodes, np.int32(-1)),
+                _pad(bvh_np["is_leaf"], cap_nodes, np.int32(0))]
+
+        links_np = flat_to_links(bvh_np, end=cap_nodes)
+        lmin = _pad(links_np["min"], cap_nodes, inf)
+        lmax = _pad(links_np["max"], cap_nodes, -inf)
+        ltri = _pad(links_np["tri"], cap_nodes, np.int32(-1))
+        lmiss = _pad(links_np["miss"], cap_nodes, np.int32(cap_nodes))
 
         # Packed rows use BVH-DFS *leaf order*: consecutive rows are spatially
-        # adjacent, so the MT kernel's fixed-size sub-treelets are tight boxes
-        # for its culling.  `tri_perm` maps packed rows back to input order.
-        links = flat_to_links(build_bvh_flat(p0, p1, p2))
-        leaf_order = links["tri"][links["tri"] >= 0].astype(np.int64)
+        # adjacent, so the MT kernels' fixed-size treelets are tight boxes for
+        # their culling.  Skip-link leaf pointers are relabelled to that order;
+        # `tri_perm` maps packed rows back to input order.
+        leaf_order = links_np["tri"][links_np["tri"] >= 0].astype(np.int64)
         if leaf_order.shape[0] != n:  # degenerate/empty scene: identity
             leaf_order = np.arange(n, dtype=np.int64)
+        inv_order = np.empty(n, np.int64)
+        inv_order[leaf_order] = np.arange(n)
         perm = lambda a: a[leaf_order] if n else a
 
+        def packed_ids(tri):  # skip-link leaf pointers -> packed rows (-1 stays)
+            if not n:
+                return tri
+            return np.where(tri >= 0, inv_order[np.clip(tri, 0, n - 1)], -1).astype(np.int32)
+
+        packed_nodes = np.concatenate(
+            [lmin, lmax, packed_ids(ltri).view(np.float32)[:, None],
+             lmiss.view(np.float32)[:, None]], axis=1)
         packed_tri_pos = np.concatenate(
             [_pad(perm(p0), cap_tris), _pad(perm(p1), cap_tris), _pad(perm(p2), cap_tris)],
             axis=1,
@@ -199,6 +252,7 @@ class Scene:
         )
         tri_perm = np.full((cap_tris,), -1, np.int32)
         tri_perm[:n] = leaf_order
+        fat_nodes = _fat_nodes(links_np, packed_tri_pos, packed_ids(links_np["tri"]))
 
         nmat = max(1, len(materials))
         color = np.zeros((nmat, 3), np.float32)
@@ -221,8 +275,12 @@ class Scene:
             n0=t(_pad(n0, cap_tris)), n1=t(_pad(n1, cap_tris)), n2=t(_pad(n2, cap_tris)),
             material=t(_pad(mat, cap_tris)),
         )
+        bvh = FlatBVH(node_min=t(flat[0]), node_max=t(flat[1]), left=t(flat[2]),
+                      right=t(flat[3]), tri=t(flat[4]), is_leaf=t(flat[5]))
+        links = LinkedBVH(node_min=t(lmin), node_max=t(lmax), tri=t(ltri), miss=t(lmiss))
         packed = PackedGeometry(
-            tri_pos=t(packed_tri_pos), tri_shade=t(packed_tri_shade), tri_perm=t(tri_perm),
+            nodes=t(packed_nodes), tri_pos=t(packed_tri_pos), tri_shade=t(packed_tri_shade),
+            tri_perm=t(tri_perm), fat_nodes=t(fat_nodes),
         )
         mats = Materials(
             color=t(color), specular_color=t(spec), roughness=t(rough),
@@ -234,7 +292,8 @@ class Scene:
             env = EnvironmentMap.black(*(env_size or (8, 16)), device=device)
 
         self.needs_update = False
-        return SceneData(triangles=triangles, materials=mats, packed=packed, env=env)
+        return SceneData(triangles=triangles, materials=mats, bvh=bvh, links=links,
+                         packed=packed, env=env)
 
 
 def default_scene(env_radiance: Optional[np.ndarray] = None) -> Scene:

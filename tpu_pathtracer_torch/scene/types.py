@@ -7,10 +7,13 @@ on that device.
 
 Padding conventions are the JAX package's: padded triangles are all-zero
 (the Möller–Trumbore determinant is 0, so they never hit), padded
-materials are black.  `PackedGeometry` holds only what the MT kernel path
-reads (`tri_pos`, `tri_shade`, `tri_perm`); the skip-link `nodes` and the
-fat-leaf `fat_nodes` belong to the traversal intersectors, which are not
-ported yet (ROADMAP.md).
+materials are black, padded BVH nodes have the inverted box
+[+inf]*3, [-inf]*3 (never hit) and links that end the walk.
+
+Some f32 columns hold int32 bit patterns (`PackedGeometry.nodes` columns
+6-7, `fat_nodes` columns 6-8; an index of -1 is a NaN pattern).  Read them
+with `.contiguous().view(torch.int32)`; they must never pass through float
+arithmetic or a float compare.
 """
 
 from __future__ import annotations
@@ -68,19 +71,60 @@ class Materials(_TensorDataclass):
 
 
 @dataclasses.dataclass
-class PackedGeometry(_TensorDataclass):
-    """Packed triangle rows in BVH-DFS leaf order (spatially coherent, so
-    consecutive 64-row sub-treelets are tight boxes for the MT kernel's
-    culling):
+class FlatBVH(_TensorDataclass):
+    """Flattened BVH, breadth-first order, root at index 0, one triangle per
+    leaf (the layout contract of the reference flattener,
+    src/passes/raytrace.ts:667-694; node fields raytrace.wgsl:51-64)."""
 
+    node_min: torch.Tensor  # (K, 3)
+    node_max: torch.Tensor  # (K, 3)
+    left: torch.Tensor  # (K,) i32, -1 for leaves/padding
+    right: torch.Tensor  # (K,) i32
+    tri: torch.Tensor  # (K,) i32 triangle index, -1 for internal/padding
+    is_leaf: torch.Tensor  # (K,) i32 1 = leaf
+
+    @property
+    def count(self) -> int:
+        return self.left.shape[0]
+
+
+@dataclasses.dataclass
+class LinkedBVH(_TensorDataclass):
+    """DFS-preorder skip-link BVH (see accel.bvh.flat_to_links): hit-next is
+    implicit (i + 1), `miss[i]` jumps over i's subtree, `tri[i] >= 0` marks a
+    leaf.  The termination sentinel is the padded node count."""
+
+    node_min: torch.Tensor  # (K, 3)
+    node_max: torch.Tensor  # (K, 3)
+    tri: torch.Tensor  # (K,) i32, -1 for internal
+    miss: torch.Tensor  # (K,) i32
+
+    @property
+    def count(self) -> int:
+        return self.tri.shape[0]
+
+
+@dataclasses.dataclass
+class PackedGeometry(_TensorDataclass):
+    """Packed rows for the hot loop.  Triangle rows are in BVH-DFS leaf
+    order (spatially coherent, so consecutive 64-row sub-treelets are tight
+    boxes for the MT kernels' culling):
+
+      nodes:     (K, 8)  f32 = [min.xyz, max.xyz, bitcast(tri), bitcast(miss)]
+                 in skip-link DFS order; `tri` indexes the packed rows
       tri_pos:   (N, 9)  f32 = [p0, p1, p2]
       tri_shade: (N, 10) f32 = [n0, n1, n2, bitcast(material_idx)]
       tri_perm:  (N,)    i32 = original triangle index of each packed row
+      fat_nodes: (K2, 81) f32 fat-leaf skip-link rows (accel.bvh.links_to_fat):
+                 [min.xyz, max.xyz, bitcast(miss), bitcast(tri_start),
+                 bitcast(count), up to 8 inlined tri_pos rows]
     """
 
+    nodes: torch.Tensor
     tri_pos: torch.Tensor
     tri_shade: torch.Tensor
     tri_perm: torch.Tensor
+    fat_nodes: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -116,10 +160,14 @@ class EnvironmentMap(_TensorDataclass):
 
 @dataclasses.dataclass
 class SceneData(_TensorDataclass):
-    """The compiled device scene: everything a frame reads."""
+    """The compiled device scene: everything a frame reads.  `bvh` is the
+    reference-contract flat layout (the stack walk's), `links` the
+    skip-link layout; `packed` is what the hot loops gather from."""
 
     triangles: Triangles
     materials: Materials
+    bvh: FlatBVH
+    links: LinkedBVH
     packed: PackedGeometry
     env: EnvironmentMap
 
