@@ -31,7 +31,17 @@ public entry points:
     bench's mesh_scene(640) (a 408,322-triangle sphere and a plane, padded
     to 524,288) at 512x512, 1 sample per pixel, 6 bounces, 2 frames: 'auto'
     takes the 'bvh8' walk, past the MT kernels' 262,144-triangle cap; its
-    primary rays also go through 'bvh', which must find the same hits.
+    primary rays also go through 'bvh', which must find the same hits;
+  * MXU determinants (kernel #5): the headline shape through
+    `render.benchmark.make_budget` under TPT_MXU_DETS=0 and =1, timed by
+    `utils.devtime.device_time` and the host clock (the JAX package's
+    round-5 sweep), and one frame under TPT_MXU_DETS=1 with TPT_CULL=list
+    and =cond; the MXU variants of nf, list and cond are held at
+    sub-treelets of 32, 64 and 128 on the headline rays to their plain
+    versions and to the FP32 kernels by `mt_shade.hit_agreement`'s rule;
+  * CLI: `tpu_pathtracer_torch.cli` in this process: `benchmark` at the
+    headline shape, `render` with --timing, --checkpoint and --resume
+    (equal to a fresh render bit for bit), and `render --env sky:...`.
 
 For each path it checks that the path's kernels were launched in that run
 (and the other MT kernels not), that what comes out is right (images
@@ -45,8 +55,10 @@ triangles on the headline rays; the cond and streamed kernels also to
 their plain versions' per-tile walk counts, so they made the same culling
 decisions; so are the round-2 kernels.  Each kernel's entry also gives its
 bound: the larger of the FP32 operations its work on these inputs needs
-over the H100's non-tensor FP32 peak and the bytes it must move over the
-HBM rate (H100 SXM: 3.35 TB/s), and "library_ms": null, since no one
+over the H100's non-tensor FP32 peak (for the MXU variants, the
+determinants' tensor-core flops over the TF32 peak beside the rest) and
+the bytes it must move over the HBM rate (H100 SXM: 3.35 TB/s), and
+"library_ms": null, since no one
 PyTorch call computes a nearest Möller–Trumbore hit or the bilateral
 denoise.
 
@@ -96,6 +108,15 @@ PAIR_OPS_R2 = 40
 SLAB_OPS = 18
 H100_FP32 = 67e12  # FLOP/s, non-tensor FP32, H100 SXM data sheet
 H100_HBM = 3.35e12  # bytes/s, H100 SXM data sheet
+H100_TF32 = 495e12  # FLOP/s, dense TF32 tensor cores, H100 SXM data sheet
+# The MXU variants' work per (ray, triangle) pair: the four determinants'
+# 19 nonzero coefficient terms (a 3, ua 6, va 6, ta 4; the zero padding of
+# K to 16 and the zero coefficients are layout, not work) as 3 TF32 passes
+# of multiply-adds on the tensor cores (3 x 2 x 19 flops), and the
+# epilogue's 5 FP32 operations (3 sign products, EPSILON*|a|, us + vs).
+PAIR_FLOPS_MXU = 3 * 2 * 19
+PAIR_OPS_MXU_EPILOGUE = 5
+SWEEP_FRAMES = 8  # frames of each timed make_budget call of the sweep phase
 
 
 def _card() -> str:
@@ -143,17 +164,17 @@ def _mt_bytes(n_tris: int, n_rays: int, table_floats: int = 40) -> int:
     return 4 * (10 * n_rays + table_floats * n_tris + 4 * n_rays)
 
 
-def _cull_bound(mt_shade, tri_pos, phi, cull):
-    """Bound of one whole-scene MT wrapper call (sub 64) on these rays: the
-    precull's slab tests (nf, list: every ray against every sub box) or the
-    cond walk's chunk and sub tests, plus the pairs of the evaluated subs
-    (counts from the plain walk, which the kernels match)."""
+def _cull_work(mt_shade, tri_pos, phi, cull, mxu=False):
+    """The work of one whole-scene MT wrapper call (sub 64) on these rays:
+    (ray-triangle pairs of the evaluated subs, slab tests of the precull for
+    nf and list, every ray against every sub box, or of cond's chunk and
+    sub tests), from the plain walk's counts."""
     import torch
 
     sub = mt_shade.SUB_TRIS
-    n, r = tri_pos.shape[0], phi.shape[1]
+    n = tri_pos.shape[0]
     if cull == "cond":
-        stats = mt_shade.cond_walk_stats(tri_pos, phi, sub=sub, plain=True)
+        stats = mt_shade.cond_walk_stats(tri_pos, phi, sub=sub, plain=True, mxu=mxu)
         tile = mt_shade._tile_rays(None)
         live, evaluated = (int(x) for x in stats.sum(dim=0))
         n_chunks = -(-n // mt_shade.CHUNK_TRIS)
@@ -166,9 +187,32 @@ def _cull_bound(mt_shade, tri_pos, phi, cull):
             evaluated = int(prep[2].sum())
         else:
             stats = torch.zeros((lists.shape[0],), dtype=torch.int32, device=phi.device)
-            mt_shade._walk_plain(*prep, stats=stats)
+            mt_shade._walk_plain(*prep, stats=stats, mxu=mxu)
             evaluated = int(stats.sum())
-    return _bound(evaluated * sub * tile * PAIR_OPS_NF + slabs * SLAB_OPS, _mt_bytes(n, r))
+    return evaluated * sub * tile, slabs
+
+
+def _cull_bound(mt_shade, tri_pos, phi, cull):
+    """Bound of one FP32 whole-scene MT wrapper call (sub 64): its pairs'
+    and slab tests' FP32 operations against the bytes."""
+    pairs, slabs = _cull_work(mt_shade, tri_pos, phi, cull)
+    return _bound(pairs * PAIR_OPS_NF + slabs * SLAB_OPS, _mt_bytes(tri_pos.shape[0], phi.shape[1]))
+
+
+def _mxu_bound(mt_shade, tri_pos, phi, cull):
+    """Bound of one MXU wrapper call (sub 64) on the pairs and slab tests of
+    its own walk: the larger of the determinants' tensor-core flops over the
+    TF32 peak, the FP32 operations (epilogue and slab tests) over the FP32
+    peak, and the bytes (40 floats a triangle, as the FP32 form) over the
+    HBM rate; but never above the same work's bound in the FP32 form, which
+    computes the same function."""
+    pairs, slabs = _cull_work(mt_shade, tri_pos, phi, cull, mxu=True)
+    nbytes = _mt_bytes(tri_pos.shape[0], phi.shape[1])
+    terms = {"operations": max(pairs * PAIR_FLOPS_MXU / H100_TF32,
+                               (pairs * PAIR_OPS_MXU_EPILOGUE + slabs * SLAB_OPS) / H100_FP32),
+             "bytes": nbytes / H100_HBM}
+    by = max(terms, key=terms.get)
+    return min((terms[by] * 1e3, by), _bound(pairs * PAIR_OPS_NF + slabs * SLAB_OPS, nbytes))
 
 
 def _denoise_bound(img):
@@ -352,7 +396,7 @@ def _cull_phase(mt_shade, tri_pos, rays, results, tag):
                rays.items()}
     out = {}
     for cull in CULLS:
-        kernel, plain = mt_shade._ROUTES[cull]
+        kernel, plain = mt_shade._ROUTES[cull, False]
         worst = 0.0
         for sub in SUBS:
             name = f"mt_{cull}_sub{sub}"
@@ -766,6 +810,249 @@ def _large_phase(pt, trace, intersect, counters, results, tag, profile: bool):
                    large_primary_hits=hits, large_bvh8_bvh_ties=ties)
 
 
+def _same_tri_err(hk, hp) -> float:
+    """Largest |t, u, v| difference on the lanes where both hit the same
+    triangle."""
+    m = hk.hit & hp.hit & (hk.tri == hp.tri)
+    if not bool(m.any()):
+        return 0.0
+    return max(float((a[m] - b[m]).abs().max()) for a, b in ((hk.t, hp.t), (hk.u, hp.u),
+                                                               (hk.v, hp.v)))
+
+
+def _mxu_phase(mt_shade, tri_pos, rays, results, tag):
+    """Kernel #5: the MXU variant of nf, list and cond at sub-treelets of 32,
+    64 and 128 on the headline rays, each against its plain version (TF32
+    off, asserted) and against the FP32 kernel by `hit_agreement`'s rule
+    (hit and triangle equal on >= 99.9% of the primary rays' lanes, every
+    differing lane a near-tie within 1e-5, an edge or a floor lane, floor
+    lanes on the bounce rays counted apart; t, u and v within 1e-4 of the
+    magnitude their sums are conditioned by, where the triangle agrees),
+    and cond's walk
+    counts against its plain version's (at most 1% of the tiles may differ:
+    a box whose entry ties a ray's t may be decided the other way when the
+    two t differ by a rounding).  Times every walk; returns {cull: (largest
+    t/u/v difference against plain, wrapper ms, plain wrapper ms)} at sub
+    64."""
+    import functools
+
+    import torch
+
+    prepares = {"nf": mt_shade._prepare, "list": mt_shade._prepare_list,
+                "cond": mt_shade._prepare_cond}
+    fp32 = {what: {sub: {cull: mt_shade._ROUTES[cull, False][0](tri_pos, phi, sub=sub)
+                         for cull in CULLS} for sub in SUBS} for what, (phi, _) in rays.items()}
+    out = {}
+    for cull in CULLS:
+        kernel, plain = mt_shade._ROUTES[cull, True]
+        _, walk_p, walk_k = mt_shade._MXU_WALKS[cull]
+        worst = 0.0
+        for sub in SUBS:
+            name = f"mt_{cull}_mxu_sub{sub}"
+            for what, (phi, parked) in rays.items():
+                hk = kernel(tri_pos, phi, sub=sub)
+                with mt_shade._full_fp32():
+                    _check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on in the plain MXU")
+                    hp = plain(tri_pos, phi, sub=sub)
+                torch.cuda.synchronize()
+                vs_plain = mt_shade.hit_agreement(tri_pos, phi, hk, hp)
+                vs_fp32 = mt_shade.hit_agreement(tri_pos, phi, hk, fp32[what][sub][cull])
+                err = _same_tri_err(hk, hp)
+                worst = max(worst, err)
+                hits = int(hk.hit.sum())
+                print(f"{name} {what}: rays {phi.shape[1]}, hits {hits}, parked {parked}; vs plain "
+                      f"{vs_plain}; vs the FP32 kernel {vs_fp32}; max |t,u,v| diff vs plain "
+                      f"{err:.3g}")
+                _check(hits > 0, f"{name} {what}: no ray hit the scene")
+                _check(vs_plain["ok"], f"{name} {what}: disagrees with its plain version")
+                _check(vs_fp32["ok"], f"{name} {what}: disagrees with the FP32 kernel")
+                results[f"{name}_{what}"] = dict(hits=hits, vs_plain=vs_plain, vs_fp32=vs_fp32,
+                                                 max_abs_err=err)
+                line = f"{name} {what}"
+                if cull == "cond":
+                    sk = mt_shade.cond_walk_stats(tri_pos, phi, sub=sub, mxu=True)
+                    sp = mt_shade.cond_walk_stats(tri_pos, phi, sub=sub, mxu=True, plain=True)
+                    sf = mt_shade.cond_walk_stats(tri_pos, phi, sub=sub)
+                    tiles = int((sk != sp).any(dim=1).sum())
+                    ek, ep, ef = (int(x[:, 1].sum()) for x in (sk, sp, sf))
+                    print(f"{line}: walk counts: {tiles} of {sk.shape[0]} tiles differ from the "
+                          f"plain walk's, subs evaluated {ek} (plain {ep}, FP32 kernel {ef})")
+                    _check(tiles <= 0.01 * sk.shape[0] and abs(ek - ep) <= 0.01 * ep,
+                           f"{name} {what}: walk counts differ from the plain walk's")
+                    results[f"{name}_{what}"].update(tiles_differ=tiles, subs_evaluated=ek,
+                                                     subs_evaluated_plain=ep,
+                                                     subs_evaluated_fp32=ef)
+            phi = rays["primary"][0]
+            prep = mt_shade._mma_prepare(prepares[cull])(tri_pos, phi, None, sub)
+            prep_p = prepares[cull](tri_pos, phi, None, sub)
+            walk_ms = _time_ms(lambda: walk_k(*prep, mxu=True), 3, 20)
+            walk_plain_ms = _time_ms(lambda: walk_p(*prep_p, mxu=True), 1, 3)
+            pack_ms = _time_ms(lambda: mt_shade._pack_mma(prep_p[1], sub), 3, 20)
+            results[f"{name}_walk_ms"], results[f"{name}_walk_plain_ms"] = walk_ms, walk_plain_ms
+            results[f"{name}_pack_ms"] = pack_ms
+            print(f"timing {tag}: {name} primary kernel walk {walk_ms:.3f} ms (FP32 kernel walk "
+                  f"{results[f'mt_{cull}_sub{sub}_walk_ms']:.3f} ms), plain walk "
+                  f"{walk_plain_ms:.3f} ms; table repack (`_pack_mma`) {pack_ms:.3f} ms")
+            del prep, prep_p
+        phi = rays["primary"][0]
+        fp32_kernel = mt_shade._ROUTES[cull, False][0]
+        ms = _time_ms(lambda: kernel(tri_pos, phi), 3, 20)
+        fp32_ms = _time_ms(lambda: fp32_kernel(tri_pos, phi), 3, 20)
+        plain_ms = _time_ms(lambda: plain(tri_pos, phi), 1, 3)
+        bound_ms, bound_by = _mxu_bound(mt_shade, tri_pos, phi, cull)
+        print(f"timing {tag}: mt_{cull}_mxu primary wrapper (sub 64) {ms:.3f} ms (FP32 wrapper "
+              f"just after {fp32_ms:.3f} ms), plain wrapper {plain_ms:.3f} ms; bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+        results.update({f"mt_{cull}_mxu_ms": ms, f"mt_{cull}_mxu_plain_ms": plain_ms,
+                        f"mt_{cull}_mxu_fp32_ms": fp32_ms, f"mt_{cull}_mxu_bound_ms": bound_ms})
+        out[cull] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+    return out
+
+
+def _with_env(values: dict, fn):
+    """Run fn() with these environment variables set, then restore them."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        return fn()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _sweep_phase(pt, data, cam, counters, results, tag):
+    """The JAX package's round-5 experiment on the card: the headline shape
+    through `make_budget` under TPT_MXU_DETS=0 and =1, in turns (0, 1, 1,
+    0), SWEEP_FRAMES frames a call; device ms/frame from `device_time`
+    (torch.profiler's CUDA activity), wall ms/frame by CUDA-synchronised host
+    clock.  Launch counts are set to 0 just before each timed call and read
+    just after: =1 may launch only the MXU nf kernel, =0 only the FP32 one.
+    One frame of each must agree by the outlier rule.  Then one frame under
+    TPT_MXU_DETS=1 with TPT_CULL=list and =cond, the MXU list and cond
+    kernels' main path.  Returns the MXU kernels' launches."""
+    import torch
+
+    from tpu_pathtracer_torch.render.benchmark import make_budget
+    from tpu_pathtracer_torch.utils.devtime import device_time
+
+    budget = make_budget(WIDTH, HEIGHT, 1, BOUNCES)
+    params = pt.RenderParams.create(cam, frame=1)
+    print(f"sweep: make_budget at {WIDTH}x{HEIGHT}, 1 spp, {BOUNCES} bounces, {SWEEP_FRAMES} frames "
+          "a call, TPT_MXU_DETS=0 / =1")
+    frames, wall, dev, launches = {}, {"0": [], "1": []}, {"0": [], "1": []}, {}
+    for flag in ("0", "1", "1", "0"):
+        def timed():
+            if flag not in frames:
+                frames[flag] = budget(data, params, 1).clone()  # also the warm-up
+            torch.cuda.synchronize()
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            budget(data, params, SWEEP_FRAMES)
+            torch.cuda.synchronize()
+            wall[flag].append((time.perf_counter() - t0) * 1e3 / SWEEP_FRAMES)
+            launches[flag] = {n: fn.launches for n, fn in counters.items()}
+            dt = device_time(lambda: budget(data, params, SWEEP_FRAMES))
+            _check(dt["ok"] and dt["total_s"] > 0, f"no device time from the profiler: {dt}")
+            dev[flag].append(dt["total_s"] * 1e3 / SWEEP_FRAMES)
+
+        _with_env({"TPT_MXU_DETS": flag}, timed)
+    for flag, kernel in (("0", "mt_nf"), ("1", "mt_nf_mxu")):
+        got = launches[flag]
+        _check(got[kernel] >= SWEEP_FRAMES and not _mt_launched(got, (kernel,)),
+               f"TPT_MXU_DETS={flag}: launches {got}")
+        results[f"sweep_mxu{flag}"] = dict(device_ms=dev[flag], wall_ms=wall[flag], launches=got)
+        print(f"timing {tag}: sweep TPT_MXU_DETS={flag}: device {statistics.mean(dev[flag]):.3f} "
+              f"ms/frame ({', '.join(f'{x:.3f}' for x in dev[flag])}), wall "
+              f"{statistics.mean(wall[flag]):.3f} ms/frame "
+              f"({', '.join(f'{x:.3f}' for x in wall[flag])}); launches {got}")
+    frac, agree = _outlier_rule(frames["1"], frames["0"])
+    print(f"sweep: frame under TPT_MXU_DETS=1 vs =0: outlier fraction {frac:.2e}, non-outlier mean "
+          f"diff {agree:.2e}")
+    results.update(sweep_outlier_frac=frac, sweep_mean_diff=agree)
+    out = {"mt_nf_mxu": launches["1"]["mt_nf_mxu"]}
+    for cull in ("list", "cond"):
+        def frame():
+            for fn in counters.values():
+                fn.launches = 0
+            img = budget(data, params, 1)
+            torch.cuda.synchronize()
+            return img, {n: fn.launches for n, fn in counters.items()}
+
+        img, got = _with_env({"TPT_MXU_DETS": "1", "TPT_CULL": cull}, frame)
+        name = f"mt_{cull}_mxu"
+        _check(got[name] >= 1 and not _mt_launched(got, (name,)),
+               f"TPT_MXU_DETS=1 TPT_CULL={cull}: launches {got}")
+        frac, agree = _outlier_rule(img, frames["0"])
+        print(f"sweep: frame under TPT_MXU_DETS=1 TPT_CULL={cull} vs the FP32 nf frame: outlier "
+              f"fraction {frac:.2e}, non-outlier mean diff {agree:.2e}; launches {got}")
+        results[f"sweep_{cull}_mxu"] = dict(outlier_frac=frac, mean_diff=agree, launches=got)
+        out[name] = got[name]
+    return out
+
+
+def _cli_phase(results, tag):
+    """The port's CLI in this process, on the card: `benchmark` at the
+    headline shape (its record must hold: no 'suspect', a device time);
+    `render` of 16 frames with --timing and --checkpoint, then --resume to
+    32 frames, whose accumulation must equal a fresh 32-frame render's bit
+    for bit, with nonzero pass timings; `render --env sky:elevation=30`."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from tpu_pathtracer_torch.cli import main as cli
+
+    def run(argv):
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli(argv)
+        _check(rc == 0, f"cli {argv}: exit {rc}\n{err.getvalue()}")
+        return out.getvalue(), err.getvalue(), time.perf_counter() - t0
+
+    out, err, sec = run(["benchmark", "--width", str(WIDTH), "--height", str(HEIGHT),
+                         "--bounces", str(BOUNCES)])
+    rec = json.loads(out.strip().splitlines()[-1])
+    print(f"cli benchmark ({sec:.1f} s): {json.dumps(rec)}")
+    _check("suspect" not in rec and "device_per_frame_ms" in rec, f"cli benchmark record {rec}")
+    results["cli_benchmark"] = rec
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    base = ["render", "--no-denoise", "--tonemap", "aces"]
+    paths = {k: build / f"chip_smoke_cli_{k}" for k in ("first.npz", "resumed.npz", "fresh.npz")}
+    _, err, _ = run(base + ["--frames", "16", "--timing", "--checkpoint", str(paths["first.npz"]),
+                            "-o", str(build / "chip_smoke_cli_16.png")])
+    timings = {line.split()[0]: float(line.split()[1]) for line in err.splitlines()
+               if line.strip().endswith("us/frame")}
+    print(f"cli render 16 frames --timing: pass timings {timings} us/frame")
+    _check(set(timings) == {"raytrace", "accumulate", "fullscreen"}
+           and all(v > 0 for v in timings.values()), f"cli render --timing: {timings}")
+    run(base + ["--frames", "32", "--resume", str(paths["first.npz"]), "--checkpoint",
+                str(paths["resumed.npz"]), "-o", str(build / "chip_smoke_cli_resumed.png")])
+    run(base + ["--frames", "32", "--checkpoint", str(paths["fresh.npz"]),
+                "-o", str(build / "chip_smoke_cli_fresh.png")])
+    resumed, fresh = np.load(paths["resumed.npz"]), np.load(paths["fresh.npz"])
+    same = (np.array_equal(resumed["acc"], fresh["acc"])
+            and int(resumed["frame"]) == int(fresh["frame"]) == 33)
+    print(f"cli render --resume to 32 frames vs a fresh 32-frame render: accumulation equal bit "
+          f"for bit: {same}")
+    _check(same, "cli resume differs from a fresh render")
+    sky = build / "chip_smoke_cli_sky.png"
+    _, _, sec = run(["render", "--env", "sky:elevation=30", "--frames", "16", "-o", str(sky)])
+    _check(sky.exists() and sky.stat().st_size > 1000, "cli sky render wrote no image")
+    print(f"cli render --env sky:elevation=30 ({sec:.1f} s) -> {sky.relative_to(ROOT)}")
+    results.update(cli_render_timings_us=timings, cli_resume_equal=same)
+
+
 def main(argv=None) -> int:
     args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     args.add_argument("--profile", action="store_true")
@@ -800,6 +1087,9 @@ def main(argv=None) -> int:
                 "mt_stream": mt_stream.mt_intersect_stream2_phi,
                 "mt_pallas_r2": mt_intersect.mt_intersect_pallas,
                 "mt_stream_r2": mt_intersect.mt_intersect_stream,
+                "mt_nf_mxu": mt_shade.mt_intersect_nf_mxu_phi,
+                "mt_list_mxu": mt_shade.mt_intersect_list_mxu_phi,
+                "mt_cond_mxu": mt_shade.mt_intersect_cond_mxu_phi,
                 "denoise": kdenoise.smart_denoise}
 
     # --- build --------------------------------------------------------------
@@ -829,6 +1119,9 @@ def main(argv=None) -> int:
     for cull, (bound_ms, bound_by) in cull_bounds.items():
         print(f"bound: mt_{cull} primary wrapper (sub 64) {bound_ms:.4f} ms ({bound_by})")
         results[f"mt_{cull}_bound_ms"] = bound_ms
+
+    # --- MXU phase: kernel #5, nf/list/cond MXU at sub 32/64/128 vs plain and FP32
+    mxu = _mxu_phase(mt_shade, tri_pos, rays, results, tag)
 
     # --- round-2 phase: mt_intersect_pallas / mt_intersect_stream vs plain ------
     r2 = _r2_phase(mt_intersect, counters, tri_pos, phi_primary,
@@ -900,6 +1193,12 @@ def main(argv=None) -> int:
     # --- intersector phase: 'mt', 'bvh', 'bvh8' frames vs the nf frame ----------
     _intersector_phase(trace, data, frame_params, kw, img_k, counters, results, tag)
     del renderer, img_k, img_p, prep
+
+    # --- sweep phase: make_budget under TPT_MXU_DETS=0 / =1 (the MXU main path)
+    mxu_launches = _sweep_phase(pt, data, cam, counters, results, tag)
+
+    # --- CLI phase: benchmark, render with checkpoint/resume and timing, sky --
+    _cli_phase(results, tag)
 
     # --- stress: streamed MT kernel vs plain on the stress scene's rays ------
     stress = _mesh_scene(pt, STRESS_SEGMENTS)
@@ -1036,6 +1335,13 @@ def main(argv=None) -> int:
            "ms": r2[name]["ms"], "plain_ms": r2[name]["plain_ms"],
            **bound((r2[name]["bound_ms"], r2[name]["bound_by"]))}
           for name, line in (("mt_pallas_r2", 62), ("mt_stream_r2", 293))),
+        *({"name": f"mt_{cull}_mxu", "route": "cuda",
+           "source": "tpu_pathtracer_torch/csrc/mt_shade.cu",
+           "replaces": "tpu_pathtracer/ops/pallas/mt_shade.py:118",
+           "launches": mxu_launches[f"mt_{cull}_mxu"], "max_abs_err": mxu[cull]["max_abs_err"],
+           "ms": mxu[cull]["ms"], "plain_ms": mxu[cull]["plain_ms"],
+           **bound((mxu[cull]["bound_ms"], mxu[cull]["bound_by"]))}
+          for cull in CULLS),
     ]
     results["kernels"] = kernels
     if opts.out:

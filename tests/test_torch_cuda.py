@@ -9,17 +9,20 @@ imports no JAX, so it also runs on a machine without it:
 """
 
 import math
+import shutil
 
 import numpy as np
 import pytest
 import torch
 
 import tpu_pathtracer_torch as tpt
+from tpu_pathtracer_torch import _build
 from tpu_pathtracer_torch.ops import camera as camera_ops
 from tpu_pathtracer_torch.ops import trace
 from tpu_pathtracer_torch.ops.kernels import denoise as kdenoise
 from tpu_pathtracer_torch.ops.kernels import mt_intersect, mt_shade, mt_stream
 from tpu_pathtracer_torch.ops.mt_matmul import ray_features
+from tpu_pathtracer_torch.ops.rng import pixel_seed
 from tpu_pathtracer_torch.scene import envmap, primitives
 from tpu_pathtracer_torch.scene.convert import leaves_to_numpy
 from tpu_pathtracer_torch.scene.host import rotation_x
@@ -196,6 +199,191 @@ def test_cond_kernel_culls_like_plain_on_a_mesh(cuda, sub):
     assert evaluated <= live * (mt_shade.CHUNK_TRIS // sub)
     if sub < mt_shade.CHUNK_TRIS:
         assert evaluated < live * (mt_shade.CHUNK_TRIS // sub)  # and so does the sub test
+
+
+MXU_WRAPPERS = {
+    "nf": (mt_shade.mt_intersect_nf_mxu_phi, mt_shade.mt_intersect_nf_mxu_phi_plain),
+    "list": (mt_shade.mt_intersect_list_mxu_phi, mt_shade.mt_intersect_list_mxu_phi_plain),
+    "cond": (mt_shade.mt_intersect_cond_mxu_phi, mt_shade.mt_intersect_cond_mxu_phi_plain),
+}
+
+
+def _assert_mxu_agrees(tri, phi_t, hk, hp, what):
+    """`hit_agreement`'s MXU rule: hit and triangle equal on at least 99.9%
+    of lanes, each differing lane a near-tie, an edge or a floor lane, and
+    t, u, v within 1e-4 of their conditioned scale where both hit the same
+    triangle."""
+    agree = mt_shade.hit_agreement(tri, phi_t, hk, hp)
+    assert agree["ok"], f"{what}: {agree}"
+    return agree
+
+
+def _assert_walk_counts_close(sk, sp):
+    """cond walk counts of the MXU kernel against its plain version: t
+    differs between them by float32 rounding, so a box whose entry ties a
+    ray's t may be decided the other way; at most 1% of the tiles may
+    differ, and the total subs evaluated by at most 1%."""
+    tiles = int((sk != sp).any(dim=1).sum())
+    assert tiles <= 0.01 * sk.shape[0], (tiles, sk.shape[0])
+    ek, ep = int(sk[:, 1].sum()), int(sp[:, 1].sum())
+    assert abs(ek - ep) <= 0.01 * ep, (ek, ep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub", [32, 64, 128])
+@pytest.mark.parametrize("cull", ["nf", "list", "cond"])
+@pytest.mark.parametrize("n_tris,n_rays,tile_rays", [
+    (2000, 40000, None),   # default 512-ray tiles
+    (700, 1300, 384),      # a partial tile, non-power-of-two tile width
+])
+def test_mxu_kernels_match_plain_on_soups(cuda, cull, sub, n_tris, n_rays, tile_rays):
+    """Each MXU variant through `mt_intersect_pallas2_phi(mxu_dets=True)`:
+    only it launches, once, and it agrees with its plain version and with
+    the FP32 kernel by the MXU rule."""
+    rng = np.random.default_rng(n_tris + sub)
+    tri = torch.from_numpy(_soup(rng, n_tris)).to(cuda)
+    phi_t, park = _parked_rays(rng, n_rays)
+    phi_t = phi_t.to(cuda)
+    wrappers = {**{k: w for k, (w, _) in CULL_WRAPPERS.items()},
+                **{f"{k}_mxu": w for k, (w, _) in MXU_WRAPPERS.items()}}
+    before = {k: w.launches for k, w in wrappers.items()}
+    hk = mt_shade.mt_intersect_pallas2_phi(tri, phi_t, tile_rays=tile_rays, cull=cull, sub=sub,
+                                           mxu_dets=True)
+    after = {k: w.launches - before[k] for k, w in wrappers.items()}
+    assert after == {k: int(k == f"{cull}_mxu") for k in after}
+    assert int(hk.hit.sum()) > 0 and not hk.hit[torch.from_numpy(park).to(cuda)].any()
+    with mt_shade._full_fp32():
+        assert not torch.backends.cuda.matmul.allow_tf32
+        hp = MXU_WRAPPERS[cull][1](tri, phi_t, tile_rays=tile_rays, sub=sub)
+    _assert_mxu_agrees(tri, phi_t, hk, hp, "plain")
+    hf = CULL_WRAPPERS[cull][0](tri, phi_t, tile_rays=tile_rays, sub=sub)
+    _assert_mxu_agrees(tri, phi_t, hk, hf, "fp32")
+    if cull == "cond":
+        sk = mt_shade.cond_walk_stats(tri, phi_t, tile_rays=tile_rays, sub=sub, mxu=True)
+        sp = mt_shade.cond_walk_stats(tri, phi_t, tile_rays=tile_rays, sub=sub, mxu=True,
+                                      plain=True)
+        assert torch.equal(sk, sp)  # every box of a random soup is live
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cull", ["nf", "list", "cond"])
+@pytest.mark.parametrize("tile_rays,sub", [(128, 64), (1024, 64), (4096, 32), (8192, 128)])
+def test_mxu_kernels_take_every_tile_width(cuda, cull, tile_rays, sub):
+    """The MXU kernels keep the tile's state in shared memory, so every
+    tile width the wrapper produces runs, up to 8,192 rays at sub 128."""
+    rng = np.random.default_rng(tile_rays + sub)
+    tri = torch.from_numpy(_soup(rng, 1500)).to(cuda)
+    phi_t, _ = _parked_rays(rng, 3 * tile_rays - 77)
+    phi_t = phi_t.to(cuda)
+    kernel, plain = MXU_WRAPPERS[cull]
+    hk = kernel(tri, phi_t, tile_rays=tile_rays, sub=sub)
+    hp = plain(tri, phi_t, tile_rays=tile_rays, sub=sub)
+    assert int(hk.hit.sum()) > 0
+    _assert_mxu_agrees(tri, phi_t, hk, hp, f"{cull} {tile_rays}")
+
+
+@pytest.mark.cuda
+def test_mxu_kernels_refuse_a_tile_beyond_shared_memory(cuda):
+    tri = torch.from_numpy(_soup(np.random.default_rng(3), 300)).to(cuda)
+    phi_t = torch.ones((10, 256), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        mt_shade.mt_intersect_cond_mxu_phi(tri, phi_t, tile_rays=16384, sub=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cull", ["nf", "list", "cond"])
+def test_mxu_parked_and_padding_lanes_stay_finite(cuda, cull):
+    """Padding lanes carry phi = 1e30 and parked lanes ro = 1e30, rd = 0;
+    zero coefficient columns meet them in both the hi and the lo products.
+    No output lane may be NaN, and parked lanes never hit (nf: padding
+    lanes neither)."""
+    rng = np.random.default_rng(17)
+    tri = torch.from_numpy(_soup(rng, 900)).to(cuda)
+    phi_t, park = _parked_rays(rng, 1000, park_every=3)  # pads to 1024
+    phi_t = phi_t.to(cuda)
+    prepare, _, walk = mt_shade._MXU_WALKS[cull]
+    prep = mt_shade._mma_prepare(prepare)(tri, phi_t, None, 64)
+    t, idx, u, v = walk(*prep, mxu=True)
+    torch.cuda.synchronize()
+    assert t.shape == (1024,)
+    for x in (t, u, v):
+        assert not torch.isnan(x).any()
+    parked = torch.from_numpy(park).to(cuda)
+    assert (idx[:1000][parked] == -1).all()
+    if cull == "nf":
+        assert (idx[1000:] == -1).all() and (t[1000:] == -1e20).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub", [32, 64, 128])
+@pytest.mark.parametrize("cull", ["nf", "list", "cond"])
+def test_mxu_kernels_on_a_mesh(cuda, cull, sub):
+    """Camera rays on the default scene: each MXU kernel against its plain
+    version and the FP32 kernel by the MXU rule; cond's walk counts against
+    its plain version's, and its culling skips work."""
+    tri = tpt.default_scene().compile(device=cuda).packed.tri_pos
+    phi_t = _camera_rays(cuda)
+    kernel, plain = MXU_WRAPPERS[cull]
+    hk = kernel(tri, phi_t, sub=sub)
+    assert int(hk.hit.sum()) > 10000
+    _assert_mxu_agrees(tri, phi_t, hk, plain(tri, phi_t, sub=sub), "plain")
+    _assert_mxu_agrees(tri, phi_t, hk, CULL_WRAPPERS[cull][0](tri, phi_t, sub=sub), "fp32")
+    if cull == "cond":
+        sk = mt_shade.cond_walk_stats(tri, phi_t, sub=sub, mxu=True)
+        _assert_walk_counts_close(sk, mt_shade.cond_walk_stats(tri, phi_t, sub=sub, mxu=True,
+                                                               plain=True))
+        live = int(sk[:, 0].sum())
+        assert live < tri.shape[0] // mt_shade.CHUNK_TRIS * sk.shape[0]
+
+
+def _bounce_rays(cuda, size=256):
+    """The default scene's first-bounce ray features at size x size, as
+    render_frame builds them: rays leave the surfaces they hit, terminated
+    rays parked.  Returns (tri_pos, phi_t)."""
+    data = tpt.default_scene(envmap.gradient_sky(16, 32)).compile(device=cuda)
+    cam = tpt.Camera.create(position=(0, 1, 4), look_at=(0, 0.5, 0), fov=45, device=cuda)
+    xs, ys = trace.blocked_pixel_grid(size, size, cuda)
+    o, d = camera_ops.camera_rays(cam, torch.stack([xs / float(size), ys / float(size)], dim=-1),
+                                  1.0)
+    ro, rd = o.T.contiguous(), d.T.contiguous()
+    seed = pixel_seed(xs + ys * size, 1)
+    hit = mt_shade.mt_intersect_nf_phi(data.packed.tri_pos, trace._ray_features_t(ro, rd))
+    carry = (ro, rd, torch.zeros_like(ro), torch.ones_like(ro), seed,
+             torch.ones_like(seed, dtype=torch.bool))
+    ro2, rd2, _, _, _, active = trace.bounce_shade_t(
+        data, tpt.RenderParams.create(cam, frame=1), hit, carry,
+        shade_mat=trace.pack_shade_material_rows(data))
+    am = active[None, :]
+    phi_t = trace._ray_features_t(torch.where(am, ro2, 1e30), torch.where(am, rd2, 0.0))
+    return data.packed.tri_pos, phi_t
+
+
+@pytest.mark.cuda
+def test_mxu_rule_catches_a_dropped_epsilon_test(cuda, tmp_path, monkeypatch):
+    """Mutation check of `hit_agreement`'s rule on rays leaving the default
+    scene's surfaces, which re-hit them at t about 0: the MXU nf kernel
+    passes it against its plain version, and a copy of the kernels built
+    with the epilogue's t test as ts > 0 (EPSILON*|a| dropped) fails it."""
+    tri, phi_t = _bounce_rays(cuda)
+    hp = mt_shade.mt_intersect_nf_mxu_phi_plain(tri, phi_t)
+    good = mt_shade.hit_agreement(tri, phi_t, mt_shade.mt_intersect_nf_mxu_phi(tri, phi_t), hp)
+    assert good["ok"], good
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, src)
+    common = src / "mt_common.cuh"
+    text = common.read_text()
+    t_test = "ts > __fmul_rn(kEpsilon, abs_a)"
+    assert text.count(t_test) == 1
+    common.write_text(text.replace(t_test, "ts > 0.f"))
+    monkeypatch.setattr(_build, "CSRC", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    _build.load.cache_clear()
+    try:
+        bad = mt_shade.hit_agreement(tri, phi_t, mt_shade.mt_intersect_nf_mxu_phi(tri, phi_t), hp)
+    finally:
+        _build.load.cache_clear()  # the next load() builds from the package's sources
+    print(f"intact kernel: {good}\nEPSILON test dropped: {bad}")
+    assert not bad["ok"], bad
 
 
 def _diff_setup(device, size=32):

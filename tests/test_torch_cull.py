@@ -13,6 +13,7 @@ walk's initial t: -INF for parked lanes under 'nf', INF under 'list' and
 The option resolution (explicit argument, then TPT_CULL / TPT_SUB /
 TPT_TILE_RAYS / TPT_SORT_BOUNCES / TPT_MXU_DETS, then the default) is held
 to the JAX functions case by case, errors and their messages included.
+The MXU-determinant variants are held to JAX in tests/test_torch_mxu.py.
 The CUDA kernels themselves are compared with these plain versions in
 tests/test_torch_cuda.py, on a machine with a card."""
 
@@ -142,12 +143,19 @@ RESOLUTION_CASES = [
     ("sort_bounces", None, "0", 0),
     ("sort_bounces", 3, "1", 3),
     ("sort_bounces", None, "two", ValueError),
+    ("mxu_dets", True, None, True),
+    ("mxu_dets", None, "1", True),
+    ("mxu_dets", None, "true", True),
+    ("mxu_dets", False, None, False),
+    ("mxu_dets", None, "0", False),
+    ("mxu_dets", None, "false", False),
 ]
 OPTIONS = {
     "cull": (jshade._cull_mode, mt_shade._cull_mode, "TPT_CULL"),
     "sub": (jshade._sub_tris, mt_shade._sub_tris, "TPT_SUB"),
     "tile_rays": (jshade._tile_rays, mt_shade._tile_rays, "TPT_TILE_RAYS"),
     "sort_bounces": (jtrace._sort_bounces, ttrace._sort_bounces, "TPT_SORT_BOUNCES"),
+    "mxu_dets": (jshade._mxu_dets, mt_shade._mxu_dets, "TPT_MXU_DETS"),
 }
 
 
@@ -162,24 +170,6 @@ def test_option_resolution_matches_jax(option, override, env, expected, monkeypa
             assert t == j
     else:
         assert j == t == expected
-
-
-@pytest.mark.parametrize("override,env", [(True, None), (None, "1"), (None, "true"),
-                                          (False, None), (None, "0"), (None, "false")])
-def test_mxu_dets_requested_raises(soup, override, env, monkeypatch):
-    """The MXU-determinant option (kernel #5) is not ported: wherever JAX
-    would turn it on, the port raises NotImplementedError naming it."""
-    tri, ro, rd, _ = soup
-    j, _ = _resolve_both(jshade._mxu_dets, lambda o: None, override, "TPT_MXU_DETS", env,
-                         monkeypatch)
-    phi_t = ray_features(torch.from_numpy(ro[:64]), torch.from_numpy(rd[:64])).T.contiguous()
-    call = lambda: mt_shade.mt_intersect_pallas2_phi(torch.from_numpy(tri), phi_t,
-                                                     mxu_dets=override)
-    if j:
-        with pytest.raises(NotImplementedError, match="#5"):
-            call()
-    else:
-        assert call().hit.shape == (64,)
 
 
 def test_cond_takes_no_widening_and_no_dead_boxes():

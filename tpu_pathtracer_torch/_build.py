@@ -102,6 +102,16 @@ def load() -> ctypes.CDLL:
     lib.tpt_mt_list.restype = i
     lib.tpt_mt_cond.argtypes = [p] * 9 + [i] * 5 + [p]
     lib.tpt_mt_cond.restype = i
+    lib.tpt_mt_nf_mxu.argtypes = lib.tpt_mt_nf.argtypes
+    lib.tpt_mt_nf_mxu.restype = i
+    lib.tpt_mt_list_mxu.argtypes = lib.tpt_mt_list.argtypes
+    lib.tpt_mt_list_mxu.restype = i
+    lib.tpt_mt_cond_mxu.argtypes = lib.tpt_mt_cond.argtypes
+    lib.tpt_mt_cond_mxu.restype = i
+    lib.tpt_mxu_smem_bytes.argtypes = [i, i]
+    lib.tpt_mxu_smem_bytes.restype = ctypes.c_size_t
+    lib.tpt_mxu_smem_limit.argtypes = [i, ctypes.POINTER(ctypes.c_size_t)]
+    lib.tpt_mxu_smem_limit.restype = i
     lib.tpt_mt_stream.argtypes = [p] * 12 + [i] * 6 + [p]
     lib.tpt_mt_stream.restype = i
     lib.tpt_mt_r2.argtypes = [p] * 8 + [i] * 4 + [p]

@@ -26,6 +26,35 @@ struct Best {
   float v;
 };
 
+// The epilogue of one (ray, triangle) pair: validity in the
+// multiplied-through form (ts > EPSILON*|a|), then t = ta * (1/a); a
+// valid pair nearer than `near` replaces it.  Callers visit triangles in
+// ascending index order, so exact-t ties keep the lowest index.
+__device__ __forceinline__ void take_pair(float a, float ua, float va,
+                                          float ta, int tri, Best& near) {
+  const float abs_a = fabsf(a);
+  const float sa = a > 0.f ? 1.f : (a < 0.f ? -1.f : 0.f);
+  const float us = __fmul_rn(ua, sa);
+  const float vs = __fmul_rn(va, sa);
+  const float ts = __fmul_rn(ta, sa);
+  const bool valid = abs_a >= kEpsilon && us >= 0.f && us <= abs_a &&
+                     vs >= 0.f && __fadd_rn(us, vs) <= abs_a &&
+                     ts > __fmul_rn(kEpsilon, abs_a);
+  if (valid) {
+    const float f = __frcp_rn(a);
+    const float t = __fmul_rn(ta, f);
+    if (t < near.t) near = Best{t, tri, __fmul_rn(ua, f), __fmul_rn(va, f)};
+  }
+}
+
+// Fold a sub-treelet's nearest hit `near` into a ray's `best`: nearer wins,
+// an exact-t tie goes to the lower triangle index.
+__device__ __forceinline__ void fold(const Best& near, Best& best) {
+  if (near.t < best.t ||
+      (near.t == best.t && near.t < kInf && near.idx < best.idx))
+    best = near;
+}
+
 // Evaluate one ray (phi[10]) against the staged sub-treelet `rows`
 // ([4][SUB][10], quantity-major inside the sub) whose first triangle is
 // s0, and fold the sub's nearest valid hit into `best` with the
@@ -34,9 +63,7 @@ template <int SUB>
 __device__ __forceinline__ void eval_sub(const float* __restrict__ rows,
                                          const float phi[10], int s0,
                                          Best& best) {
-  float st = kInf;  // nearest valid t in this sub, lowest index on ties
-  int si = 0x7fffffff;
-  float su = 0.f, sv = 0.f;
+  Best near{kInf, 0x7fffffff, 0.f, 0.f};  // nearest valid hit in this sub
 #pragma unroll 4
   for (int i = 0; i < SUB; ++i) {
     const float* ca = rows + (0 * SUB + i) * 10;
@@ -57,30 +84,9 @@ __device__ __forceinline__ void eval_sub(const float* __restrict__ rows,
     float ta = __fmul_rn(ct[0], phi[0]);
 #pragma unroll
     for (int k = 1; k < 4; ++k) ta = __fadd_rn(ta, __fmul_rn(ct[k], phi[k]));
-
-    // validity in the multiplied-through form (ts > EPSILON*|a|)
-    const float abs_a = fabsf(a);
-    const float sa = a > 0.f ? 1.f : (a < 0.f ? -1.f : 0.f);
-    const float us = __fmul_rn(ua, sa);
-    const float vs = __fmul_rn(va, sa);
-    const float ts = __fmul_rn(ta, sa);
-    const bool valid = abs_a >= kEpsilon && us >= 0.f && us <= abs_a &&
-                       vs >= 0.f && __fadd_rn(us, vs) <= abs_a &&
-                       ts > __fmul_rn(kEpsilon, abs_a);
-    if (valid) {
-      const float f = __frcp_rn(a);
-      const float t = __fmul_rn(ta, f);
-      if (t < st) {
-        st = t;
-        si = s0 + i;
-        su = __fmul_rn(ua, f);
-        sv = __fmul_rn(va, f);
-      }
-    }
+    take_pair(a, ua, va, ta, s0 + i, near);
   }
-  const bool take =
-      st < best.t || (st == best.t && st < kInf && si < best.idx);
-  if (take) best = Best{st, si, su, sv};
+  fold(near, best);
 }
 
 // Load ray `ray` (or, for a lane past the tile, any ray of the tile) from

@@ -8,10 +8,11 @@ contract:
   * `_cull_mode`: 'nf' (`_kernel_nf`, the default), 'list' (`_kernel_list`)
     or 'cond' (`_kernel`); `_sub_tris`: the sub-treelet granule, a positive
     multiple of 8 dividing 128 (default 64); `_tile_rays`: rays per tile, a
-    positive multiple of 128 (default 512).  Each is an explicit argument,
-    then an environment variable (TPT_CULL, TPT_SUB, TPT_TILE_RAYS), then
-    the default.  The MXU determinant option (TPT_MXU_DETS) is not ported
-    and raises;
+    positive multiple of 128 (default 512); `_mxu_dets`: the determinants
+    of a sub-treelet as one matrix product (`_mt_mxu_block`) instead of the
+    term loop (default off).  Each is an explicit argument, then an
+    environment variable (TPT_CULL, TPT_SUB, TPT_TILE_RAYS, TPT_MXU_DETS),
+    then the default;
   * triangles pad to a multiple of 128 rows (all-zero rows never hit) and
     are cut into `sub`-row sub-treelets; the ray features phi_t (10, R) pad
     with 1e30 to a multiple of the ray tile;
@@ -39,16 +40,29 @@ kernel (csrc/mt_shade.cu) for a CUDA tensor, counting the launch in its
 versions walk the same lists, chunks and subs in the same order, vectorised
 over tiles, with the same elementwise arithmetic, so kernel and plain
 version agree bit for bit.
+
+The MXU variants (`mt_intersect_{nf,list,cond}_mxu_phi`, kernel #5) walk
+the same way.  Their plain versions take each sub-treelet's determinants
+as one float32 `torch.matmul` of its (4*sub, 10) coefficient rows against
+phi (10, TR), TF32 off; their kernels as 3xTF32 tensor-core products of a
+table the wrapper repacks into the `mma.sync` fragment order
+(`_pack_mma`).  The two sum in different orders, so they agree to float32
+rounding, not bit for bit: `hit_agreement` counts the lanes that differ
+and checks that each is a near-tie, lies on a triangle's edge or is
+decided by the EPSILON test's rounding.
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import functools
 import os
 
 import torch
 
 from ..mt_matmul import Hit, determinants, epilogue, miss_hit, nearest, ray_features, triangle_columns
-from ..vecmath import INF
+from ..vecmath import EPSILON, INF
 from .mt_intersect import (
     _check_inputs,
     _counted,
@@ -104,15 +118,11 @@ def _sub_tris(override=None) -> int:
 
 
 def _mxu_dets(override=None) -> bool:
-    """The MXU-determinant toggle: `override`, then TPT_MXU_DETS, then
-    False.  True raises: the option is not ported."""
-    on = (bool(override) if override is not None
-          else os.environ.get("TPT_MXU_DETS", "0") not in ("0", "false", ""))
-    if on:
-        raise NotImplementedError(
-            "MXU determinants (mxu_dets / TPT_MXU_DETS, `_mt_mxu_block`) are not ported yet "
-            "(ROADMAP.md §2, kernel #5)")
-    return False
+    """The MXU-determinant toggle: `override`, then TPT_MXU_DETS (any value
+    but '0', 'false' and '' turns it on), then False."""
+    if override is not None:
+        return bool(override)
+    return os.environ.get("TPT_MXU_DETS", "0") not in ("0", "false", "")
 
 
 def _parked_lanes(rd):
@@ -164,6 +174,57 @@ def _pack_subblock_major(cols, sub: int):
     n = cols.shape[2]
     qs = cols.permute(1, 2, 0)  # (4, Np, 10)
     return qs.reshape(4, n // sub, sub, 10).permute(1, 0, 2, 3).reshape(4 * n, 10).contiguous()
+
+
+@functools.lru_cache(maxsize=16)
+def _mma_index(n: int, sub: int, device: torch.device):
+    """Where each value of the `mma.sync` fragment table of Np = n triangles
+    at `sub` comes from, as flat indices into the sub-block-major rows padded
+    to 16 features; built once per shape and device.  For register j (16)
+    of lane l (32) of 8-triangle group G: quantity q, triangle 8G + l // 4
+    and feature k.  The first m16n8k8 tile holds a (rows 0-7) and ua (rows
+    8-15) of the group's triangles, the second va and ta, so the C fragment
+    of lane l holds all four of triangle l // 4; register j is A register
+    j % 4 of k-step (j // 4) % 2 of tile j // 8, row l // 4 + 8 * (j % 2),
+    column l % 4 + 4 * ((j // 2) % 2)."""
+    j = torch.arange(16)[:, None]
+    lane = torch.arange(32)[None, :]
+    q = 2 * (j // 8) + j % 2
+    k = lane % 4 + 4 * ((j // 2) % 2) + 8 * ((j // 4) % 2)
+    tri = torch.arange(0, n, 8)[:, None, None] + lane // 4  # (Np/8, 1, 32)
+    row = tri // sub * 4 * sub + q * sub + tri % sub  # (Np/8, 16, 32)
+    return (row * 16 + k).reshape(-1).to(device)
+
+
+def _pack_mma(cols_rows, sub: int):
+    """(4*Np, 10) sub-block-major rows -> the MXU kernels' (4*Np, 16) table:
+    per 8-triangle group, in triangle order, 16 registers x 32 lanes of the
+    tf32 `mma.sync` A fragments (`_mma_index`), features padded to 16 with
+    zeros.  A sub-treelet is a contiguous block of sub/8 groups."""
+    n = cols_rows.shape[0] // 4
+    padded = torch.nn.functional.pad(cols_rows, (0, 6)).reshape(-1)
+    return padded[_mma_index(n, sub, cols_rows.device)].reshape(4 * n, 16)
+
+
+@contextlib.contextmanager
+def _full_fp32():
+    """Float32 matrix products without TF32 on the card."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _mxu_determinants(phi, coef):
+    """`determinants` as `_mt_mxu_block` forms them: one float32 matrix
+    product per sub-treelet of its (4*sub, 10) coefficient rows against phi,
+    TF32 off.  phi: (Tc, 10, TR); coef: (Tc, 4, sub, 10)."""
+    tc, _, sub, _ = coef.shape
+    with _full_fp32():
+        d = torch.matmul(coef.reshape(tc, 4 * sub, 10), phi)  # (Tc, 4*sub, TR)
+    return list(d.split(sub, dim=1))
 
 
 def _check_size(n: int) -> None:
@@ -241,17 +302,19 @@ def _walk_start(phi_pad, n_tiles: int, tile_rays: int, park: bool = True):
                  torch.zeros_like(t)]
 
 
-def _fold_subs(phi, coef, tiles, subs, best, tiles_per_chunk: int = 128):
+def _fold_subs(phi, coef, tiles, subs, best, mxu: bool = False, tiles_per_chunk: int = 128):
     """Evaluate sub-treelet subs[i] against every ray of tile tiles[i] and
     fold its nearest hit into `best` in place with the kernels' take rule
-    (exact-t ties to the lower index).  coef: (Ms, 4, sub, 10)."""
+    (exact-t ties to the lower index).  coef: (Ms, 4, sub, 10); `mxu` forms
+    the determinants as one matrix product per sub-treelet."""
     inf = float(INF)
     t, idx, u, v = best
     sub = coef.shape[2]
+    dets = _mxu_determinants if mxu else determinants
     for c0 in range(0, tiles.numel(), tiles_per_chunk):
         tc = tiles[c0:c0 + tiles_per_chunk]
         s = subs[c0:c0 + tiles_per_chunk].long()
-        tt, uu, vv = epilogue(*determinants(phi[tc], coef[s]))  # (Tc, sub, TR)
+        tt, uu, vv = epilogue(*dets(phi[tc], coef[s]))  # (Tc, sub, TR)
         tmin, imin, u_w, v_w = nearest(tt, uu, vv, (s * sub).to(torch.int32))
         cur_t, cur_i = t[tc], idx[tc]
         take = (tmin < cur_t) | ((tmin == cur_t) & (tmin < inf) & (imin < cur_i))
@@ -261,11 +324,12 @@ def _fold_subs(phi, coef, tiles, subs, best, tiles_per_chunk: int = 128):
         v[tc] = torch.where(take, v_w, v[tc])
 
 
-def _walk_plain(phi_pad, cols_rows, counts, lists, emins, tile_rays: int, stats=None):
+def _walk_plain(phi_pad, cols_rows, counts, lists, emins, tile_rays: int, stats=None,
+                mxu: bool = False):
     """The 'nf' kernel's walk in torch ops: step j evaluates entry j of
     every tile still walking, then refreshes those tiles' largest live t.
     `stats`, a zeroed (T,) int32 tensor, receives each tile's count of
-    evaluated subs."""
+    evaluated subs; `mxu` takes the MXU variant's determinants."""
     n_tiles, ms = lists.shape
     phi, best = _walk_start(phi_pad, n_tiles, tile_rays)
     coef = cols_rows.reshape(ms, 4, -1, 10)  # (Ms, 4, sub, 10)
@@ -277,14 +341,14 @@ def _walk_plain(phi_pad, cols_rows, counts, lists, emins, tile_rays: int, stats=
         tiles = walking.nonzero().squeeze(1)
         if tiles.numel() == 0:
             break
-        _fold_subs(phi, coef, tiles, lists[tiles, j], best)
+        _fold_subs(phi, coef, tiles, lists[tiles, j], best, mxu)
         tmax[tiles] = t[tiles].amax(dim=1)
         if stats is not None:
             stats[tiles] += 1
     return tuple(x.reshape(-1) for x in best)
 
 
-def _walk_list_plain(phi_pad, cols_rows, counts, lists, tile_rays: int):
+def _walk_list_plain(phi_pad, cols_rows, counts, lists, tile_rays: int, mxu: bool = False):
     """The 'list' kernel's walk in torch ops: step j evaluates entry j of
     every tile whose list is longer than j; no bound, no break, every lane
     from t = INF."""
@@ -295,11 +359,12 @@ def _walk_list_plain(phi_pad, cols_rows, counts, lists, tile_rays: int):
         tiles = (counts > j).nonzero().squeeze(1)
         if tiles.numel() == 0:
             break
-        _fold_subs(phi, coef, tiles, lists[tiles, j], best)
+        _fold_subs(phi, coef, tiles, lists[tiles, j], best, mxu)
     return tuple(x.reshape(-1) for x in best)
 
 
-def _walk_cond_plain(phi_pad, cols_rows, chunk_boxes, sub_boxes, tile_rays: int, stats=None):
+def _walk_cond_plain(phi_pad, cols_rows, chunk_boxes, sub_boxes, tile_rays: int, stats=None,
+                     mxu: bool = False):
     """The 'cond' kernel's walk in torch ops, vectorised over tiles: the
     tiles with a nonzero ray direction visit chunk c = 0, 1, ... where some
     ray enters the chunk box before its current t, and inside it sub s
@@ -335,73 +400,120 @@ def _walk_cond_plain(phi_pad, cols_rows, chunk_boxes, sub_boxes, tile_rays: int,
         for s in range(spc):
             ts = tc if spc == 1 else tc[(sub_entry[:, s] < t[tc]).any(dim=1)]
             stats[ts, 1] += 1
-            _fold_subs(phi, coef, ts, subs[s].expand(ts.numel()), best)
+            _fold_subs(phi, coef, ts, subs[s].expand(ts.numel()), best, mxu)
     return tuple(x.reshape(-1) for x in best)
 
 
-def _walk_cuda(phi_pad, cols_rows, counts, lists, emins, tile_rays: int):
-    """Launch the 'nf' kernel of csrc/mt_shade.cu on the current stream;
+@functools.cache
+def _mxu_smem_limit(lib, device_index: int) -> int:
+    """The most dynamic shared memory one MXU block may take on this card."""
+    limit = ctypes.c_size_t()
+    err = lib.tpt_mxu_smem_limit(device_index, ctypes.byref(limit))
+    if err:
+        raise RuntimeError(f"reading the shared-memory limit failed: {err}")
+    return limit.value
+
+
+def _check_mxu_shape(what: str, lib, table, tile_rays: int, sub: int) -> None:
+    """The MXU kernels' table layout, and their shared memory (the tile's
+    best state and one staged sub-treelet's fragments, sized by
+    csrc/mt_shade.cu) within the card's limit."""
+    if table.shape[1] != 16 or table.data_ptr() % 16:
+        raise ValueError(f"{what} kernel: the table must be `_pack_mma`'s (4*Np, 16) rows")
+    need = lib.tpt_mxu_smem_bytes(sub, tile_rays)
+    limit = _mxu_smem_limit(lib, table.device.index or 0)
+    if need > limit:
+        raise ValueError(f"{what} kernel: a {tile_rays}-ray tile at sub {sub} needs {need} bytes "
+                         f"of shared memory, above the card's {limit}")
+
+
+def _walk_cuda(phi_pad, cols_rows, counts, lists, emins, tile_rays: int, mxu: bool = False):
+    """Launch the 'nf' kernel of csrc/mt_shade.cu (with `mxu`, its MXU
+    variant, which takes the `_pack_mma` table) on the current stream;
     outputs (R_pad,) x4."""
     from ... import _build
 
     lib = _build.load()
     dev = phi_pad.device
     n_tiles, ms = lists.shape
-    _check_inputs("mt_nf", (phi_pad, torch.float32), (cols_rows, torch.float32),
+    what = "mt_nf_mxu" if mxu else "mt_nf"
+    _check_inputs(what, (phi_pad, torch.float32), (cols_rows, torch.float32),
                   (counts, torch.int32), (lists, torch.int32), (emins, torch.float32), device=dev)
+    sub = cols_rows.shape[0] // (4 * ms)
+    if mxu:
+        _check_mxu_shape(what, lib, cols_rows, tile_rays, sub)
     out = _outputs(phi_pad.shape[1], dev)
-    err = lib.tpt_mt_nf(
+    err = (lib.tpt_mt_nf_mxu if mxu else lib.tpt_mt_nf)(
         *map(_ptr, (phi_pad, cols_rows, counts, lists, emins, *out)),
-        phi_pad.shape[1], tile_rays, n_tiles, ms, cols_rows.shape[0] // (4 * ms), _stream(dev))
+        phi_pad.shape[1], tile_rays, n_tiles, ms, sub, _stream(dev))
     if err:
-        raise RuntimeError(f"mt_nf kernel launch failed: {_build.error_string(err)}")
+        raise RuntimeError(f"{what} kernel launch failed: {_build.error_string(err)}")
     return out
 
 
-def _walk_list_cuda(phi_pad, cols_rows, counts, lists, tile_rays: int):
-    """Launch the 'list' kernel of csrc/mt_shade.cu; outputs (R_pad,) x4."""
+def _walk_list_cuda(phi_pad, cols_rows, counts, lists, tile_rays: int, mxu: bool = False):
+    """Launch the 'list' kernel of csrc/mt_shade.cu (with `mxu`, its MXU
+    variant); outputs (R_pad,) x4."""
     from ... import _build
 
     lib = _build.load()
     dev = phi_pad.device
     n_tiles, ms = lists.shape
-    _check_inputs("mt_list", (phi_pad, torch.float32), (cols_rows, torch.float32),
+    what = "mt_list_mxu" if mxu else "mt_list"
+    _check_inputs(what, (phi_pad, torch.float32), (cols_rows, torch.float32),
                   (counts, torch.int32), (lists, torch.int32), device=dev)
+    sub = cols_rows.shape[0] // (4 * ms)
+    if mxu:
+        _check_mxu_shape(what, lib, cols_rows, tile_rays, sub)
     out = _outputs(phi_pad.shape[1], dev)
-    err = lib.tpt_mt_list(
+    err = (lib.tpt_mt_list_mxu if mxu else lib.tpt_mt_list)(
         *map(_ptr, (phi_pad, cols_rows, counts, lists, *out)),
-        phi_pad.shape[1], tile_rays, n_tiles, ms, cols_rows.shape[0] // (4 * ms), _stream(dev))
+        phi_pad.shape[1], tile_rays, n_tiles, ms, sub, _stream(dev))
     if err:
-        raise RuntimeError(f"mt_list kernel launch failed: {_build.error_string(err)}")
+        raise RuntimeError(f"{what} kernel launch failed: {_build.error_string(err)}")
     return out
 
 
-def _walk_cond_cuda(phi_pad, cols_rows, chunk_boxes, sub_boxes, tile_rays: int, stats=None):
-    """Launch the 'cond' kernel of csrc/mt_shade.cu; outputs (R_pad,) x4.
-    `stats`, if given, a (T, 2) int32 tensor, receives the walk counts."""
+def _walk_cond_cuda(phi_pad, cols_rows, chunk_boxes, sub_boxes, tile_rays: int, stats=None,
+                    mxu: bool = False):
+    """Launch the 'cond' kernel of csrc/mt_shade.cu (with `mxu`, its MXU
+    variant); outputs (R_pad,) x4.  `stats`, if given, a (T, 2) int32
+    tensor, receives the walk counts."""
     from ... import _build
 
     lib = _build.load()
     dev = phi_pad.device
     n_tiles = phi_pad.shape[1] // tile_rays
     n_chunks, n_subs = chunk_boxes.shape[0], sub_boxes.shape[0]
-    _check_inputs("mt_cond", (phi_pad, torch.float32), (cols_rows, torch.float32),
+    what = "mt_cond_mxu" if mxu else "mt_cond"
+    _check_inputs(what, (phi_pad, torch.float32), (cols_rows, torch.float32),
                   (chunk_boxes, torch.float32), (sub_boxes, torch.float32), device=dev)
-    if (cols_rows.shape != (4 * n_chunks * CHUNK_TRIS, 10) or cols_rows.data_ptr() % 16
-            or n_subs % n_chunks):
-        raise ValueError("mt_cond kernel: coefficient table and boxes do not match")
+    if (cols_rows.shape != (4 * n_chunks * CHUNK_TRIS, 16 if mxu else 10)
+            or cols_rows.data_ptr() % 16 or n_subs % n_chunks):
+        raise ValueError(f"{what} kernel: coefficient table and boxes do not match")
+    sub = CHUNK_TRIS * n_chunks // n_subs
+    if mxu:
+        _check_mxu_shape(what, lib, cols_rows, tile_rays, sub)
     if stats is not None:
-        _check_inputs("mt_cond", (stats, torch.int32), device=dev)
+        _check_inputs(what, (stats, torch.int32), device=dev)
         if stats.shape != (n_tiles, 2):
-            raise ValueError("mt_cond kernel: walk stats must be a (T, 2) int32 tensor")
+            raise ValueError(f"{what} kernel: walk stats must be a (T, 2) int32 tensor")
     out = _outputs(phi_pad.shape[1], dev)
-    err = lib.tpt_mt_cond(
+    err = (lib.tpt_mt_cond_mxu if mxu else lib.tpt_mt_cond)(
         *map(_ptr, (phi_pad, cols_rows, chunk_boxes, sub_boxes, *out, stats)),
-        phi_pad.shape[1], tile_rays, n_tiles, n_chunks, CHUNK_TRIS * n_chunks // n_subs,
-        _stream(dev))
+        phi_pad.shape[1], tile_rays, n_tiles, n_chunks, sub, _stream(dev))
     if err:
-        raise RuntimeError(f"mt_cond kernel launch failed: {_build.error_string(err)}")
+        raise RuntimeError(f"{what} kernel launch failed: {_build.error_string(err)}")
     return out
+
+
+def _mma_prepare(prepare):
+    """`prepare` with the coefficient table repacked for the MXU kernels."""
+    def prep(tri_pos, phi_t, tile_rays, sub: int = SUB_TRIS):
+        phi_pad, cols_rows, *rest = prepare(tri_pos, phi_t, tile_rays, sub)
+        return (phi_pad, _pack_mma(cols_rows, sub), *rest)
+
+    return prep
 
 
 def _intersect(tri_pos, phi_t, tile_rays, walk, prepare=_prepare, **prep_kw) -> Hit:
@@ -473,30 +585,181 @@ def mt_intersect_cond_phi(tri_pos, phi_t, *, tile_rays=None, sub=None) -> Hit:
 mt_intersect_cond_phi.launches = 0
 
 
-def cond_walk_stats(tri_pos, phi_t, *, tile_rays=None, sub=None, plain: bool = False):
-    """Per-tile walk counts of the 'cond' kernel (or, with `plain=True` or
-    a CPU tensor, of its plain version) on these inputs: (T, 2) int32,
-    [chunks live, subs evaluated].  Kernel and plain version must agree on
-    them exactly.  Launches made here are not counted."""
-    prep = _prepare_cond(tri_pos, phi_t, tile_rays, _sub_tris(sub))
+# --- the MXU variants (kernel #5) ------------------------------------------
+
+_MXU_WALKS = {  # cull -> (prepare, plain walk, CUDA walk)
+    "nf": (_prepare, _walk_plain, _walk_cuda),
+    "list": (_prepare_list, _walk_list_plain, _walk_list_cuda),
+    "cond": (_prepare_cond, _walk_cond_plain, _walk_cond_cuda),
+}
+
+
+def _mxu_plain(cull: str, tri_pos, phi_t, tile_rays, sub) -> Hit:
+    prepare, walk, _ = _MXU_WALKS[cull]
+    return _intersect(tri_pos, phi_t, tile_rays, functools.partial(walk, mxu=True), prepare,
+                      sub=_sub_tris(sub))
+
+
+def _mxu_kernel(cull: str, wrapper, tri_pos, phi_t, tile_rays, sub) -> Hit:
+    if not _launches_kernel(phi_t):
+        return _mxu_plain(cull, tri_pos, phi_t, tile_rays, sub)
+    prepare, _, walk = _MXU_WALKS[cull]
+    return _intersect(tri_pos, phi_t, tile_rays,
+                      _counted(wrapper, functools.partial(walk, mxu=True)),
+                      _mma_prepare(prepare), sub=_sub_tris(sub))
+
+
+def mt_intersect_nf_mxu_phi_plain(tri_pos, phi_t, *, tile_rays=None, sub=None) -> Hit:
+    """Plain PyTorch version of the 'nf' kernel's MXU variant, on any device:
+    the 'nf' walk with each sub-treelet's determinants as one float32 matrix
+    product (TF32 off)."""
+    return _mxu_plain("nf", tri_pos, phi_t, tile_rays, sub)
+
+
+def mt_intersect_nf_mxu_phi(tri_pos, phi_t, *, tile_rays=None, sub=None) -> Hit:
+    """`mt_intersect_nf_phi` with the determinants on the tensor cores
+    (3xTF32).  A CUDA tensor launches the kernel (counted in
+    `mt_intersect_nf_mxu_phi.launches`); a CPU tensor runs the plain version."""
+    return _mxu_kernel("nf", mt_intersect_nf_mxu_phi, tri_pos, phi_t, tile_rays, sub)
+
+
+mt_intersect_nf_mxu_phi.launches = 0
+
+
+def mt_intersect_list_mxu_phi_plain(tri_pos, phi_t, *, tile_rays=None, sub=None) -> Hit:
+    """Plain PyTorch version of the 'list' kernel's MXU variant."""
+    return _mxu_plain("list", tri_pos, phi_t, tile_rays, sub)
+
+
+def mt_intersect_list_mxu_phi(tri_pos, phi_t, *, tile_rays=None, sub=None) -> Hit:
+    """`mt_intersect_list_phi` with the determinants on the tensor cores
+    (counted in `mt_intersect_list_mxu_phi.launches`)."""
+    return _mxu_kernel("list", mt_intersect_list_mxu_phi, tri_pos, phi_t, tile_rays, sub)
+
+
+mt_intersect_list_mxu_phi.launches = 0
+
+
+def mt_intersect_cond_mxu_phi_plain(tri_pos, phi_t, *, tile_rays=None, sub=None) -> Hit:
+    """Plain PyTorch version of the 'cond' kernel's MXU variant."""
+    return _mxu_plain("cond", tri_pos, phi_t, tile_rays, sub)
+
+
+def mt_intersect_cond_mxu_phi(tri_pos, phi_t, *, tile_rays=None, sub=None) -> Hit:
+    """`mt_intersect_cond_phi` with the determinants on the tensor cores
+    (counted in `mt_intersect_cond_mxu_phi.launches`)."""
+    return _mxu_kernel("cond", mt_intersect_cond_mxu_phi, tri_pos, phi_t, tile_rays, sub)
+
+
+mt_intersect_cond_mxu_phi.launches = 0
+
+
+def cond_walk_stats(tri_pos, phi_t, *, tile_rays=None, sub=None, plain: bool = False,
+                    mxu: bool = False):
+    """Per-tile walk counts of the 'cond' kernel, or with `mxu` of its MXU
+    variant (or, with `plain=True` or a CPU tensor, of its plain version)
+    on these inputs: (T, 2) int32, [chunks live, subs evaluated].  The FP32
+    kernel and its plain version agree on them exactly.  Launches made here
+    are not counted."""
+    sub = _sub_tris(sub)
+    plain = plain or phi_t.device.type == "cpu"
+    prepare = _mma_prepare(_prepare_cond) if mxu and not plain else _prepare_cond
+    prep = prepare(tri_pos, phi_t, tile_rays, sub)
     stats = torch.zeros((prep[0].shape[1] // prep[-1], 2), dtype=torch.int32,
                         device=phi_t.device)
-    walk = _walk_cond_plain if plain or phi_t.device.type == "cpu" else _walk_cond_cuda
-    walk(*prep, stats=stats)
+    walk = _walk_cond_plain if plain else _walk_cond_cuda
+    walk(*prep, stats=stats, mxu=mxu)
     return stats
 
 
+def _pair_terms(tri_pos, phi_t, tri, lanes):
+    """The four determinants [a, ua, va, ta] of these lanes against their
+    triangles `tri`, recomputed in float64, and the sums of their terms'
+    magnitudes (the scale float32 rounding errors are relative to): each
+    (4, L)."""
+    cols = triangle_columns(tri_pos[tri.clamp(min=0).long()].double())  # (10, 4, L)
+    terms = cols * phi_t[:, lanes].double()[:, None, :]
+    return terms.sum(dim=0), terms.abs().sum(dim=0)
+
+
+def hit_agreement(tri_pos, phi_t, ha: Hit, hb: Hit, *, tol: float = 1e-4,
+                  t_rel: float = 1e-5, margin_rel: float = 1e-5) -> dict:
+    """How two `Hit`s of the same rays agree when their determinants were
+    summed in different orders (the MXU variants against their plain
+    versions or the FP32 kernels), measured against float64.
+
+    A lane whose hit or triangle differs should be a near-tie (both hit, t
+    within `t_rel` relative), an edge (a triangle either took has a
+    barycentric validity margin, us, vs or |a|-us-vs, within `margin_rel`
+    of the magnitude of its terms) or a floor lane (its t test, ts against
+    EPSILON*|a|, as close: mostly a ray re-hitting the surface it starts
+    on).  On the lanes where both hit the same triangle, t, u and v are
+    compared relative to the magnitude their sums are conditioned by:
+    (sum of |numerator terms| + |value| * sum of |a's terms|) / |a|, which is
+    about |value| except at grazing angles, where a cancels.
+
+    Returns counts ("differ", "near_ties", "edges", "floor", and "other"
+    for the rest), "t_err" and "uv_err" (the largest such differences), and
+    "ok", the MXU rule: no "other" lane, at most 0.1% of the lanes differ
+    other than floor lanes, at most 0.3% are floor lanes, and t_err and
+    uv_err <= `tol`.  Floor lanes are held apart because rays that leave a
+    surface re-hit it at t about 0, where the EPSILON test is decided by
+    rounding (primary rays have none; the headline scene's first bounce on
+    an H100 has 0.13%).  A kernel whose t test drops EPSILON (ts > 0) fails
+    the rule (`test_mxu_rule_catches_a_dropped_epsilon_test`)."""
+    eps = float(EPSILON)
+    differ = (ha.hit != hb.hit) | (ha.tri != hb.tri)
+    lanes = differ.nonzero().squeeze(1)
+    both = ha.hit[lanes] & hb.hit[lanes]
+    ta, tb = ha.t[lanes].double(), hb.t[lanes].double()
+    near = both & ((ta - tb).abs() <= t_rel * torch.maximum(ta.abs(), tb.abs()))
+    on_edge = torch.zeros_like(near)
+    on_floor = torch.zeros_like(near)
+    for h in (ha, hb):
+        (a, ua, va, t_a), (sa_, su, sv, st) = _pair_terms(tri_pos, phi_t, h.tri[lanes], lanes)
+        sign = torch.sign(a)
+        us, vs, ts, abs_a = ua * sign, va * sign, t_a * sign, a.abs()
+        margin = torch.minimum(torch.minimum(us, vs), abs_a - us - vs).abs()
+        on_edge |= h.hit[lanes] & (margin <= margin_rel * (sa_ + su + sv))
+        on_floor |= h.hit[lanes] & ((ts - eps * abs_a).abs() <= margin_rel * (st + eps * sa_))
+
+    same = ha.hit & hb.hit & ~differ
+    t_err = uv_err = 0.0
+    if bool(same.any()):
+        idx = same.nonzero().squeeze(1)
+        (a, _, _, _), scales = _pair_terms(tri_pos, phi_t, ha.tri[idx], idx)
+        abs_a = a.abs()
+
+        def err(x, y, q):  # q: the numerator's row of `scales`
+            x, y = x[idx].double(), y[idx].double()
+            scale = (scales[q] + x.abs() * scales[0]) / abs_a
+            return float(((x - y).abs() / scale).max())
+
+        t_err = err(ha.t, hb.t, 3)
+        uv_err = max(err(ha.u, hb.u, 1), err(ha.v, hb.v, 2))
+    out = {"lanes": int(ha.hit.numel()), "differ": int(lanes.numel()),
+           "near_ties": int(near.sum()), "edges": int((~near & on_edge).sum()),
+           "floor": int((~near & ~on_edge & on_floor).sum()),
+           "other": int((~near & ~on_edge & ~on_floor).sum()),
+           "t_err": t_err, "uv_err": uv_err}
+    out["ok"] = (out["other"] == 0 and out["differ"] - out["floor"] <= 1e-3 * out["lanes"]
+                 and out["floor"] <= 3e-3 * out["lanes"] and t_err <= tol and uv_err <= tol)
+    return out
+
+
 _ROUTES = {
-    "nf": (mt_intersect_nf_phi, mt_intersect_nf_phi_plain),
-    "list": (mt_intersect_list_phi, mt_intersect_list_phi_plain),
-    "cond": (mt_intersect_cond_phi, mt_intersect_cond_phi_plain),
+    ("nf", False): (mt_intersect_nf_phi, mt_intersect_nf_phi_plain),
+    ("list", False): (mt_intersect_list_phi, mt_intersect_list_phi_plain),
+    ("cond", False): (mt_intersect_cond_phi, mt_intersect_cond_phi_plain),
+    ("nf", True): (mt_intersect_nf_mxu_phi, mt_intersect_nf_mxu_phi_plain),
+    ("list", True): (mt_intersect_list_mxu_phi, mt_intersect_list_mxu_phi_plain),
+    ("cond", True): (mt_intersect_cond_mxu_phi, mt_intersect_cond_mxu_phi_plain),
 }
 
 
 def _pallas2(plain: bool, tri_pos, phi_t, tile_rays, cull, sub, mxu_dets) -> Hit:
     tile_rays = _tile_rays(tile_rays)
-    _mxu_dets(mxu_dets)
-    kernel, plain_fn = _ROUTES[_cull_mode(cull)]
+    kernel, plain_fn = _ROUTES[_cull_mode(cull), _mxu_dets(mxu_dets)]
     return (plain_fn if plain else kernel)(tri_pos, phi_t, tile_rays=tile_rays,
                                            sub=_sub_tris(sub))
 
@@ -504,8 +767,9 @@ def _pallas2(plain: bool, tri_pos, phi_t, tile_rays, cull, sub, mxu_dets) -> Hit
 def mt_intersect_pallas2_phi(tri_pos, phi_t, *, tile_rays=None, cull=None, sub=None,
                              mxu_dets=None) -> Hit:
     """Whole-scene MT intersection of (10, R) ray features against (N, 9)
-    packed triangle rows through the kernel `cull` selects ('nf', 'list'
-    or 'cond'; see the module docstring for how each option resolves)."""
+    packed triangle rows through the kernel `cull` and `mxu_dets` select
+    ('nf', 'list' or 'cond', each with FP32 or MXU determinants; see the
+    module docstring for how each option resolves)."""
     return _pallas2(False, tri_pos, phi_t, tile_rays, cull, sub, mxu_dets)
 
 

@@ -10,19 +10,25 @@ Renderer's public contract, src/renderer.ts:20-533):
     image persists and can be displayed while paused;
   * events reset/start/pause/progress/complete, `progress = frame /
     (frames + 1)`;
+  * per-pass timing meters (raytrace / accumulate / fullscreen) with
+    `enable_timing`, timed on the device (`render.timing.PassTimer`);
+  * checkpoints: `save_state` / `load_state` write and read the JAX
+    package's npz (acc, frame, frames, spp, with its dtypes), so a render
+    saved by one package resumes in the other; `render_all` can save one
+    every N frames;
   * the device scene is recompiled only when `scene.needs_update` is set.
 
 Everything lives on the `device` the constructor is given, the card unless
 the caller asks for the CPU.  `RenderConfig.intersector` chooses the
 intersector as `ops.trace.resolve_intersector` does: 'auto' takes the MT
 kernels up to 262,144 padded triangles and the fat-leaf BVH walk ('bvh8')
-above.  Not ported yet (ROADMAP.md): sharding (`shard`), env importance
-sampling, per-pass timing meters and checkpoints (`save_state` /
-`load_state`).
+above.  Not ported yet (ROADMAP.md): sharding (`shard`) and env importance
+sampling.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -33,23 +39,43 @@ from ..ops.trace import accumulate, render_frame, resolve_intersector
 from ..post.pipeline import postprocess
 from ..scene.host import Scene
 from ..scene.types import Camera, RenderParams, SceneData
+from .timing import PassTimer
 
 Event = str  # 'reset' | 'start' | 'pause' | 'progress' | 'complete'
+
+
+def make_passes(width: int, height: int, aspect: float, samples_per_frame: int,
+                max_bounces: int, accumulate_frames: bool, intersector: str = "auto",
+                sort_bounces=None, tile_rays=None):
+    """The progressive frame's two passes: raytrace (scene, params) -> frame
+    image, and accumulate (acc, image, frame) -> acc, folding the image into
+    `acc` in place (the JAX step donates its accumulator, so nothing else
+    holds it)."""
+
+    def raytrace(scene: SceneData, params: RenderParams) -> torch.Tensor:
+        return render_frame(
+            scene, params, width=width, height=height, aspect=aspect,
+            samples_per_frame=samples_per_frame, max_bounces=max_bounces,
+            intersector=intersector, sort_bounces=sort_bounces, tile_rays=tile_rays,
+        )
+
+    def accumulate_pass(acc: torch.Tensor, img: torch.Tensor, frame: int) -> torch.Tensor:
+        return accumulate(acc, img, frame, enabled=accumulate_frames, out=acc)
+
+    return raytrace, accumulate_pass
 
 
 def make_frame_step(width: int, height: int, aspect: float, samples_per_frame: int,
                     max_bounces: int, accumulate_frames: bool, intersector: str = "auto",
                     sort_bounces=None, tile_rays=None):
-    """The progressive step: render one frame and fold it into `acc` in place
-    (the JAX step donates its accumulator, so nothing else holds it)."""
+    """The progressive step: render one frame and fold it into `acc` in
+    place (`make_passes` run back to back)."""
+    raytrace, accumulate_pass = make_passes(
+        width, height, aspect, samples_per_frame, max_bounces, accumulate_frames, intersector,
+        sort_bounces, tile_rays)
 
     def step(scene: SceneData, params: RenderParams, acc: torch.Tensor) -> torch.Tensor:
-        frame_img = render_frame(
-            scene, params, width=width, height=height, aspect=aspect,
-            samples_per_frame=samples_per_frame, max_bounces=max_bounces,
-            intersector=intersector, sort_bounces=sort_bounces, tile_rays=tile_rays,
-        )
-        return accumulate(acc, frame_img, params.frame, enabled=accumulate_frames, out=acc)
+        return accumulate_pass(acc, raytrace(scene, params), params.frame)
 
     return step
 
@@ -67,10 +93,6 @@ class Renderer:
         enable_timing: bool = False,
         shard=None,
     ) -> None:
-        if env_importance:
-            raise NotImplementedError("env importance sampling is not ported yet (ROADMAP.md)")
-        if enable_timing:
-            raise NotImplementedError("per-pass timing is not ported yet (ROADMAP.md)")
         if shard is not None:
             raise NotImplementedError("sharded rendering is not ported yet (ROADMAP.md)")
         self.device = torch.device(device)
@@ -78,10 +100,16 @@ class Renderer:
         self.camera = camera.to(self.device)
         self._config = config
         self.post = post
+        self.env_importance = False
+        self.set_env_importance(env_importance)
+        self.enable_timing = bool(enable_timing)
         self.status: str = "idle"
         self._frame: int = 1
         self.env_intensity: float = 1.0
         self.env_rotation: float = 0.0
+        self.timings: Dict[str, PassTimer] = {
+            name: PassTimer(name, self.device) for name in ("raytrace", "accumulate", "fullscreen")
+        }
         self._listeners: Dict[Event, List[Callable]] = {}
         self._scene_data: Optional[SceneData] = None
         self._rebuild()
@@ -105,18 +133,47 @@ class Renderer:
         if c.sort_window:
             raise NotImplementedError("windowed binning sort is not ported yet (ROADMAP.md)")
         resolve_intersector(c.intersector, 0)  # rejects unknown names
-        self._step = make_frame_step(
+        self._raytrace, self._accumulate = make_passes(
             c.scaled_width, c.scaled_height, aspect=c.width / c.height,
             samples_per_frame=c.samples_per_frame, max_bounces=c.max_bounces,
             accumulate_frames=c.accumulate, intersector=c.intersector,
             sort_bounces=c.sort_bounces, tile_rays=c.tile_rays,
         )
+        self._timed_warm = False
         self._acc = self._zero_acc()
 
     def _zero_acc(self) -> torch.Tensor:
         c = self._config
         return torch.zeros((c.scaled_height, c.scaled_width, 3), dtype=torch.float32,
                            device=self.device)
+
+    # convenience setters mirroring the reference UI's bindings; each resets
+    # the progressive render as the reference does.
+    def set_option(self, **kwargs) -> None:
+        cfg_fields = {f.name for f in dataclasses.fields(RenderConfig)}
+        cfg_updates = {k: v for k, v in kwargs.items() if k in cfg_fields}
+        if cfg_updates:
+            self.config = dataclasses.replace(self._config, **cfg_updates)
+        post_fields = {f.name for f in dataclasses.fields(PostConfig)}
+        post_updates = {k: v for k, v in kwargs.items() if k in post_fields}
+        if post_updates:
+            self.post = dataclasses.replace(self.post, **post_updates)
+        for k in set(kwargs) - set(cfg_updates) - set(post_updates):
+            if k in ("env_intensity", "env_rotation"):
+                setattr(self, k, float(kwargs[k]))
+                self.reset()
+            else:
+                raise AttributeError(f"unknown option {k}")
+
+    def set_env_importance(self, enabled: bool) -> None:
+        """Env CDF importance sampling: not ported yet, so turning it on
+        raises."""
+        if enabled:
+            raise NotImplementedError("env importance sampling is not ported yet (ROADMAP.md)")
+
+    def set_timing(self, enabled: bool) -> None:
+        """Toggle the per-pass timing meters."""
+        self.enable_timing = bool(enabled)
 
     # ------------------------------------------------------------- events
 
@@ -189,16 +246,38 @@ class Renderer:
         self._compile_scene()
         if not (self.status == "sampling" and self._frame <= self._config.frames):
             return
-        self._step(self._scene_data, self._params(), self._acc)
+        params = self._params()
+        if self.enable_timing:
+            if not self._timed_warm:
+                # One untimed run first, so that the rolling averages hold
+                # steady-state numbers (the first launch builds the kernels);
+                # its result is dropped, the accumulation is untouched.
+                accumulate(self._acc, self._raytrace(self._scene_data, params), params.frame,
+                           enabled=self._config.accumulate)
+                self._timed_warm = True
+            img = self.timings["raytrace"].time_device(self._raytrace, self._scene_data, params)
+            self.timings["accumulate"].time_device(self._accumulate, self._acc, img,
+                                                   params.frame)
+        else:
+            self._accumulate(self._acc, self._raytrace(self._scene_data, params), params.frame)
         self.frame = self._frame + 1
         self.emit("progress", self.progress)
 
-    def render_all(self) -> torch.Tensor:
-        """Run the full progressive budget; returns the raw accumulation."""
+    def render_all(self, *, checkpoint_path: Optional[str] = None,
+                   checkpoint_every: int = 0) -> torch.Tensor:
+        """Run the full progressive budget; returns the raw accumulation.
+        With `checkpoint_path` and `checkpoint_every=N` the state is saved
+        every N frames and at the end, so a render that is stopped resumes
+        from its last checkpoint through `load_state`."""
         if self.status == "idle":
             self.reset()
         while self.status == "sampling" and self._frame <= self._config.frames:
             self.render()
+            if (checkpoint_path and checkpoint_every
+                    and (self._frame - 1) % checkpoint_every == 0):
+                self.save_state(checkpoint_path)
+        if checkpoint_path and checkpoint_every:
+            self.save_state(checkpoint_path)
         return self.accumulation
 
     # ------------------------------------------------------------- output
@@ -212,10 +291,31 @@ class Renderer:
         """Post-processed display image at full resolution (upscale ->
         denoise -> tonemap)."""
         c = self._config
-        return postprocess(self._acc, self.post, c.height, c.width)
+
+        def run():
+            return postprocess(self._acc, self.post, c.height, c.width)
+
+        if self.enable_timing:
+            return self.timings["fullscreen"].time_device(run)
+        return run()
 
     def screenshot(self, path: str) -> None:
         """Save the display image as PNG (reference: canvas.toDataURL)."""
         from ..io.image import write_png
 
         write_png(path, np.asarray(self.display().cpu()), flip_vertical=True)
+
+    # ------------------------------------------------------------- resume
+
+    def save_state(self, path: str) -> None:
+        """Checkpoint the progressive render (accumulation and frame
+        counter) as the JAX package's npz: acc (h, w, 3) float32, frame,
+        frames and spp as integers."""
+        np.savez(path, acc=self._acc.detach().cpu().numpy(), frame=self._frame,
+                 frames=self._config.frames, spp=self._config.samples_per_frame)
+
+    def load_state(self, path: str) -> None:
+        data = np.load(path)
+        self._acc = torch.from_numpy(np.ascontiguousarray(data["acc"], np.float32)).to(self.device)
+        self._frame = int(data["frame"])
+        self.status = "sampling" if self._frame <= self._config.frames else "idle"
