@@ -43,6 +43,22 @@ public entry points:
     headline shape, `render` with --timing, --checkpoint and --resume
     (equal to a fresh render bit for bit), and `render --env sky:...`.
 
+The near-to-far and streamed walks are Hopper redesigns (csrc/nf_walk.cu,
+csrc/stream_walk.cu).  Their walk phase holds each, its first
+design (`_walk_cuda_v1`) and every measured step of the redesign (packed
+table and rays a thread, bulk-copy prefetch, decisions by mask, a thread
+block cluster a tile, a ray's triangles split over lanes; the sweep of
+rays a thread x cluster x lanes a ray) bit for bit to the
+plain walk with equal per-tile walk counts, on the headline scene (nf and
+streamed) and the stress scene (streamed), primary and first-bounce rays;
+prints each case's per-tile walk distribution (mean, max, the five
+heaviest tiles), the old and kept walks timed in turns (old, kept, kept,
+old), the table repack timed apart, every step's time, the walk bound (the
+walk's own pairs and slab tests) and the critical-path bound (the heaviest
+tile's work over the FP32 share of the SMs it runs on), and the kept
+designs' registers, shared memory and CTAs per SM.  The nf walk counts are
+also held to the plain walk's at sub 32, 64 and 128.
+
 For each path it checks that the path's kernels were launched in that run
 (and the other MT kernels not), that what comes out is right (images
 finite and in [0, 1], a frame through the kernels matching the same frame
@@ -125,6 +141,37 @@ def _card() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def _ptxas_summary(log: str) -> list:
+    """One line per compiled kernel of the build log: its name with the
+    template arguments (`<1,64,1>`: RPT 1, SUB 64, ...), registers,
+    shared memory and spills, as ptxas -v reports them."""
+    import re
+
+    def short(mangled):  # the last <length><name>IL...E of the mangled name
+        found = mangled
+        for i in range(len(mangled)):
+            for k in (1, 2):
+                if not mangled[i:i + k].isdigit():
+                    continue
+                start, end = i + k, i + k + int(mangled[i:i + k])
+                args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[end:])
+                if args and mangled[start:end].isidentifier():
+                    found = (mangled[start:end] + "<"
+                             + ",".join(re.findall(r"\d+", args.group(1))) + ">")
+        return found
+
+    lines, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            name = short(line.split("'")[1])
+        elif name and "spill" in line:
+            spill = line.split(":")[-1].strip()
+        elif name and "Used" in line:
+            lines.append(f"{name}: {line.split(':')[-1].strip()}; {spill}")
+            name = None
+    return lines
 
 
 def _time_ms(fn, warmup: int, reps: int) -> float:
@@ -408,6 +455,14 @@ def _cull_phase(mt_shade, tri_pos, rays, results, tag):
                 vs_nf = int(((hk.hit != nf_hits[what].hit) | (hk.tri != nf_hits[what].tri)).sum())
                 results[f"{name}_{what}"]["mismatches_vs_nf"] = vs_nf
                 line = f"{name} {what}: hit/tri mismatches against nf {vs_nf} (information)"
+                if cull == "nf":
+                    sk = mt_shade.nf_walk_stats(tri_pos, phi, sub=sub)
+                    sp = mt_shade.nf_walk_stats(tri_pos, phi, sub=sub, plain=True)
+                    _check(torch.equal(sk, sp), f"{name} {what}: walk counts differ from plain")
+                    results[f"{name}_{what}"].update(subs_evaluated=int(sk.sum()),
+                                                     tile_dist=_tile_dist(sk))
+                    line += (f"; walk counts equal to the plain walk's over {sk.shape[0]} tiles: "
+                             f"{int(sk.sum())} subs evaluated, {_tile_dist(sk)}")
                 if cull == "cond":
                     sk = mt_shade.cond_walk_stats(tri_pos, phi, sub=sub)
                     sp = mt_shade.cond_walk_stats(tri_pos, phi, sub=sub, plain=True)
@@ -423,7 +478,8 @@ def _cull_phase(mt_shade, tri_pos, rays, results, tag):
             walk_ms = _time_ms(lambda: walk_k(*prep), 3, 20)
             walk_plain_ms = _time_ms(lambda: walk_p(*prep), 1, 3)
             results[f"{name}_walk_ms"], results[f"{name}_walk_plain_ms"] = walk_ms, walk_plain_ms
-            print(f"timing {tag}: {name} primary kernel walk {walk_ms:.3f} ms, plain walk "
+            print(f"timing {tag}: {name} primary kernel walk{' and repack' * (cull == 'nf')} "
+                  f"{walk_ms:.3f} ms, plain walk "
                   f"{walk_plain_ms:.3f} ms")
             del prep
         phi = rays["primary"][0]
@@ -910,6 +966,200 @@ def _mxu_phase(mt_shade, tri_pos, rays, results, tag):
     return out
 
 
+H100_SMS = 132  # streaming multiprocessors of the H100 SXM
+V1_MAX_TILE = 4096  # the first walks' widest tile (8 rays a thread x 512)
+
+
+def _tile_dist(counts):
+    """Mean, max and the five heaviest tiles (index, count) of per-tile
+    walk counts (T,)."""
+    top = counts.double().topk(min(5, counts.numel()))
+    return dict(mean=float(counts.double().mean()), max=int(counts.max()),
+                tiles_walking=int((counts > 0).sum()), tiles=int(counts.numel()),
+                heaviest=[(int(i), int(v)) for v, i in zip(top.values, top.indices)])
+
+
+def _walk_work(kind, stats, tile_rays, sub):
+    """FP32 operations of a walk per tile (T,), from its walk counts: the
+    pairs of the evaluated subs (PAIR_OPS_NF each) and, for the streamed
+    walk, its slab tests (16 chunk boxes per walked super, 4 sub boxes per
+    staged chunk, SLAB_OPS each), every lane of the tile."""
+    s = stats.double()
+    if kind == "nf":
+        return s * sub * tile_rays * PAIR_OPS_NF
+    return (s[:, 2] * sub * PAIR_OPS_NF + (s[:, 0] * 16 + s[:, 1] * 4) * SLAB_OPS) * tile_rays
+
+
+def _walk_bounds(kind, stats, tile_rays, sub, n_tris, n_rays, cluster):
+    """(walk bound ms, its binding term, critical-path bound ms): the walk's
+    own work over the FP32 peak against its bytes over the HBM rate; the
+    heaviest tile's work over the FP32 peak share of the `cluster` SMs it
+    runs on (67 TFLOP/s / 132 SMs each)."""
+    work = _walk_work(kind, stats, tile_rays, sub)
+    walk_ms, by = _bound(float(work.sum()), _mt_bytes(n_tris, n_rays, 20))
+    critical_ms = float(work.max()) / (H100_FP32 / H100_SMS * cluster) * 1e3
+    return walk_ms, by, critical_ms
+
+
+def _sass_loads(lib_path: Path, kernels: dict, dump_dir=None) -> dict:
+    """Shared-memory loads of each kernel's pair loop in the built library,
+    from `cuobjdump -sass`.  The pair loop is the shortest loop (a branch
+    back to an earlier address) that evaluates a pair: each pair takes one
+    reciprocal (`__frcp_rn`, one MUFU.RCP), so pairs = MUFU.RCP count.
+    Returns the loop's LDS instructions by width and LDS per pair.
+    `kernels`: {label: substring of the mangled name}; each kernel's SASS
+    is written to `dump_dir` if given."""
+    import os
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    funcs = re.split(r"\n\s*Function : ", sass)[1:]
+
+    def count(pattern, lines):
+        return sum(len(re.findall(pattern, line)) for line in lines)
+
+    out = {}
+    for label, pattern in kernels.items():
+        body = next((f for f in funcs if pattern in f.split("\n", 1)[0]), None)
+        _check(body is not None, f"sass: no kernel matching {pattern}")
+        if dump_dir is not None:
+            dump_dir.mkdir(parents=True, exist_ok=True)
+            (dump_dir / f"sass_{label}.txt").write_text(body)
+        lines, at, loop = body.splitlines(), {}, None
+        for i, line in enumerate(lines):
+            here = re.match(r"\s*/\*([0-9a-f]+)\*/", line)
+            if not here:
+                continue
+            at[int(here.group(1), 16)] = i
+            back = re.search(r"\bBRA\b[^;]*\b0x([0-9a-f]+)\s*;", line)
+            if back and int(back.group(1), 16) in at:  # a branch to an earlier address
+                span = lines[at[int(back.group(1), 16)]:i + 1]
+                if count(r"\bMUFU\.RCP\b", span) and (loop is None or len(span) < len(loop)):
+                    loop = span
+        _check(loop is not None, f"sass: no pair loop in {label}")
+        widths = {}
+        for m in re.finditer(r"\bLDS((?:\.\w+)*)", "\n".join(loop)):
+            w = "128" if ".128" in m.group(1) else "64" if ".64" in m.group(1) else "32"
+            widths[w] = widths.get(w, 0) + 1
+        lds, pairs = sum(widths.values()), count(r"\bMUFU\.RCP\b", loop)
+        out[label] = dict(lds=lds, lds_by_bits=widths, pairs=pairs, lds_per_pair=lds / pairs)
+    return out
+
+
+def _walk_cases(tri_pos, rays, s_tri, s_rays):
+    """The walk phase's cases: the nf walk on the headline scene, the
+    streamed walk on the headline and the stress scene, each on primary
+    and first-bounce rays (nf cannot take the stress scene's 131,072
+    triangles)."""
+    cases = {}
+    for what in ("primary", "bounce1"):
+        cases[f"nf_headline_{what}"] = ("nf", tri_pos, rays[what][0])
+        cases[f"stream_headline_{what}"] = ("stream", tri_pos, rays[what][0])
+        cases[f"stream_stress_{what}"] = ("stream", s_tri, s_rays[what][0])
+    return cases
+
+
+def _walk_phase(mt_shade, mt_stream, cases, results, tag):
+    """The Hopper redesigns of #1 (csrc/nf_walk.cu) and #3
+    (csrc/stream_walk.cu) on each case (kernel, scene, rays): the kept
+    design, the first design (`_walk_cuda_v1`) and every measured
+    step (`NF_WALK_VARIANTS` at sub 64, `WALK_VARIANTS`) held bit for bit
+    to the plain walk, with equal per-tile walk counts; the per-tile walk
+    distribution; the repack (`_pack_walk_table`) timed apart; the old and
+    kept walks timed in turns (old, kept, kept, old); every step timed
+    (the RPT x cluster sweep); the walk and critical-path bounds.  Returns
+    {case: summary}."""
+    import torch
+
+    shapes = {"nf": mt_shade.walk_shape("tpt_mt_nf_shape", mt_shade.SUB_TRIS, 512),
+              "stream": mt_shade.walk_shape("tpt_mt_stream_shape", 512)}
+    for kind, shape in shapes.items():
+        print(f"walk {kind} kept design at a 512-ray tile: {shape}")
+        results[f"walk_{kind}_shape"] = shape
+    out = {}
+    for key, (kind, tri_pos, phi) in cases.items():
+        module = mt_shade if kind == "nf" else mt_stream
+        if kind == "nf":
+            sub = mt_shade.SUB_TRIS
+            prep = mt_shade._prepare(tri_pos, phi, None, sub)
+            stats_shape, variants = (prep[3].shape[0],), mt_shade.NF_WALK_VARIANTS
+            head, tail = prep[:1], prep[2:5]
+        else:
+            sub = mt_stream.SUB_TRIS
+            prep = mt_stream._prepare(tri_pos, phi, None)
+            stats_shape, variants = (prep[5].shape[0], 3), mt_stream.WALK_VARIANTS
+            head, tail = prep[:1], prep[2:7]
+        tile = prep[-1]
+        table = mt_shade._pack_walk_table(prep[1], sub)
+        sp = torch.zeros(stats_shape, dtype=torch.int32, device=phi.device)
+        hp = module._walk_plain(*prep, stats=sp)
+
+        def table_walk(variant=None, stats=None):
+            return module._walk_table_cuda(*head, table, *tail, tile, stats=stats,
+                                           variant=variant)
+
+        def check(what, hits, stats=None):
+            _check(all(torch.equal(a, b) for a, b in zip(hits, hp)),
+                   f"walk {key} {what}: hits differ from the plain walk's")
+            _check(stats is None or torch.equal(stats, sp),
+                   f"walk {key} {what}: walk counts differ from the plain walk's")
+
+        sk = torch.zeros_like(sp)
+        check("kept", table_walk(stats=sk), sk)
+        v1 = tile <= V1_MAX_TILE
+        if v1:
+            sv = torch.zeros_like(sp) if kind == "stream" else None
+            check("v1", module._walk_cuda_v1(*prep, **({"stats": sv} if sv is not None else {})),
+                  sv)
+        torch.cuda.synchronize()
+        evaluated = sp if kind == "nf" else sp[:, 2]
+        dist = {"subs": _tile_dist(evaluated)}
+        if kind == "stream":
+            dist.update(supers=_tile_dist(sp[:, 0]), chunks=_tile_dist(sp[:, 1]))
+        heavy = int(evaluated.argmax())
+
+        times = {"v1": [], "kept": []}
+        for which in (("v1", "kept", "kept", "v1") if v1 else ("kept", "kept")):
+            fn = (lambda: module._walk_cuda_v1(*prep)) if which == "v1" else table_walk
+            times[which].append(_time_ms(fn, 3, 20))
+        repack_ms = _time_ms(lambda: mt_shade._pack_walk_table(prep[1], sub), 3, 20)
+        sweep = {}
+        for v in variants:
+            sv = torch.zeros_like(sp)
+            check(f"variant {v}", table_walk(v, sv), sv)
+            sweep[v] = _time_ms(lambda v=v: table_walk(v), 2, 10)
+        cluster = shapes[kind]["cluster"]
+        walk_bound, walk_by, critical = _walk_bounds(kind, sp, tile, sub, tri_pos.shape[0],
+                                                     phi.shape[1], cluster)
+        kept_ms = statistics.mean(times["kept"])
+        v1_ms = statistics.mean(times["v1"]) if v1 else None
+        print(f"walk {key}: {phi.shape[1]} rays, {sp.shape[0]} tiles of {tile}; kept, v1 and "
+              f"every step bit-equal to the plain walk with equal walk counts; per-tile walk "
+              f"{ {k: d for k, d in dist.items()} }; heaviest tile {heavy} counts "
+              f"{sp[heavy].tolist() if kind == 'stream' else int(sp[heavy])}")
+        print(f"timing {tag}: walk {key} in turns: "
+              + (f"v1 {times['v1'][0]:.4f}, " if v1 else "")
+              + f"kept {times['kept'][0]:.4f}, kept {times['kept'][1]:.4f}"
+              + (f", v1 {times['v1'][1]:.4f}" if v1 else "")
+              + f" ms; repack {repack_ms:.4f} ms; walk bound {walk_bound:.5f} ms ({walk_by}), "
+              f"critical-path bound {critical:.5f} ms (heaviest tile over {cluster} SM(s))")
+        print(f"timing {tag}: walk {key} steps (rpt, cluster, bulk copy"
+              + (", mask" if kind == "stream" else "") + ", lanes a ray): "
+              + "; ".join(f"{v} {ms:.4f}" for v, ms in sweep.items()) + " ms")
+        out[key] = dict(kind=kind, tile_rays=tile, times_ms=times, kept_ms=kept_ms, v1_ms=v1_ms,
+                        repack_ms=repack_ms, sweep_ms={str(v): ms for v, ms in sweep.items()},
+                        walk_bound_ms=walk_bound, walk_bound_by=walk_by,
+                        critical_path_bound_ms=critical, distribution=dist,
+                        heaviest_tile=heavy, heaviest_counts=sp[heavy].tolist())
+        results[f"walk_{key}"] = out[key]
+        del prep, table, hp, sp
+    return out
+
+
 def _with_env(values: dict, fn):
     """Run fn() with these environment variables set, then restore them."""
     import os
@@ -1074,6 +1324,12 @@ def main(argv=None) -> int:
     from tpu_pathtracer_torch.ops.kernels import mt_intersect, mt_shade, mt_stream
     from tpu_pathtracer_torch.scene.envmap import gradient_sky
 
+    sys.stdout.reconfigure(line_buffering=True)  # a cut run's log shows how far it got
+    t_start = time.perf_counter()
+
+    def phase(name):
+        print(f"phase {name} from {time.perf_counter() - t_start:.1f} s")
+
     dev = torch.device("cuda")
     card = _card()
     kind = torch.cuda.get_device_name(0)
@@ -1098,12 +1354,12 @@ def main(argv=None) -> int:
     _build.load()
     build_s = time.perf_counter() - t0
     print(f"kernel build: {build_s:.1f} s -> build/tpu_pathtracer_torch/{lib_path.name}")
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
-            print("  ptxas:", line.split("ptxas info    :")[-1].strip())
+    for line in _ptxas_summary(lib_path.with_suffix(".log").read_text()):
+        print("  ptxas:", line)
     results["build_s"] = build_s
 
     # --- headline: near-to-far MT kernel vs plain on the headline rays ------
+    phase("headline")
     scene = pt.default_scene(gradient_sky(64, 128))
     data = scene.compile(device=dev)
     cam = pt.Camera.create(**CAMERA, device=dev)
@@ -1114,6 +1370,7 @@ def main(argv=None) -> int:
                               mt_shade.mt_intersect_nf_phi_plain, results)
 
     # --- cull phase: nf, list and cond at sub 32/64/128 vs plain ---------------
+    phase("cull")
     culls = _cull_phase(mt_shade, tri_pos, rays, results, tag)
     cull_bounds = {cull: _cull_bound(mt_shade, tri_pos, phi_primary, cull) for cull in CULLS}
     for cull, (bound_ms, bound_by) in cull_bounds.items():
@@ -1121,13 +1378,16 @@ def main(argv=None) -> int:
         results[f"mt_{cull}_bound_ms"] = bound_ms
 
     # --- MXU phase: kernel #5, nf/list/cond MXU at sub 32/64/128 vs plain and FP32
+    phase("mxu")
     mxu = _mxu_phase(mt_shade, tri_pos, rays, results, tag)
 
     # --- round-2 phase: mt_intersect_pallas / mt_intersect_stream vs plain ------
+    phase("round-2")
     r2 = _r2_phase(mt_intersect, counters, tri_pos, phi_primary,
                    mt_shade.mt_intersect_nf_phi(tri_pos, phi_primary), results, tag)
 
     # --- denoise phase ------------------------------------------------------
+    phase("denoise")
     den_err = 0.0
     for h, w in ((512, 512), (1080, 1920), (300, 517)):
         img = torch.from_numpy(np.random.default_rng(h + w).random((h, w, 3), np.float32)).to(dev)
@@ -1141,6 +1401,7 @@ def main(argv=None) -> int:
         results[f"denoise_{h}x{w}_max_abs_err"] = err
 
     # --- headline main path: Renderer.render_all() + display() ---------------
+    phase("headline main path")
     config = pt.RenderConfig(width=WIDTH, height=HEIGHT, frames=FRAMES,
                              samples_per_frame=1, max_bounces=BOUNCES)
     print("headline main path:")
@@ -1180,7 +1441,7 @@ def main(argv=None) -> int:
           f"({paths / ms_k / 1e3:.2f} Mpaths/s), plain path {ms_p:.3f} ms "
           f"({paths / ms_p / 1e3:.2f} Mpaths/s)")
     print(f"timing {tag}: mt primary wrapper {mt_ms:.3f} ms (precull {prep_ms:.3f} ms, kernel "
-          f"walk {walk_ms:.3f} ms), plain wrapper {mt_plain_ms:.3f} ms (plain walk "
+          f"walk and repack {walk_ms:.3f} ms), plain wrapper {mt_plain_ms:.3f} ms (plain walk "
           f"{walk_plain_ms:.3f} ms)")
     print(f"timing {tag}: denoise 512x512 kernel {den_ms:.3f} ms, plain {den_plain_ms:.3f} ms "
           f"(bound {den_bound[0]:.4f} ms, {den_bound[1]}); display() {display_ms:.3f} ms")
@@ -1191,16 +1452,20 @@ def main(argv=None) -> int:
         _profile(lambda: trace.render_frame(data, frame_params, **kw), tag, results, "headline")
 
     # --- intersector phase: 'mt', 'bvh', 'bvh8' frames vs the nf frame ----------
+    phase("intersector")
     _intersector_phase(trace, data, frame_params, kw, img_k, counters, results, tag)
     del renderer, img_k, img_p, prep
 
     # --- sweep phase: make_budget under TPT_MXU_DETS=0 / =1 (the MXU main path)
+    phase("sweep")
     mxu_launches = _sweep_phase(pt, data, cam, counters, results, tag)
 
     # --- CLI phase: benchmark, render with checkpoint/resume and timing, sky --
+    phase("cli")
     _cli_phase(results, tag)
 
     # --- stress: streamed MT kernel vs plain on the stress scene's rays ------
+    phase("stress")
     stress = _mesh_scene(pt, STRESS_SEGMENTS)
     t0 = time.perf_counter()
     sdata = stress.compile(device=dev)
@@ -1224,6 +1489,12 @@ def main(argv=None) -> int:
         results[f"mt_stream_{what}"].update(supers_walked=walked, chunks_staged=staged,
                                             subs_evaluated=evaluated)
     results["stress_compile_s"] = compile_s
+
+    # --- walk phase: the Hopper redesigns of #1 and #3, their steps and v1 --
+    phase("walk")
+    walks = _walk_phase(mt_shade, mt_stream, _walk_cases(tri_pos, rays, s_tri, s_rays),
+                        results, tag)
+
     # the streamed round-2 kernel at its cap (131,072 triangles) vs plain
     s_ro, s_rd = s_primary[1:4].T.contiguous(), s_primary[4:7].T.contiguous()
     r2_stats = _r2_check(mt_intersect, "mt_stream_r2", s_tri, s_ro, s_rd,
@@ -1232,6 +1503,7 @@ def main(argv=None) -> int:
                plain_reps=1)
 
     # --- stress main path: Renderer.render_all() + display() -----------------
+    phase("stress main path")
     s_config = pt.RenderConfig(width=WIDTH, height=HEIGHT, frames=STRESS_FRAMES,
                                samples_per_frame=1, max_bounces=STRESS_BOUNCES)
     print("stress main path:")
@@ -1291,7 +1563,7 @@ def main(argv=None) -> int:
           f"({paths / s_ms / 1e3:.3f} Mpaths/s), plain path {s_ms_p:.3f} ms "
           f"({paths / s_ms_p / 1e3:.3f} Mpaths/s)")
     print(f"timing {tag}: mt_stream primary wrapper {st_ms:.3f} ms (precull {st_prep_ms:.3f} ms, "
-          f"kernel walk {st_walk_ms:.3f} ms), plain wrapper {st_plain_ms:.3f} ms (plain walk "
+          f"kernel walk and repack {st_walk_ms:.3f} ms), plain wrapper {st_plain_ms:.3f} ms (plain walk "
           f"{st_walk_plain_ms:.3f} ms); bound {st_bound[0]:.4f} ms ({st_bound[1]})")
     results.update(stress_frame_ms=s_ms, stress_frame_plain_ms=s_ms_p, stream_ms=st_ms,
                    stream_plain_ms=st_plain_ms, stream_walk_ms=st_walk_ms,
@@ -1302,28 +1574,51 @@ def main(argv=None) -> int:
     del s_prep
 
     # --- large-scene main path: Renderer on mesh_scene(640) through bvh8 ------
+    phase("large")
     _large_phase(pt, trace, intersect, counters, results, tag, opts.profile)
 
     # --- training main path: diff.invert, then list/cond/bvh8 gradients --------
+    phase("training")
     cull_launches = _training_phase(pt, counters, results, tag, opts.profile)
+
+    # --- the walks' inner loops in SASS: shared loads a pair, old and new ----
+    phase("sass")
+    nf_shape, st_shape = results["walk_nf_shape"], results["walk_stream_shape"]
+    sass = _sass_loads(lib_path, {
+        "nf_v1": "mt_list_kernelILi1ELi64ELb1EE",
+        "nf": (f"nf_walk_kernelILi64ELi{nf_shape['rpt']}ELi{nf_shape['cluster']}ELb1E"
+               f"Li{nf_shape['tpr']}EE"),
+        "stream_v1": "mt_stream_kernelILi1EE",
+        "stream": (f"stream_walk_kernelILi{st_shape['rpt']}ELi{st_shape['cluster']}ELb1ELb1E"
+                   f"Li{st_shape['tpr']}EE")}, Path(opts.out) if opts.out else None)
+    for label, got in sass.items():
+        print(f"sass {label} (nf at sub 64): pair loop {got}")
+    results["sass_inner_loop"] = sass
 
     def bound(b):
         return {"bound_ms": b[0], "bound_by": b[1], "library_ms": None}
 
+    def walk(key):  # the redesigned walk alone, beside its first design
+        w = walks[key]
+        return {"walk_ms": w["kept_ms"], "v1_walk_ms": w["v1_ms"], "repack_ms": w["repack_ms"],
+                "walk_bound_ms": w["walk_bound_ms"],
+                "critical_path_bound_ms": w["critical_path_bound_ms"]}
+
     r2_src = "tpu_pathtracer_torch/csrc/mt_intersect.cu"
     kernels = [
-        {"name": "mt_nf", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/mt_shade.cu",
+        {"name": "mt_nf", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/nf_walk.cu",
          "replaces": "tpu_pathtracer/ops/pallas/mt_shade.py:308", "launches": launches["mt_nf"],
          "max_abs_err": max(mt_err, culls["nf"][0]), "ms": mt_ms, "plain_ms": mt_plain_ms,
-         **bound(cull_bounds["nf"])},
+         **bound(cull_bounds["nf"]), **walk("nf_headline_primary")},
         {"name": "denoise", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/denoise.cu",
          "replaces": "tpu_pathtracer/ops/pallas/denoise.py:33",
          "launches": launches["denoise"], "max_abs_err": den_err, "ms": den_ms,
          "plain_ms": den_plain_ms, **bound(den_bound)},
-        {"name": "mt_stream", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/mt_stream.cu",
+        {"name": "mt_stream", "route": "cuda",
+         "source": "tpu_pathtracer_torch/csrc/stream_walk.cu",
          "replaces": "tpu_pathtracer/ops/pallas/mt_shade.py:628",
          "launches": s_launches["mt_stream"], "max_abs_err": stream_err, "ms": st_ms,
-         "plain_ms": st_plain_ms, **bound(st_bound)},
+         "plain_ms": st_plain_ms, **bound(st_bound), **walk("stream_stress_primary")},
         *({"name": f"mt_{cull}", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/mt_shade.cu",
            "replaces": f"tpu_pathtracer/ops/pallas/mt_shade.py:{line}",
            "launches": cull_launches[cull], "max_abs_err": culls[cull][0], "ms": culls[cull][1],
@@ -1348,6 +1643,7 @@ def main(argv=None) -> int:
         out_dir = Path(opts.out)
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1))
+    phase("end")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

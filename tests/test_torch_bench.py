@@ -56,16 +56,24 @@ class FakeClock:
         return torch.zeros((4, 4, 3))
 
 
-def _measure(scene, clock, *, device_s_per_frame=None, size=64, profile=True):
+def _measure(scene, clock, *, device_s_per_frame=None, size=64, profile=True, device_fixed_s=0.0,
+             device_ok=lambda call: True, device_calls=None):
+    """`measure_budget` on the fake clock.  The fake `device_time` reports
+    `device_fixed_s + n * device_s_per_frame` for a budget of n frames, and
+    fails on the calls (numbered from 0) where `device_ok` is false; the
+    frame counts it saw go to `device_calls`."""
     data = scene.compile(device="cpu")
+    calls = [] if device_calls is None else device_calls
 
     def device_time(fn, device):
-        if device_s_per_frame is None:
+        if device_s_per_frame is None or not device_ok(len(calls)):
+            calls.append(None)
             return {"total_s": 0.0, "programs": {}, "ok": False}
         before = clock.now
         fn()
         n = round((clock.now - before - clock.latency) / clock.frame)
-        return {"total_s": device_s_per_frame * n, "programs": {}, "ok": True}
+        calls.append(n)
+        return {"total_s": device_fixed_s + device_s_per_frame * n, "programs": {}, "ok": True}
 
     return benchmark.measure_budget(
         clock.budget, data, tpt.Camera.create(**CAM), width=size, height=size, spp=1,
@@ -82,6 +90,28 @@ def test_gates_pass_a_linear_budget(scene):
     assert res.linearity == pytest.approx(0.01 / (2.002 / 200), rel=1e-9)
     assert res.device_per_frame_s == pytest.approx(0.009)
     assert res.rays_per_s == pytest.approx(64 * 64 * 4 / 0.01)
+
+
+def test_device_time_is_the_two_point_slope(scene):
+    """A fixed device cost of 2 s a call cancels in (D(n2) - D(n1)) /
+    (n2 - n1): the reading is 9 ms/frame, where D(n1) / n1 would read
+    29 ms/frame and trip the 2x gate against the 10 ms wall slope."""
+    clock = FakeClock(latency=0.002, frame=0.01)
+    seen = []
+    res = _measure(scene, clock, device_s_per_frame=0.009, device_fixed_s=2.0, device_calls=seen)
+    assert seen == [res.n1, res.n2] == [100, 200]
+    assert res.device_per_frame_s == pytest.approx(0.009, rel=1e-9)
+    assert (2.0 + 0.009 * res.n1) / res.n1 > 2 * res.per_frame_s
+    assert res.ok and not res.reasons
+
+
+@pytest.mark.parametrize("failing_call", [0, 1], ids=["first", "second"])
+def test_device_time_failing_either_reading_is_unavailable(scene, failing_call):
+    clock = FakeClock(latency=0.002, frame=0.01)
+    res = _measure(scene, clock, device_s_per_frame=0.009,
+                   device_ok=lambda call: call != failing_call)
+    assert res.device_per_frame_s is None
+    assert res.ok and res.per_frame_s == pytest.approx(0.01, rel=1e-9)
 
 
 def test_gate_refuses_non_increasing_time(scene):

@@ -511,3 +511,194 @@ def test_r2_kernels_empty_and_oversized_scenes_launch_nothing(cuda):
         with pytest.raises(ValueError, match="bvh8"):
             kernel(torch.zeros((cap + 1, 9), device=cuda), ro, rd)
         assert kernel.launches == before
+
+
+# --- the Hopper walks (csrc/nf_walk.cu, csrc/stream_walk.cu) -----------------
+
+WALK_WIDTHS = [128, 512, 1024, 4096, 8192]
+
+
+def _stream_mesh(cuda):
+    """A BVH-ordered sphere and plane (9,402 triangles, padded to 16,384):
+    past the nf kernel's 8,192, so the streamed walk culls on it."""
+    scene = tpt.Scene()
+    scene.add(tpt.Mesh(*primitives.sphere(0.5, 80, 60), tpt.Material()))
+    scene.add(tpt.Mesh(*primitives.plane(4, 4), tpt.Material(),
+                       transform=rotation_x(-math.pi / 2)))
+    return scene.compile(device=cuda).packed.tri_pos
+
+
+def _walk_inputs(cuda, kind, stream):
+    """(tri_pos, phi_t, parked lanes or None) of a soup with parked rays and
+    a partial last tile, or of camera rays on a mesh."""
+    if kind == "mesh":
+        tri = _stream_mesh(cuda) if stream else tpt.default_scene().compile(device=cuda).packed.tri_pos
+        return tri, _camera_rays(cuda), None
+    rng = np.random.default_rng(5 + stream)
+    tri = torch.from_numpy(_soup(rng, 9000 if stream else 2000)).to(cuda)
+    phi_t, park = _parked_rays(rng, 40000 - 77)
+    return tri, phi_t.to(cuda), torch.from_numpy(park).to(cuda)
+
+
+def _assert_walks_agree(cuda, module, prep, n_stats, park=None, r=None):
+    """Kept walk, first design (`_walk_cuda_v1`) and plain walk on the same
+    prepared inputs: hits bit-equal, walk counts equal.  Returns the plain
+    walk counts."""
+    n_tiles = prep[0].shape[1] // prep[-1]
+    sk = torch.zeros((n_tiles,) + n_stats, dtype=torch.int32, device=cuda)
+    sp = torch.zeros_like(sk)
+    hk = module._walk_cuda(*prep, stats=sk)
+    hp = module._walk_plain(*prep, stats=sp)
+    # the first designs take tiles of up to 8 x 512 rays
+    hv = module._walk_cuda_v1(*prep) if prep[-1] <= 4096 else hp
+    torch.cuda.synchronize()
+    for a, b, c in zip(hk, hp, hv):
+        assert torch.equal(a, b) and torch.equal(c, b)
+    assert torch.equal(sk, sp)
+    if park is not None:
+        t, idx = hk[0][:r], hk[1][:r]
+        assert (t[park] == -1e20).all() and (idx[park] == -1).all()
+        assert (hk[0][r:] == -1e20).all()  # padding lanes never take a hit
+    return sp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_rays", WALK_WIDTHS)
+@pytest.mark.parametrize("kind", ["soup", "mesh"])
+def test_nf_walk_matches_plain_and_v1(cuda, kind, tile_rays):
+    """The Hopper nf walk (sub 64) at every tile width the wrappers give,
+    wide tiles included: hits bit-equal to the plain walk and to the first
+    walk, per-tile walk counts equal to the plain walk's."""
+    tri, phi_t, park = _walk_inputs(cuda, kind, stream=False)
+    prep = mt_shade._prepare(tri, phi_t, tile_rays, 64)
+    assert prep[-1] == tile_rays
+    sp = _assert_walks_agree(cuda, mt_shade, prep, (), park, phi_t.shape[1])
+    assert int(sp.sum()) > 0
+    if kind == "mesh":
+        assert int(sp.sum()) < sp.shape[0] * prep[3].shape[1] // 2  # the precull culls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_rays", WALK_WIDTHS)
+@pytest.mark.parametrize("kind", ["soup", "mesh"])
+def test_stream_walk_matches_plain_and_v1(cuda, kind, tile_rays):
+    """The Hopper streamed walk at every tile width: hits bit-equal to the
+    plain walk and to the first walk, walk counts (supers walked, chunks
+    staged, subs evaluated) equal to the plain walk's; on the mesh both
+    culling levels decide."""
+    tri, phi_t, park = _walk_inputs(cuda, kind, stream=True)
+    prep = mt_stream._prepare(tri, phi_t, tile_rays)
+    assert prep[-1] == tile_rays
+    sp = _assert_walks_agree(cuda, mt_stream, prep, (3,), park, phi_t.shape[1])
+    walked, staged, evaluated = (int(x) for x in sp.sum(dim=0))
+    assert evaluated > 0
+    if kind == "mesh":
+        assert staged < 16 * walked and evaluated < 4 * staged
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub", [32, 64, 128])
+@pytest.mark.parametrize("rays", ["primary", "bounce"])
+def test_nf_walk_counts_equal_plain(cuda, sub, rays):
+    """`nf_walk_stats` of the kernel equals the plain walk's on the default
+    scene's camera rays and first-bounce rays (parked lanes included)."""
+    if rays == "primary":
+        tri, phi_t = tpt.default_scene().compile(device=cuda).packed.tri_pos, _camera_rays(cuda)
+    else:
+        tri, phi_t = _bounce_rays(cuda)
+    sk = mt_shade.nf_walk_stats(tri, phi_t, sub=sub)
+    sp = mt_shade.nf_walk_stats(tri, phi_t, sub=sub, plain=True)
+    assert torch.equal(sk, sp) and int(sk.sum()) > 0
+
+
+def _any_tile(monkeypatch):
+    """Let the wrappers take a tile width that is no multiple of 128."""
+    for module in (mt_shade, mt_stream):
+        monkeypatch.setattr(module, "_widened_tile", lambda tile_rays, r: tile_rays)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_rays", [200, 333, 512])
+def test_walk_variants_match_plain(cuda, tile_rays, monkeypatch):
+    """Every measured step of both walks (`NF_WALK_VARIANTS` at sub 64,
+    `WALK_VARIANTS`), at tile widths that split unevenly over a cluster's
+    CTAs and threads (lanes past the tile start at -INF): hits and walk
+    counts equal to the plain walk's."""
+    _any_tile(monkeypatch)
+    tri, phi_t, _ = _walk_inputs(cuda, "mesh", stream=False)
+    prep = mt_shade._prepare(tri, phi_t, tile_rays, 64)
+    table = mt_shade._pack_walk_table(prep[1], 64)
+    sp = torch.zeros((prep[3].shape[0],), dtype=torch.int32, device=cuda)
+    hp = mt_shade._walk_plain(*prep, stats=sp)
+    for v in mt_shade.NF_WALK_VARIANTS:
+        sk = torch.zeros_like(sp)
+        hk = mt_shade._walk_table_cuda(prep[0], table, *prep[2:5], tile_rays, stats=sk, variant=v)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(hk, hp)), v
+        assert torch.equal(sk, sp), v
+    tri, phi_t, _ = _walk_inputs(cuda, "mesh", stream=True)
+    prep = mt_stream._prepare(tri, phi_t, tile_rays)
+    table = mt_shade._pack_walk_table(prep[1], mt_stream.SUB_TRIS)
+    sp = torch.zeros((prep[5].shape[0], 3), dtype=torch.int32, device=cuda)
+    hp = mt_stream._walk_plain(*prep, stats=sp)
+    for v in mt_stream.WALK_VARIANTS:
+        sk = torch.zeros_like(sp)
+        hk = mt_stream._walk_table_cuda(prep[0], table, *prep[2:7], tile_rays, stats=sk,
+                                        variant=v)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(hk, hp)), v
+        assert torch.equal(sk, sp), v
+
+
+@pytest.mark.cuda
+def test_stream_walk_repeats_on_bounce_rays(cuda):
+    """The streamed walk, launched many times on first-bounce rays of the
+    default scene at 512 x 512 (parked lanes, prefetched chunks that a
+    re-test drops), returns the plain walk's hits and counts every time.
+    A reused staging buffer whose previous copy not every thread had seen
+    land stalled the walk now and then, before the staging waited for all
+    threads first."""
+    tri, phi_t = _bounce_rays(cuda, size=512)
+    prep = mt_stream._prepare(tri, phi_t, None)
+    sp = torch.zeros((prep[5].shape[0], 3), dtype=torch.int32, device=cuda)
+    hp = mt_stream._walk_plain(*prep, stats=sp)
+    table = mt_shade._pack_walk_table(prep[1], mt_stream.SUB_TRIS)
+    for _ in range(300):
+        sk = torch.zeros_like(sp)
+        hk = mt_stream._walk_table_cuda(prep[0], table, *prep[2:7], prep[-1], stats=sk)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(hk, hp)) and torch.equal(sk, sp)
+    assert int(sp[:, 1].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_walk_count_check_catches_a_skipped_chunk_retest(cuda, tmp_path, monkeypatch):
+    """Mutation check of the streamed walk's decisions by mask: a copy of
+    the kernels whose chunk mask is not re-tested after an evaluation
+    (chunks stay live under the super's first t) still finds the same hits
+    (a stale chunk only adds work), but stages more chunks than the plain
+    walk, and the walk-count check sees it."""
+    tri = _stream_mesh(cuda)
+    phi_t = _camera_rays(cuda)
+    sp = mt_stream.walk_stats(tri, phi_t, plain=True)
+    assert torch.equal(mt_stream.walk_stats(tri, phi_t), sp)
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, src)
+    walk = src / "stream_walk.cu"
+    text = walk.read_text()
+    retest = "retest(chunks, 0)"
+    assert text.count(retest) == 2
+    walk.write_text(text.replace(retest, "chunks"))
+    monkeypatch.setattr(_build, "CSRC", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    _build.load.cache_clear()
+    try:
+        bad = mt_stream.walk_stats(tri, phi_t)
+        hits = mt_stream.mt_intersect_stream2_phi(tri, phi_t)
+    finally:
+        _build.load.cache_clear()  # the next load() builds from the package's sources
+    print(f"plain walk counts {sp.sum(dim=0).tolist()}, mutant {bad.sum(dim=0).tolist()}")
+    assert all(torch.equal(a, b) for a, b in
+               zip(hits, mt_stream.mt_intersect_stream2_phi_plain(tri, phi_t)))
+    assert not torch.equal(bad, sp)
+    assert int(bad[:, 1].sum()) > int(sp[:, 1].sum())

@@ -149,6 +149,10 @@ RESOLUTION_CASES = [
     ("mxu_dets", False, None, False),
     ("mxu_dets", None, "0", False),
     ("mxu_dets", None, "false", False),
+    # the port's default is 0 (no windowed sort yet), JAX's 32768: not compared
+    ("sort_window", None, "4096", 4096),
+    ("sort_window", 256, "4096", 256),
+    ("sort_window", 0, "4096", 0),
 ]
 OPTIONS = {
     "cull": (jshade._cull_mode, mt_shade._cull_mode, "TPT_CULL"),
@@ -156,6 +160,7 @@ OPTIONS = {
     "tile_rays": (jshade._tile_rays, mt_shade._tile_rays, "TPT_TILE_RAYS"),
     "sort_bounces": (jtrace._sort_bounces, ttrace._sort_bounces, "TPT_SORT_BOUNCES"),
     "mxu_dets": (jshade._mxu_dets, mt_shade._mxu_dets, "TPT_MXU_DETS"),
+    "sort_window": (jtrace._sort_window, ttrace._sort_window, "TPT_SORT_WINDOW"),
 }
 
 

@@ -172,6 +172,36 @@ def test_unported_render_options_raise(scenes, name, kw):
         ttrace.render_frame(tsd, params, width=8, height=8, aspect=1.0, **kw)
 
 
+@pytest.mark.parametrize("env", [None, "0", "4096"], ids=["unset", "zero", "nonzero"])
+@pytest.mark.parametrize("entry", ["render_frame", "Renderer"])
+def test_sort_window_variable_raises_when_nonzero(scenes, entry, env, monkeypatch):
+    """TPT_SORT_WINDOW is read as JAX reads it (the override first, then the
+    variable): a nonzero window raises as `sort_window=W` does, since the
+    windowed sort is not ported; unset or 0 renders the global sort, and an
+    explicit 0 overrides the variable."""
+    if env is None:
+        monkeypatch.delenv("TPT_SORT_WINDOW", raising=False)
+    else:
+        monkeypatch.setenv("TPT_SORT_WINDOW", env)
+    cfg = dict(width=8, height=8, max_bounces=1)
+
+    def run(window=None):
+        if entry == "render_frame":
+            params = tpt.RenderParams.create(tpt.Camera.create(), frame=1)
+            return ttrace.render_frame(scenes[1], params, aspect=1.0, sort_window=window, **cfg)
+        r = tpt.Renderer(tpt.default_scene(gradient_sky(8, 16)), tpt.Camera.create(),
+                         tpt.RenderConfig(frames=1, sort_window=window, **cfg), device="cpu")
+        return r.render_all()
+
+    if env == "4096":
+        with pytest.raises(NotImplementedError, match="windowed"):
+            run()
+    else:
+        img = run()
+        assert img.shape == (8, 8, 3) and torch.isfinite(img).all()
+    assert run(window=0).shape == (8, 8, 3)
+
+
 @pytest.mark.parametrize("kw", [dict(shard=object()), dict(env_importance=True)],
                          ids=["shard", "env_importance"])
 def test_unported_renderer_options_raise(kw):

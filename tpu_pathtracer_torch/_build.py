@@ -96,13 +96,19 @@ def load() -> ctypes.CDLL:
     """Build if needed, then load and declare the C entry points."""
     lib = ctypes.CDLL(str(build()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.tpt_mt_nf.argtypes = [p] * 9 + [i] * 5 + [p]
+    lib.tpt_mt_nf.argtypes = [p] * 10 + [i] * 5 + [p]
     lib.tpt_mt_nf.restype = i
+    lib.tpt_mt_nf_variant.argtypes = [p] * 10 + [i] * 9 + [p]
+    lib.tpt_mt_nf_variant.restype = i
+    lib.tpt_mt_nf_shape.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.tpt_mt_nf_shape.restype = i
+    lib.tpt_mt_nf_v1.argtypes = [p] * 9 + [i] * 5 + [p]
+    lib.tpt_mt_nf_v1.restype = i
     lib.tpt_mt_list.argtypes = [p] * 8 + [i] * 5 + [p]
     lib.tpt_mt_list.restype = i
     lib.tpt_mt_cond.argtypes = [p] * 9 + [i] * 5 + [p]
     lib.tpt_mt_cond.restype = i
-    lib.tpt_mt_nf_mxu.argtypes = lib.tpt_mt_nf.argtypes
+    lib.tpt_mt_nf_mxu.argtypes = lib.tpt_mt_nf_v1.argtypes
     lib.tpt_mt_nf_mxu.restype = i
     lib.tpt_mt_list_mxu.argtypes = lib.tpt_mt_list.argtypes
     lib.tpt_mt_list_mxu.restype = i
@@ -114,6 +120,12 @@ def load() -> ctypes.CDLL:
     lib.tpt_mxu_smem_limit.restype = i
     lib.tpt_mt_stream.argtypes = [p] * 12 + [i] * 6 + [p]
     lib.tpt_mt_stream.restype = i
+    lib.tpt_mt_stream_variant.argtypes = [p] * 12 + [i] * 11 + [p]
+    lib.tpt_mt_stream_variant.restype = i
+    lib.tpt_mt_stream_shape.argtypes = [i, ctypes.POINTER(i)]
+    lib.tpt_mt_stream_shape.restype = i
+    lib.tpt_mt_stream_v1.argtypes = lib.tpt_mt_stream.argtypes
+    lib.tpt_mt_stream_v1.restype = i
     lib.tpt_mt_r2.argtypes = [p] * 8 + [i] * 4 + [p]
     lib.tpt_mt_r2.restype = i
     lib.tpt_denoise.argtypes = [p, p, p, i, i, i, f, p]

@@ -16,6 +16,10 @@
 // the lists or boxes; this file only walks them.  Every kernel is templated
 // on the sub-treelet size SUB (8, 16, 32, 64 or 128 triangles).
 //
+// The nf walk here is its first design, kept as `tpt_mt_nf_v1` for one
+// comparison; the walk the wrappers launch is its Hopper redesign in
+// nf_walk.cu.  list and cond keep this design.
+//
 // Design: one block per ray tile, each thread owning RPT rays of the tile
 // (RPT = 1 at the default 512-ray tile), each ray's best (t, idx, u, v) in
 // registers.  nf and list stage each listed sub's 4 x SUB x 10 coefficient
@@ -40,9 +44,9 @@
 // block barrier.  Kept exact rather than fast: the library is built with
 // -fmad=false, the sums run in the feature order of `_FEATS` and the slab
 // test in `_slab_entries`' order (mt_common.cuh), so results and culling
-// decisions equal the plain PyTorch versions bit for bit.  Faster variants
-// (more rays per thread, double-buffered staging, packed coefficients) are
-// later work.
+// decisions equal the plain PyTorch versions bit for bit.  nf_walk.cu
+// redesigns the nf walk with more rays a thread, a packed table,
+// double-buffered staging and thread block clusters.
 
 #include <cstdint>
 #include <type_traits>
@@ -623,11 +627,14 @@ int smem_limit(int device, size_t* limit) {
 
 }  // namespace
 
-extern "C" int tpt_mt_nf(const float* phi_t, const float* cols_rows,
-                         const int* counts, const int* lists,
-                         const float* emins, float* t, int* idx, float* u,
-                         float* v, int r_pad, int tile_rays, int n_tiles,
-                         int ms, int sub, cudaStream_t stream) {
+// The first design of the nf walk, kept only for comparison with its
+// Hopper redesign (nf_walk.cu) in chip_smoke.py and the card tests; no
+// render path calls it.
+extern "C" int tpt_mt_nf_v1(const float* phi_t, const float* cols_rows,
+                            const int* counts, const int* lists,
+                            const float* emins, float* t, int* idx, float* u,
+                            float* v, int r_pad, int tile_rays, int n_tiles,
+                            int ms, int sub, cudaStream_t stream) {
   return launch_list<true>(phi_t, cols_rows, counts, lists, emins, t, idx, u,
                            v, r_pad, tile_rays, n_tiles, ms, sub, stream);
 }

@@ -1,5 +1,7 @@
 // Streamed two-level-culled Möller–Trumbore intersection for large scenes
-// (8K-256K triangles), for Hopper (sm_90a).
+// (8K-256K triangles), for Hopper (sm_90a): the first design, kept as
+// `tpt_mt_stream_v1` for one comparison.  The walk the wrapper launches is
+// its Hopper redesign in stream_walk.cu.
 //
 // Replaces the TPU kernel `_kernel_stream2` in
 // tpu_pathtracer/ops/pallas/mt_shade.py.  The Python wrapper
@@ -34,8 +36,8 @@
 // 131,072).  Kept exact rather than fast: -fmad=false, IEEE 1/rd, and the
 // slab formula of `_slab_entries` term for term (mt_common.cuh for the MT
 // math), so liveness decisions and results equal the plain PyTorch
-// version bit for bit.  Overlapping the staging of live chunks with
-// compute (cp.async or TMA double buffering) is later work.
+// version bit for bit.  stream_walk.cu overlaps the staging with compute,
+// decides by mask and spreads a tile over a thread block cluster.
 
 #include "mt_common.cuh"
 
@@ -162,13 +164,16 @@ void launch(const float* phi_t, const float* cols_rows,
 
 }  // namespace
 
-extern "C" int tpt_mt_stream(const float* phi_t, const float* cols_rows,
-                             const float* chunk_boxes, const float* sub_boxes,
-                             const int* counts, const int* lists,
-                             const float* emins, float* t, int* idx, float* u,
-                             float* v, int* walk_stats, int r_pad,
-                             int tile_rays, int n_tiles, int ms, int sub,
-                             int chunks_per_super, cudaStream_t stream) {
+// The first design, kept only for comparison with its Hopper redesign
+// (stream_walk.cu) in chip_smoke.py and the card tests; no render path
+// calls it.
+extern "C" int tpt_mt_stream_v1(const float* phi_t, const float* cols_rows,
+                                const float* chunk_boxes, const float* sub_boxes,
+                                const int* counts, const int* lists,
+                                const float* emins, float* t, int* idx, float* u,
+                                float* v, int* walk_stats, int r_pad,
+                                int tile_rays, int n_tiles, int ms, int sub,
+                                int chunks_per_super, cudaStream_t stream) {
   if (sub != kSub || chunks_per_super != kChunksPerSuper || tile_rays <= 0 ||
       n_tiles <= 0 || ms <= 0 || r_pad != n_tiles * tile_rays)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -1,0 +1,248 @@
+// Near-to-far Möller–Trumbore walk over per-tile live sub-treelets, for
+// Hopper (sm_90a): the default ('nf') whole-scene kernel, up to 8,192
+// triangles.
+//
+// Replaces the TPU kernel `_kernel_nf` (tpu_pathtracer/ops/pallas/
+// mt_shade.py:308).  The Python wrapper (ops/kernels/mt_shade.py) pads
+// the inputs, preculls each ray tile's live subs (sorted by entry
+// distance) and packs the walk table (`_pack_walk_table`); this file walks
+// the lists: per tile, entry j is evaluated while its entry distance is
+// below the tile's largest live t, refreshed after every sub.  Parked,
+// padding and past-the-tile lanes start at -INF.
+//
+// What bounds it on the H100.  The walk is one serial chain per tile
+// (stage a sub, evaluate it, take the tile's max t), and the kernel ends
+// when its heaviest tile does: the light tiles finish early and the
+// heaviest walks alone on its SM.  The first design (kept as
+// `tpt_mt_nf_v1` in mt_shade.cu) ran one 512-thread block per tile, one
+// ray a thread, read 19 coefficients a pair as 4-byte shared broadcasts
+// (shared loads, not arithmetic, set its pace), and staged each sub with a
+// blocking copy between two barriers.  This design:
+//   a. RPT rays a thread against a packed table of 20 floats a triangle,
+//      read as five 128-bit broadcasts, so one load serves RPT pairs;
+//   b. double-buffered staging: the next listed sub is bulk-copied (TMA,
+//      `cp.async.bulk` on an mbarrier) into the idle buffer while the
+//      current one is evaluated, when its entry distance is still below
+//      the bound; a prefetch the break makes useless is waited on and
+//      dropped;
+//   d. the tile's rays are split over a cluster of C CTAs on neighbouring
+//      SMs; the max of t after each sub goes through distributed shared
+//      memory and one cluster barrier (walk.cuh `decide`), so the walk's
+//      decisions stay the tile's and its per-tile walk count equals the
+//      plain version's;
+//   e. each ray's triangles are split over TPR lanes, whose nearest hits
+//      are combined by (t, index) with warp shuffles: spreading rays alone
+//      leaves one lane walking all SUB triangles of a sub in series.
+// (Step c, decisions by mask, concerns the streamed walk only.)  Measured
+// on the H100 (PERF.md, the sweep of chip_smoke.py): every decision
+// across a cluster costs a cluster barrier, so clusters pay only with e;
+// more rays a thread does not pay.  A tile with an empty list skips the
+// walk and its barriers.  The per-pair arithmetic is unchanged (-fmad=false, `_FEATS`
+// order, __frcp_rn), so hits are bit-equal to the plain version.
+//
+// `tpt_mt_nf` runs the design the sweep kept (kRpt, kCluster, kTpr
+// below); `tpt_mt_nf_variant` runs the steps' variants at sub 64 for the
+// measurements in chip_smoke.py.
+
+#include "walk.cuh"
+
+namespace {
+
+using tpt::Best;
+using tpt::kInf;
+using namespace tpt::walk;
+
+// The design the sweep kept (PERF.md): rays a thread, cluster size,
+// lanes a ray.
+constexpr int kRpt = 1;
+constexpr int kCluster = 8;
+constexpr int kTpr = 2;
+
+template <int SUB, int RPT, int C, bool ASYNC, int TPR>
+__global__ void __launch_bounds__(kThreads)
+    nf_walk_kernel(const float* __restrict__ phi_t,   // (10, r_pad)
+                   const float4* __restrict__ table,  // (n_pad, 20) as float4
+                   const int* __restrict__ counts,    // (n_tiles,)
+                   const int* __restrict__ lists,     // (n_tiles, ms)
+                   const float* __restrict__ emins,   // (n_tiles, ms)
+                   float* __restrict__ out_t, int* __restrict__ out_idx,
+                   float* __restrict__ out_u, float* __restrict__ out_v,
+                   int* __restrict__ walk_stats,  // (n_tiles,) or null
+                   int r_pad, int tile_rays, int ms) {
+  constexpr int kBytes = SUB * kTableFloats * 4;
+  __shared__ __align__(128) float4 buf[2][kBytes / 16];
+  __shared__ Vote slots[2][kMaxSlots];
+  __shared__ __align__(8) uint64_t bars[2];
+
+  const int tile = blockIdx.x / C, rank = blockIdx.x % C;
+  const int per_cta = (tile_rays + C - 1) / C;
+  const int ray0 = tile * tile_rays;
+  const int group = blockDim.x / TPR;  // rays a CTA holds in each of its RPT slots
+
+  float phi[RPT][10];
+  Best best[RPT];
+  int ray[RPT];
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    const int lane = threadIdx.x / TPR + k * group;
+    const int local = rank * per_cta + lane;
+    ray[k] = lane < per_cta && local < tile_rays ? ray0 + local : -1;
+    best[k] = tpt::load_ray(phi_t, r_pad, ray[k], ray0, phi[k]);
+  }
+  int walked = 0;
+  const int count = counts[tile];  // the same in every CTA of the cluster
+  if (count > 0) {  // a tile with an empty list only writes its lanes
+    Stager<kBytes, ASYNC> st;
+    st.init(buf[0], buf[1], bars);
+    cluster_sync<C>();
+    int parity = 0;
+    const int* list = lists + static_cast<size_t>(tile) * ms;
+    const float* emin = emins + static_cast<size_t>(tile) * ms;
+    float tmax = kInf;
+    for (int j = 0; j < count; ++j) {
+      if (!(emin[j] < tmax)) break;
+      const int s = list[j];
+      const float4* rows = st.take(table, s);
+      if (j + 1 < count && emin[j + 1] < tmax) st.prefetch(table, list[j + 1]);
+      eval_table<SUB, RPT, TPR>(rows, phi, s * SUB, best);
+      tmax = decide<C>(slots, parity, 0u, rays_max<RPT>(best, ray)).tmax;
+      ++walked;
+    }
+    st.drain();
+    cluster_sync<C>();
+  }
+  if (walk_stats != nullptr && rank == 0 && threadIdx.x == 0) walk_stats[tile] = walked;
+
+  if (threadIdx.x % TPR == 0) {
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      if (ray[k] >= 0) {
+        out_t[ray[k]] = best[k].t;
+        out_idx[ray[k]] = best[k].idx;
+        out_u[ray[k]] = best[k].u;
+        out_v[ray[k]] = best[k].v;
+      }
+    }
+  }
+}
+
+struct Args {
+  const float* phi_t;
+  const float4* table;
+  const int* counts;
+  const int* lists;
+  const float* emins;
+  float* t;
+  int* idx;
+  float* u;
+  float* v;
+  int* walk_stats;
+  int r_pad, tile_rays, n_tiles, ms;
+  cudaStream_t stream;
+};
+
+template <int SUB>
+using Kernel = decltype(&nf_walk_kernel<SUB, 1, 1, true, 1>);
+
+template <int SUB>
+int launch(Kernel<SUB> kernel, const Shape& shape, const Args& a) {
+  const int threads = threads_for(a.tile_rays, shape);
+  if (kernel == nullptr || threads == 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_cluster(kernel, a.n_tiles, shape.c, threads, 0, a.stream, a.phi_t, a.table,
+                        a.counts, a.lists, a.emins, a.t, a.idx, a.u, a.v, a.walk_stats,
+                        a.r_pad, a.tile_rays, a.ms);
+}
+
+// The kept design at this tile width (walk.cuh `fit_shape`): its kernel
+// and shape; null if the tile is too wide.
+template <int SUB>
+Kernel<SUB> kept(int tile_rays, Shape& shape) {
+  shape = Shape{kRpt, kCluster, kTpr};
+  if (!fit_shape(tile_rays, shape)) return nullptr;
+  if (shape == Shape{kRpt, kCluster, kTpr}) return nf_walk_kernel<SUB, kRpt, kCluster, true, kTpr>;
+  if (shape == Shape{kRpt, kMaxCluster, kTpr})
+    return nf_walk_kernel<SUB, kRpt, kMaxCluster, true, kTpr>;
+  if (shape.rpt == 1) return nf_walk_kernel<SUB, 1, kMaxCluster, true, 1>;
+  if (shape.rpt == 2) return nf_walk_kernel<SUB, 2, kMaxCluster, true, 1>;
+  return nf_walk_kernel<SUB, 4, kMaxCluster, true, 1>;
+}
+
+template <typename F>
+int by_sub(int sub, F&& f) {
+  switch (sub) {
+    case 8: return f(Int<8>{});
+    case 16: return f(Int<16>{});
+    case 32: return f(Int<32>{});
+    case 64: return f(Int<64>{});
+    case 128: return f(Int<128>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+bool valid(const Args& a) {
+  return a.tile_rays > 0 && a.n_tiles > 0 && a.ms > 0 && a.r_pad == a.n_tiles * a.tile_rays &&
+         reinterpret_cast<uintptr_t>(a.table) % 16 == 0;
+}
+
+}  // namespace
+
+extern "C" int tpt_mt_nf(const float* phi_t, const float* table, const int* counts,
+                         const int* lists, const float* emins, float* t, int* idx, float* u,
+                         float* v, int* walk_stats, int r_pad, int tile_rays, int n_tiles,
+                         int ms, int sub, cudaStream_t stream) {
+  const Args a{phi_t, reinterpret_cast<const float4*>(table), counts, lists, emins, t, idx, u,
+               v, walk_stats, r_pad, tile_rays, n_tiles, ms, stream};
+  if (!valid(a)) return static_cast<int>(cudaErrorInvalidValue);
+  return by_sub(sub, [&](auto s) {
+    constexpr int SUB = decltype(s)::value;
+    Shape shape;
+    const Kernel<SUB> kernel = kept<SUB>(a.tile_rays, shape);
+    return launch<SUB>(kernel, shape, a);
+  });
+}
+
+// The steps measured at sub 64 (PERF.md): (a) RPT 1, 2, 4 with
+// blocking copies; (a+b) with the bulk-copy prefetch; (a+b+d) clusters of
+// 2, 4 and 8; (a+b+d+e) a ray's triangles split over 2, 4 or 8 lanes.
+extern "C" int tpt_mt_nf_variant(const float* phi_t, const float* table, const int* counts,
+                                 const int* lists, const float* emins, float* t, int* idx,
+                                 float* u, float* v, int* walk_stats, int r_pad, int tile_rays,
+                                 int n_tiles, int ms, int sub, int rpt, int c, int async,
+                                 int tpr, cudaStream_t stream) {
+  const Args a{phi_t, reinterpret_cast<const float4*>(table), counts, lists, emins, t, idx, u,
+               v, walk_stats, r_pad, tile_rays, n_tiles, ms, stream};
+  if (!valid(a) || sub != 64) return static_cast<int>(cudaErrorInvalidValue);
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  auto run = [&](auto cf) {
+    using Cf = decltype(cf);
+    if (Cf::rpt != rpt || Cf::c != c || Cf::async != (async != 0) || Cf::tpr != tpr)
+      return false;
+    err = launch<64>(nf_walk_kernel<64, Cf::rpt, Cf::c, Cf::async, Cf::tpr>,
+                     Shape{Cf::rpt, Cf::c, Cf::tpr}, a);
+    return true;
+  };
+  (void)(run(Cfg<1, 1, false, true, 1>{}) || run(Cfg<2, 1, false, true, 1>{}) ||
+         run(Cfg<4, 1, false, true, 1>{}) || run(Cfg<1, 1, true, true, 1>{}) ||
+         run(Cfg<2, 1, true, true, 1>{}) || run(Cfg<4, 1, true, true, 1>{}) ||
+         run(Cfg<1, 2, true, true, 1>{}) || run(Cfg<2, 2, true, true, 1>{}) ||
+         run(Cfg<1, 4, true, true, 1>{}) || run(Cfg<2, 4, true, true, 1>{}) ||
+         run(Cfg<1, 8, true, true, 1>{}) || run(Cfg<2, 8, true, true, 1>{}) ||
+         run(Cfg<1, 2, true, true, 2>{}) || run(Cfg<1, 4, true, true, 2>{}) ||
+         run(Cfg<1, 4, true, true, 4>{}) || run(Cfg<1, 8, true, true, 2>{}) ||
+         run(Cfg<1, 8, true, true, 4>{}) || run(Cfg<1, 8, true, true, 8>{}));
+  return err;
+}
+
+// The kept design's launch shape at this sub and tile width (walk.cuh
+// `describe`: rpt, cluster, threads, registers, static and dynamic shared
+// bytes, CTAs per SM, clusters resident at once, lanes a ray).
+extern "C" int tpt_mt_nf_shape(int sub, int tile_rays, int* out) {
+  return by_sub(sub, [&](auto s) {
+    constexpr int SUB = decltype(s)::value;
+    Shape shape;
+    const Kernel<SUB> kernel = kept<SUB>(tile_rays, shape);
+    if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return describe(reinterpret_cast<const void*>(kernel), shape,
+                    threads_for(tile_rays, shape), 0, out);
+  });
+}

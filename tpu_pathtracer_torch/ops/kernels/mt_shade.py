@@ -35,11 +35,15 @@ contract:
 
 Each kernel has its own wrapper (`mt_intersect_nf_phi`,
 `mt_intersect_list_phi`, `mt_intersect_cond_phi`), which launches the CUDA
-kernel (csrc/mt_shade.cu) for a CUDA tensor, counting the launch in its
-`.launches`, and runs its plain version for a CPU tensor.  The plain
-versions walk the same lists, chunks and subs in the same order, vectorised
-over tiles, with the same elementwise arithmetic, so kernel and plain
-version agree bit for bit.
+kernel for a CUDA tensor, counting the launch in its `.launches`, and runs
+its plain version for a CPU tensor.  The plain versions walk the same
+lists, chunks and subs in the same order, vectorised over tiles, with the
+same elementwise arithmetic, so kernel and plain version agree bit for bit.
+The 'nf' kernel is the Hopper walk of csrc/nf_walk.cu, which reads its
+own coefficient table (`_pack_walk_table`: 20 floats a triangle) and
+writes per-tile walk counts on request (`nf_walk_stats`); its first
+design stays in csrc/mt_shade.cu as `_walk_cuda_v1`, for comparison only.
+'list' and 'cond' are csrc/mt_shade.cu.
 
 The MXU variants (`mt_intersect_{nf,list,cond}_mxu_phi`, kernel #5) walk
 the same way.  Their plain versions take each sub-treelet's determinants
@@ -61,7 +65,8 @@ import os
 
 import torch
 
-from ..mt_matmul import Hit, determinants, epilogue, miss_hit, nearest, ray_features, triangle_columns
+from ..mt_matmul import (FEATS, Hit, determinants, epilogue, miss_hit, nearest, ray_features,
+                         triangle_columns)
 from ..vecmath import EPSILON, INF
 from .mt_intersect import (
     _check_inputs,
@@ -204,6 +209,44 @@ def _pack_mma(cols_rows, sub: int):
     n = cols_rows.shape[0] // 4
     padded = torch.nn.functional.pad(cols_rows, (0, 6)).reshape(-1)
     return padded[_mma_index(n, sub, cols_rows.device)].reshape(4 * n, 16)
+
+
+# The Hopper walks' coefficient table (csrc/walk.cuh): per triangle, the
+# (quantity, feature) coefficients a pair uses, in FEATS order (a: 4-6;
+# ua, va: 4-9; ta: 0-3), then one zero: 20 floats, five float4 loads.
+WALK_TABLE = tuple((q, k) for q, ks in enumerate(FEATS) for k in ks)
+WALK_TABLE_FLOATS = 20
+# The measured steps of the Hopper 'nf' walk at sub 64 (`_walk_table_cuda`'s
+# `variant`; csrc/nf_walk.cu `tpt_mt_nf_variant`): (rays a thread, cluster
+# size, bulk-copy staging, lanes a ray).  Step a: a packed table and RPT
+# rays a thread; b: the bulk-copy prefetch; d: a cluster of C CTAs a tile;
+# e: a ray's triangles split over several lanes.
+NF_WALK_VARIANTS = (
+    (1, 1, 0, 1), (2, 1, 0, 1), (4, 1, 0, 1), (1, 1, 1, 1), (2, 1, 1, 1), (4, 1, 1, 1),
+    (1, 2, 1, 1), (2, 2, 1, 1), (1, 4, 1, 1), (2, 4, 1, 1), (1, 8, 1, 1), (2, 8, 1, 1),
+    (1, 2, 1, 2), (1, 4, 1, 2), (1, 4, 1, 4), (1, 8, 1, 2), (1, 8, 1, 4), (1, 8, 1, 8),
+)
+
+
+@functools.lru_cache(maxsize=16)
+def _walk_table_index(n: int, sub: int, device: torch.device):
+    """Flat indices into the (4*Np, 10) sub-block-major rows at `sub` of
+    the walk table's first 19 columns for Np = n triangles: (n, 19), built
+    once per shape and device."""
+    tri = torch.arange(n)[:, None]
+    q = torch.tensor([q for q, _ in WALK_TABLE])
+    k = torch.tensor([k for _, k in WALK_TABLE])
+    return ((tri // sub * 4 * sub + q * sub + tri % sub) * 10 + k).to(device)
+
+
+def _pack_walk_table(cols_rows, sub: int):
+    """(4*Np, 10) sub-block-major rows -> the Hopper walks' (Np, 20) table,
+    in triangle order (so a sub-treelet or a chunk stays one contiguous
+    block), the last column zero."""
+    n = cols_rows.shape[0] // 4
+    table = cols_rows.new_zeros((n, WALK_TABLE_FLOATS))
+    table[:, :len(WALK_TABLE)] = cols_rows.reshape(-1)[_walk_table_index(n, sub, cols_rows.device)]
+    return table
 
 
 @contextlib.contextmanager
@@ -427,28 +470,98 @@ def _check_mxu_shape(what: str, lib, table, tile_rays: int, sub: int) -> None:
                          f"of shared memory, above the card's {limit}")
 
 
-def _walk_cuda(phi_pad, cols_rows, counts, lists, emins, tile_rays: int, mxu: bool = False):
-    """Launch the 'nf' kernel of csrc/mt_shade.cu (with `mxu`, its MXU
-    variant, which takes the `_pack_mma` table) on the current stream;
-    outputs (R_pad,) x4."""
+def _walk_cuda(phi_pad, cols_rows, counts, lists, emins, tile_rays: int, mxu: bool = False,
+               stats=None):
+    """Launch the 'nf' kernel (csrc/nf_walk.cu, on the table
+    `_pack_walk_table` repacks; with `mxu`, the MXU variant of
+    csrc/mt_shade.cu on the `_pack_mma` table) on the current stream;
+    outputs (R_pad,) x4.  `stats`, if given, a (T,) int32 tensor, receives
+    each tile's count of evaluated subs (not with `mxu`)."""
+    if not mxu:
+        sub = cols_rows.shape[0] // (4 * lists.shape[1])
+        return _walk_table_cuda(phi_pad, _pack_walk_table(cols_rows, sub), counts, lists, emins,
+                                tile_rays, stats=stats)
+    if stats is not None:
+        raise ValueError("mt_nf_mxu kernel: no walk counts")
+    return _walk_rows_cuda("mt_nf_mxu", phi_pad, cols_rows, counts, lists, emins, tile_rays)
+
+
+def _walk_cuda_v1(phi_pad, cols_rows, counts, lists, emins, tile_rays: int):
+    """Launch the first design of the 'nf' walk (csrc/mt_shade.cu
+    `tpt_mt_nf_v1`), kept only to compare its redesign with; outputs
+    (R_pad,) x4."""
+    return _walk_rows_cuda("mt_nf_v1", phi_pad, cols_rows, counts, lists, emins, tile_rays)
+
+
+def _walk_rows_cuda(what, phi_pad, rows, counts, lists, emins, tile_rays: int):
+    """Launch `tpt_<what>` of csrc/mt_shade.cu, an nf walk over the
+    sub-block-major rows (or the `_pack_mma` table); outputs (R_pad,) x4."""
     from ... import _build
 
     lib = _build.load()
     dev = phi_pad.device
     n_tiles, ms = lists.shape
-    what = "mt_nf_mxu" if mxu else "mt_nf"
-    _check_inputs(what, (phi_pad, torch.float32), (cols_rows, torch.float32),
+    _check_inputs(what, (phi_pad, torch.float32), (rows, torch.float32),
                   (counts, torch.int32), (lists, torch.int32), (emins, torch.float32), device=dev)
-    sub = cols_rows.shape[0] // (4 * ms)
-    if mxu:
-        _check_mxu_shape(what, lib, cols_rows, tile_rays, sub)
+    sub = rows.shape[0] // (4 * ms)
+    if what == "mt_nf_mxu":
+        _check_mxu_shape(what, lib, rows, tile_rays, sub)
     out = _outputs(phi_pad.shape[1], dev)
-    err = (lib.tpt_mt_nf_mxu if mxu else lib.tpt_mt_nf)(
-        *map(_ptr, (phi_pad, cols_rows, counts, lists, emins, *out)),
+    err = getattr(lib, f"tpt_{what}")(
+        *map(_ptr, (phi_pad, rows, counts, lists, emins, *out)),
         phi_pad.shape[1], tile_rays, n_tiles, ms, sub, _stream(dev))
     if err:
         raise RuntimeError(f"{what} kernel launch failed: {_build.error_string(err)}")
     return out
+
+
+def _walk_table_cuda(phi_pad, table, counts, lists, emins, tile_rays: int, stats=None,
+                     variant=None):
+    """Launch the Hopper 'nf' walk of csrc/nf_walk.cu on the walk table;
+    outputs (R_pad,) x4.  `stats`, if given, a (T,) int32 tensor, receives
+    each tile's count of evaluated subs.  `variant`, (rays a thread,
+    cluster size, bulk-copy staging, lanes a ray), picks one of the
+    measured steps at sub 64 (`tpt_mt_nf_variant`) instead of the kept
+    design."""
+    from ... import _build
+
+    lib = _build.load()
+    dev = phi_pad.device
+    n_tiles, ms = lists.shape
+    _check_inputs("mt_nf", (phi_pad, torch.float32), (table, torch.float32),
+                  (counts, torch.int32), (lists, torch.int32), (emins, torch.float32), device=dev)
+    if table.shape[1] != WALK_TABLE_FLOATS or table.shape[0] % ms or table.data_ptr() % 16:
+        raise ValueError("mt_nf kernel: the table must be `_pack_walk_table`'s (Np, 20) rows")
+    if stats is not None:
+        _check_inputs("mt_nf", (stats, torch.int32), device=dev)
+        if stats.shape != (n_tiles,):
+            raise ValueError("mt_nf kernel: walk stats must be a (T,) int32 tensor")
+    out = _outputs(phi_pad.shape[1], dev)
+    args = (*map(_ptr, (phi_pad, table, counts, lists, emins, *out, stats)),
+            phi_pad.shape[1], tile_rays, n_tiles, ms, table.shape[0] // ms)
+    if variant is None:
+        err = lib.tpt_mt_nf(*args, _stream(dev))
+    else:
+        err = lib.tpt_mt_nf_variant(*args, *(int(x) for x in variant), _stream(dev))
+    if err:
+        raise RuntimeError(f"mt_nf kernel launch failed: {_build.error_string(err)}")
+    return out
+
+
+def walk_shape(fn, *args) -> dict:
+    """What `tpt_mt_nf_shape` / `tpt_mt_stream_shape` (`fn`, by name) say
+    of the kept Hopper walk at this shape: rays a thread, cluster size,
+    threads and registers a thread, static and dynamic shared bytes, CTAs
+    resident per SM, clusters resident on the card, lanes a ray."""
+    from ... import _build
+
+    out = (ctypes.c_int * 9)()
+    err = getattr(_build.load(), fn)(*args, out)
+    if err:
+        raise RuntimeError(f"{fn} failed: {_build.error_string(err)}")
+    keys = ("rpt", "cluster", "threads", "registers", "static_smem", "dynamic_smem",
+            "ctas_per_sm", "clusters", "tpr")
+    return dict(zip(keys, out))
 
 
 def _walk_list_cuda(phi_pad, cols_rows, counts, lists, tile_rays: int, mxu: bool = False):
@@ -669,6 +782,18 @@ def cond_walk_stats(tri_pos, phi_t, *, tile_rays=None, sub=None, plain: bool = F
                         device=phi_t.device)
     walk = _walk_cond_plain if plain else _walk_cond_cuda
     walk(*prep, stats=stats, mxu=mxu)
+    return stats
+
+
+def nf_walk_stats(tri_pos, phi_t, *, tile_rays=None, sub=None, plain: bool = False):
+    """Per-tile walk counts of the 'nf' kernel (or, with `plain=True` or a
+    CPU tensor, of its plain version) on these inputs: (T,) int32, the subs
+    each tile evaluated.  Kernel and plain version agree on them exactly.
+    Launches made here are not counted."""
+    prep = _prepare(tri_pos, phi_t, tile_rays, _sub_tris(sub))
+    stats = torch.zeros((prep[3].shape[0],), dtype=torch.int32, device=phi_t.device)
+    walk = _walk_plain if plain or phi_t.device.type == "cpu" else _walk_cuda
+    walk(*prep, stats=stats)
     return stats
 
 

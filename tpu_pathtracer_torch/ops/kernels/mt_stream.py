@@ -24,30 +24,34 @@ tpu_pathtracer/ops/pallas/mt_shade.py (reached through
 The coefficients are laid out sub-block-major at 32 triangles
 (`_pack_subblock_major`), so a chunk is one contiguous 20 KB block
 (128 triangles x 4 quantities x 10 features, f32), not the TPU's
-lane-padded (128, 128) blocks.  `mt_intersect_stream2_phi` launches the
-CUDA kernel (csrc/mt_stream.cu) for a CUDA tensor and runs
+lane-padded (128, 128) blocks; the kernel reads them repacked into the
+walk table (`_pack_walk_table`: 20 floats a triangle, a chunk 10 KB).
+`mt_intersect_stream2_phi` launches the CUDA kernel (the Hopper walk of
+csrc/stream_walk.cu) for a CUDA tensor and runs
 `mt_intersect_stream2_phi_plain` for a CPU tensor.  The plain version walks
 the same lists, chunks and subs in the same order with the same
 elementwise arithmetic, vectorised over tiles, so the two agree bit for
-bit.
+bit, walk counts included.  The first design of the kernel stays in
+csrc/mt_stream.cu as `_walk_cuda_v1`, for comparison only.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from ..mt_matmul import Hit, ray_features, triangle_columns
 from ..vecmath import INF
+from .mt_intersect import _check_inputs, _outputs, _ptr, _stream
 from .mt_shade import (
     CHUNK_TRIS,
     CHUNKS_PER_SUPER,
     MT_STREAM2_MAX_TRIS,
+    WALK_TABLE_FLOATS,
     _dead_pad_boxes,
     _fold_subs,
     _intersect,
     _pack_subblock_major,
+    _pack_walk_table,
     _pad_rays,
     _pad_to,
     _precull_live_subs,
@@ -61,6 +65,19 @@ from .mt_shade import (
 SUB_TRIS = 32  # the stream's own sub-treelet granule
 SUBS_PER_CHUNK = CHUNK_TRIS // SUB_TRIS
 SUPER_TRIS = CHUNK_TRIS * CHUNKS_PER_SUPER
+# The measured steps of the Hopper walk (`_walk_table_cuda`'s `variant`;
+# csrc/stream_walk.cu `tpt_mt_stream_variant`): (rays a thread, cluster
+# size, bulk-copy staging, decisions by mask, lanes a ray).  Step a: a
+# packed table and RPT rays a thread; b: the bulk-copy prefetch; c:
+# decisions by mask; d: a cluster of C CTAs a tile; e: a ray's triangles
+# split over several lanes.
+WALK_VARIANTS = (
+    (1, 1, 0, 0, 1), (2, 1, 0, 0, 1), (4, 1, 0, 0, 1), (1, 1, 1, 0, 1), (2, 1, 1, 0, 1),
+    (1, 1, 0, 1, 1), (2, 1, 0, 1, 1), (1, 1, 1, 1, 1), (2, 1, 1, 1, 1), (4, 1, 1, 1, 1),
+    (1, 2, 1, 1, 1), (2, 2, 1, 1, 1), (1, 4, 1, 1, 1), (2, 4, 1, 1, 1), (1, 8, 1, 1, 1),
+    (2, 8, 1, 1, 1), (1, 2, 1, 1, 2), (1, 4, 1, 1, 2), (1, 4, 1, 1, 4), (1, 8, 1, 1, 2),
+    (1, 8, 1, 1, 4), (1, 8, 1, 1, 8),
+)
 
 
 def _prepare(tri_pos, phi_t, tile_rays):
@@ -129,41 +146,62 @@ def _walk_plain(phi_pad, cols_rows, chunk_boxes, sub_boxes, counts, lists, emins
 
 def _walk_cuda(phi_pad, cols_rows, chunk_boxes, sub_boxes, counts, lists, emins,
                tile_rays: int, stats=None):
-    """Launch csrc/mt_stream.cu on the current stream; outputs (R_pad,) x4.
+    """Launch the Hopper walk (csrc/stream_walk.cu) on the current stream,
+    on the table `_pack_walk_table` repacks; outputs (R_pad,) x4.
     `stats`, if given, a (T, 3) int32 tensor, receives the walk counts."""
+    return _walk_table_cuda(phi_pad, _pack_walk_table(cols_rows, SUB_TRIS), chunk_boxes,
+                            sub_boxes, counts, lists, emins, tile_rays, stats=stats)
+
+
+def _walk_cuda_v1(phi_pad, cols_rows, chunk_boxes, sub_boxes, counts, lists, emins,
+                  tile_rays: int, stats=None):
+    """Launch the first design of the walk (csrc/mt_stream.cu
+    `tpt_mt_stream_v1`) on the sub-block-major rows, kept only to compare
+    its redesign with; outputs (R_pad,) x4."""
+    return _launch("tpt_mt_stream_v1", phi_pad, cols_rows, 10, chunk_boxes, sub_boxes, counts,
+                   lists, emins, tile_rays, stats)
+
+
+def _walk_table_cuda(phi_pad, table, chunk_boxes, sub_boxes, counts, lists, emins,
+                     tile_rays: int, stats=None, variant=None):
+    """Launch the Hopper walk on the walk table; outputs (R_pad,) x4.
+    `variant`, (rays a thread, cluster size, bulk-copy staging, decisions
+    by mask, lanes a ray), picks one of the measured steps
+    (`tpt_mt_stream_variant`) instead of the kept design."""
+    name = "tpt_mt_stream" if variant is None else "tpt_mt_stream_variant"
+    return _launch(name, phi_pad, table, WALK_TABLE_FLOATS, chunk_boxes, sub_boxes, counts,
+                   lists, emins, tile_rays, stats, variant or ())
+
+
+def _launch(name, phi_pad, table, width, chunk_boxes, sub_boxes, counts, lists, emins,
+            tile_rays, stats, variant=()):
     from ... import _build
 
     lib = _build.load()
+    dev = phi_pad.device
     r_pad = phi_pad.shape[1]
     n_tiles, n_list = lists.shape
-    for x, dt in ((phi_pad, torch.float32), (cols_rows, torch.float32),
+    _check_inputs("mt_stream", (phi_pad, torch.float32), (table, torch.float32),
                   (chunk_boxes, torch.float32), (sub_boxes, torch.float32),
-                  (counts, torch.int32), (lists, torch.int32), (emins, torch.float32)):
-        if x.dtype != dt or not x.is_contiguous() or x.device != phi_pad.device:
-            raise ValueError("mt_stream kernel: bad input dtype, layout or device")
+                  (counts, torch.int32), (lists, torch.int32), (emins, torch.float32), device=dev)
     n_chunks = chunk_boxes.shape[0]
-    if (cols_rows.shape != (4 * n_chunks * CHUNK_TRIS, 10) or cols_rows.data_ptr() % 16
+    rows = (4 if width == 10 else 1) * n_chunks * CHUNK_TRIS
+    if (table.shape != (rows, width) or table.data_ptr() % 16
             or sub_boxes.shape[0] != n_chunks * SUBS_PER_CHUNK
             or n_chunks != n_list * CHUNKS_PER_SUPER):
         raise ValueError("mt_stream kernel: coefficient table or boxes do not match the lists")
-    if stats is not None and (stats.shape != (n_tiles, 3) or stats.dtype != torch.int32
-                              or not stats.is_contiguous() or stats.device != phi_pad.device):
-        raise ValueError("mt_stream kernel: walk stats must be a (T, 3) int32 tensor")
-    dev = phi_pad.device
-    t = torch.empty((r_pad,), dtype=torch.float32, device=dev)
-    idx = torch.empty((r_pad,), dtype=torch.int32, device=dev)
-    u = torch.empty_like(t)
-    v = torch.empty_like(t)
-    p = lambda x: ctypes.c_void_p(x.data_ptr())
-    err = lib.tpt_mt_stream(
-        p(phi_pad), p(cols_rows), p(chunk_boxes), p(sub_boxes), p(counts), p(lists), p(emins),
-        p(t), p(idx), p(u), p(v), ctypes.c_void_p(None if stats is None else stats.data_ptr()),
+    if stats is not None:
+        _check_inputs("mt_stream", (stats, torch.int32), device=dev)
+        if stats.shape != (n_tiles, 3):
+            raise ValueError("mt_stream kernel: walk stats must be a (T, 3) int32 tensor")
+    out = _outputs(r_pad, dev)
+    err = getattr(lib, name)(
+        *map(_ptr, (phi_pad, table, chunk_boxes, sub_boxes, counts, lists, emins, *out, stats)),
         r_pad, tile_rays, n_tiles, n_list, SUB_TRIS, CHUNKS_PER_SUPER,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
-    )
+        *(int(x) for x in variant), _stream(dev))
     if err:
         raise RuntimeError(f"mt_stream kernel launch failed: {_build.error_string(err)}")
-    return t, idx, u, v
+    return out
 
 
 def mt_intersect_stream2_phi_plain(tri_pos, phi_t, *, tile_rays=None) -> Hit:

@@ -92,6 +92,23 @@ def _sort_bounces(override=None) -> int:
     return int(os.environ.get("TPT_SORT_BOUNCES", str(_SORT_BOUNCES)))
 
 
+def _sort_window(override=None) -> int:
+    """Window of the per-bounce binning sort: `override`
+    (RenderConfig.sort_window), then TPT_SORT_WINDOW, as the JAX package
+    resolves it (`tpu_pathtracer/ops/trace.py:366-387`).  The windowed sort
+    is not ported, so the default is 0 (one global sort) where JAX's is
+    32768, and a nonzero window raises (`_check_sort_window`).  The image
+    does not depend on the window."""
+    if override is not None:
+        return int(override)
+    return int(os.environ.get("TPT_SORT_WINDOW", "0"))
+
+
+def _check_sort_window(override=None) -> None:
+    if _sort_window(override):
+        raise NotImplementedError("windowed binning sort is not ported yet (ROADMAP.md)")
+
+
 def _intersector_phi(kind: str, plain: bool):
     """The MT wrapper for a resolved intersector: (tri_pos, phi_t (10, R),
     tile_rays=...) -> Hit."""
@@ -427,7 +444,8 @@ def render_frame(scene, params, *, width: int, height: int, aspect: float,
     'bvh8' ('auto' above 262,144), take the plain loop (`trace_rays`) over a
     row-major pixel grid, as the JAX package does; a differentiable frame is
     differentiable by torch autograd.  `sort_bounces`, `sort_window` and
-    `tile_rays` are options of the fused loop only.
+    `tile_rays` are options of the fused loop only; a nonzero window
+    (`sort_window`, then TPT_SORT_WINDOW) raises NotImplementedError.
 
     `plain=True` intersects through the kernels' plain PyTorch versions on
     any device (a reference for the kernel path); the default launches the
@@ -439,8 +457,8 @@ def render_frame(scene, params, *, width: int, height: int, aspect: float,
     tri_pos = scene.packed.tri_pos
     kind = resolve_intersector(intersector, tri_pos.shape[0])
     fused = kind in ("mt_pallas", "mt_stream") and not differentiable
-    if sort_window and fused:
-        raise NotImplementedError("windowed binning sort is not ported yet (ROADMAP.md)")
+    if fused:
+        _check_sort_window(sort_window)
     device = tri_pos.device
 
     if not fused:

@@ -17,10 +17,13 @@ Methodology, as in the JAX package:
   3. Linearity gate: the slope must match T(2n)/2n within `linearity_tol`;
      if doubling the work does not roughly double the time, the number is
      refused or the slower estimate published.
-  4. Device-time cross-check: one run of n frames under torch.profiler
-     (`utils.devtime.device_time`), whose summed CUDA activity per frame is
-     reported beside the slope; device time above twice the slope means
-     the wall clock missed the work, and the number is refused.
+  4. Device-time cross-check: the budgets of n and 2n frames once each
+     under torch.profiler (`utils.devtime.device_time`); the slope of their
+     summed CUDA activity, (D(2n) - D(n)) / n, is reported beside the wall
+     slope, the fixed device cost of a call cancelled as in the wall slope
+     (the JAX package divides one run's device time by n).  Device time
+     above twice the wall slope means the wall clock missed the work, and
+     the number is refused.
   5. Physics gate: the throughput the slope implies, at a minimal cost per
      ray, must stay under the H100 SXM data sheet's peaks.
 
@@ -204,9 +207,12 @@ def measure_budget(
         log("profiler cross-check skipped: past deadline grace")
         profile = False
     if profile:
-        dt = device_time(run(n1), device=device)
-        if dt["ok"] and dt["total_s"] > 0:
-            device_per_frame = dt["total_s"] / n1
+        # the device time's own slope over the same two budgets, so a fixed
+        # device cost of a call cancels as it does in the wall slope
+        d1 = device_time(run(n1), device=device)
+        d2 = device_time(run(n2), device=device) if d1["ok"] else d1
+        if d2["ok"] and d2["total_s"] > d1["total_s"] > 0:
+            device_per_frame = (d2["total_s"] - d1["total_s"]) / (n2 - n1)
             log(f"profiler device time: {device_per_frame*1e3:.2f} ms/frame "
                 f"(wall slope {slope*1e3:.2f} ms/frame)")
             if device_per_frame > 2.0 * slope:
@@ -215,8 +221,11 @@ def measure_budget(
                     f"device time {device_per_frame*1e3:.2f}ms/frame exceeds wall slope "
                     f"{slope*1e3:.2f}ms/frame by >2x: wall timing did not capture execution")
                 slope = device_per_frame
+        elif d2["ok"]:
+            log(f"profiler device time not increasing: {d1['total_s']:.6f} s at {n1} frames, "
+                f"{d2['total_s']:.6f} s at {n2}")
         else:
-            log(f"profiler unavailable: {dt.get('error', 'no device events')}")
+            log(f"profiler unavailable: {d2.get('error', 'no device events')}")
 
     # --- physics gate -----------------------------------------------------------
     rays_per_frame = width * height * spp * bounces

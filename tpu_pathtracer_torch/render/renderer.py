@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..config import PostConfig, RenderConfig
-from ..ops.trace import accumulate, render_frame, resolve_intersector
+from ..ops.trace import _check_sort_window, accumulate, render_frame, resolve_intersector
 from ..post.pipeline import postprocess
 from ..scene.host import Scene
 from ..scene.types import Camera, RenderParams, SceneData
@@ -46,7 +46,7 @@ Event = str  # 'reset' | 'start' | 'pause' | 'progress' | 'complete'
 
 def make_passes(width: int, height: int, aspect: float, samples_per_frame: int,
                 max_bounces: int, accumulate_frames: bool, intersector: str = "auto",
-                sort_bounces=None, tile_rays=None):
+                sort_bounces=None, tile_rays=None, sort_window=None):
     """The progressive frame's two passes: raytrace (scene, params) -> frame
     image, and accumulate (acc, image, frame) -> acc, folding the image into
     `acc` in place (the JAX step donates its accumulator, so nothing else
@@ -57,6 +57,7 @@ def make_passes(width: int, height: int, aspect: float, samples_per_frame: int,
             scene, params, width=width, height=height, aspect=aspect,
             samples_per_frame=samples_per_frame, max_bounces=max_bounces,
             intersector=intersector, sort_bounces=sort_bounces, tile_rays=tile_rays,
+            sort_window=sort_window,
         )
 
     def accumulate_pass(acc: torch.Tensor, img: torch.Tensor, frame: int) -> torch.Tensor:
@@ -67,12 +68,12 @@ def make_passes(width: int, height: int, aspect: float, samples_per_frame: int,
 
 def make_frame_step(width: int, height: int, aspect: float, samples_per_frame: int,
                     max_bounces: int, accumulate_frames: bool, intersector: str = "auto",
-                    sort_bounces=None, tile_rays=None):
+                    sort_bounces=None, tile_rays=None, sort_window=None):
     """The progressive step: render one frame and fold it into `acc` in
     place (`make_passes` run back to back)."""
     raytrace, accumulate_pass = make_passes(
         width, height, aspect, samples_per_frame, max_bounces, accumulate_frames, intersector,
-        sort_bounces, tile_rays)
+        sort_bounces, tile_rays, sort_window)
 
     def step(scene: SceneData, params: RenderParams, acc: torch.Tensor) -> torch.Tensor:
         return accumulate_pass(acc, raytrace(scene, params), params.frame)
@@ -130,14 +131,13 @@ class Renderer:
         c = self._config
         if c.blue_noise:
             raise NotImplementedError("blue-noise AA jitter is not ported yet (ROADMAP.md)")
-        if c.sort_window:
-            raise NotImplementedError("windowed binning sort is not ported yet (ROADMAP.md)")
+        _check_sort_window(c.sort_window)  # the config's window, then TPT_SORT_WINDOW
         resolve_intersector(c.intersector, 0)  # rejects unknown names
         self._raytrace, self._accumulate = make_passes(
             c.scaled_width, c.scaled_height, aspect=c.width / c.height,
             samples_per_frame=c.samples_per_frame, max_bounces=c.max_bounces,
             accumulate_frames=c.accumulate, intersector=c.intersector,
-            sort_bounces=c.sort_bounces, tile_rays=c.tile_rays,
+            sort_bounces=c.sort_bounces, tile_rays=c.tile_rays, sort_window=c.sort_window,
         )
         self._timed_warm = False
         self._acc = self._zero_acc()
