@@ -9,18 +9,22 @@ public entry points:
   * headline: `Renderer(...).render_all()` and `display()` on the default
     scene (1,998 triangles) at 512x512, 1 sample per pixel, 4 bounces, 16
     frames, with denoise and ACES; its intersections go through the
-    near-to-far MT kernel (csrc/mt_shade.cu);
+    near-to-far MT kernel (csrc/nf_walk.cu);
   * stress: the same on the JAX sweep's stress100K_512 scene (a
     101,760-triangle sphere and a plane, padded to 131,072) at 512x512, 1
     sample per pixel, 6 bounces, 4 frames; its intersections go through
-    the streamed MT kernel (csrc/mt_stream.cu);
+    the streamed MT kernel (csrc/stream_walk.cu);
   * training: `diff.invert` with the JAX CLI's `invert` defaults (the
     default scene under a 512x1024 gradient sky, 256x256, 1 sample per
     pixel, 4 bounces, materials.color from np.random.default_rng(0), Adam
     at 5e-2, 60 steps), through the near-to-far kernel and torch autograd;
     then the loss gradient at the initial colors with TPT_CULL=list and
-    =cond, through the list and cond kernels (csrc/mt_shade.cu), and with
-    intersector='bvh8' (the fat-leaf BVH walk, torch ops);
+    =cond, through the list and cond kernels (csrc/mt_shade.cu,
+    csrc/cond_walk.cu), and with intersector='bvh8' (the fat-leaf BVH
+    walk, torch ops);
+  * cond end to end: the headline frame and the training step under
+    TPT_CULL=nf and =cond, in turns, with cond's wrapper split into its
+    parts (padding and packing, boxes, table repack, walk);
   * round-2 MT: `mt_intersect_pallas` and `mt_intersect_stream`
     (csrc/mt_intersect.cu) on the headline camera's 262,144 primary rays,
     and the streamed one on the stress scene's;
@@ -43,21 +47,25 @@ public entry points:
     headline shape, `render` with --timing, --checkpoint and --resume
     (equal to a fresh render bit for bit), and `render --env sky:...`.
 
-The near-to-far and streamed walks are Hopper redesigns (csrc/nf_walk.cu,
-csrc/stream_walk.cu).  Their walk phase holds each, its first
-design (`_walk_cuda_v1`) and every measured step of the redesign (packed
-table and rays a thread, bulk-copy prefetch, decisions by mask, a thread
-block cluster a tile, a ray's triangles split over lanes; the sweep of
-rays a thread x cluster x lanes a ray) bit for bit to the
-plain walk with equal per-tile walk counts, on the headline scene (nf and
-streamed) and the stress scene (streamed), primary and first-bounce rays;
-prints each case's per-tile walk distribution (mean, max, the five
-heaviest tiles), the old and kept walks timed in turns (old, kept, kept,
-old), the table repack timed apart, every step's time, the walk bound (the
-walk's own pairs and slab tests) and the critical-path bound (the heaviest
-tile's work over the FP32 share of the SMs it runs on), and the kept
-designs' registers, shared memory and CTAs per SM.  The nf walk counts are
-also held to the plain walk's at sub 32, 64 and 128.
+The near-to-far, cond and streamed walks are Hopper redesigns
+(csrc/nf_walk.cu, csrc/cond_walk.cu, csrc/stream_walk.cu).  Their walk
+phase holds each bit for bit to the plain walk with equal per-tile walk
+counts, on the headline scene (nf, cond at sub 64 and streamed) and the
+stress scene (streamed), primary and first-bounce rays; prints each
+case's per-tile walk distribution (mean, max, the five heaviest tiles),
+the walk timed twice (cond in turns with its first design,
+`tpt_mt_cond_v1`: old, kept, kept, old), the table repack timed apart,
+the walk bound (the walk's own pairs and slab tests) and the
+critical-path bound (the heaviest tile's work over the FP32 share of the
+SMs it runs on), and the kept designs' registers, shared memory and CTAs
+per SM.  The nf and cond walk counts are also held to the plain walk's at
+every sub of the cull phase.  The denoise phase holds the tiled kernel
+(csrc/denoise.cu) to the plain version and to its first design
+(`tpt_denoise_v1`) at 512x512, 1080x1920, 300x517 and 6x10 and at a
+second radius, and times the kernel launch alone and the whole wrapper
+call apart, old and new in turns, at 512x512 and 1080x1920.  A kernel's
+time (`_kernel_ms`) is CUDA events around launches queued back to back
+behind a sleep kernel; the profiler only checks which kernel they launch.
 
 For each path it checks that the path's kernels were launched in that run
 (and the other MT kernels not), that what comes out is right (images
@@ -192,6 +200,60 @@ def _time_ms(fn, warmup: int, reps: int) -> float:
     return statistics.median(times)
 
 
+def _kernel_ms(fn, match: str, n: int = 50, rounds: int = 3) -> float:
+    """Milliseconds a call of `fn()`, which launches one kernel whose name
+    contains `match` and no other work, by CUDA events.  Each round queues
+    n calls between two CUDA events behind a sleep kernel, so the card runs
+    them back to back without waiting on the host (checked: the first event
+    has not run when the last call is queued); the reading includes the
+    gaps between launches.  Median over the rounds.  A profiled batch of n
+    calls first checks that `fn` launches that kernel: the profiler must
+    record at least one and at most n of them.  Its durations are not
+    used: torch.profiler drops kernel records now and then, and its
+    kernel durations do not sum to the events' interval (PERF.md)."""
+    import torch
+
+    from tpu_pathtracer_torch.utils.devtime import device_time
+
+    def batch():
+        for _ in range(n):
+            fn()
+
+    got = device_time(batch, match=match)
+    _check(0 < got["count"] <= n, f"the profiler recorded {got['count']} {match} kernels for "
+           f"{n} launches: {got}")
+    times = []
+    sleep = 2 ** 25  # cycles, about 17 ms at 1.98 GHz
+    while len(times) < rounds:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep)  # the card busy while the host queues the calls
+        start.record()
+        batch()
+        ahead = not start.query()
+        end.record()
+        end.synchronize()
+        if not ahead:  # the queue ran dry: sleep longer
+            sleep *= 2
+            _check(sleep <= 2 ** 30, f"{match}: {n} calls take longer to queue than 0.5 s")
+            continue
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def _fmt_ms(xs) -> str:
+    """Milliseconds to 4 places."""
+    return ", ".join(f"{x:.4f}" for x in xs)
+
+
+def _clocks() -> str:
+    """The card's SM clock, its maximum and its power draw, as nvidia-smi
+    reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60).stdout.strip()
+
+
 def _check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -273,6 +335,74 @@ def _denoise_bound(img):
     per_pixel = sum(17 + (9 if fy > 0.0 else 0) for fy in taps[:, 2].tolist()) + 3
     h, w, _ = img.shape
     return _bound(h * w * per_pixel, 2 * img.numel() * 4)
+
+
+# The denoise phase's shapes (height, width, sigma): the headline display,
+# the envlit_1080p cell's, an odd shape, one smaller than the halo, and a
+# second radius (sigma 3: the tap table read at run time); and the shapes
+# it times.
+DENOISE_SHAPES = ((512, 512, 5.0), (1080, 1920, 5.0), (300, 517, 5.0), (6, 10, 5.0),
+                  (300, 517, 3.0), (6, 10, 3.0))
+DENOISE_TIMED = ((512, 512), (1080, 1920))
+
+
+def _denoise_phase(kdenoise, results, tag):
+    """The tiled denoise kernel against the plain version (DENOISE_TOL) and
+    against its first design (`tpt_denoise_v1`, bit for bit) at every
+    DENOISE_SHAPES entry; then at DENOISE_TIMED the whole wrapper call and
+    the kernel launch alone (`_launch`), old and new in turns (old, new,
+    new, old), the plain version and the bound.  The wrapper's time is
+    CUDA events around one call (what a display pays); the kernel's,
+    `_kernel_ms`.  Returns (largest difference from plain, {(h, w):
+    times})."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda")
+    worst = 0.0
+    for h, w, sigma in DENOISE_SHAPES:
+        img = torch.from_numpy(np.random.default_rng(h + w).random((h, w, 3), np.float32)).to(dev)
+        out_k = kdenoise.smart_denoise(img, sigma=sigma)
+        out_p = kdenoise.smart_denoise_plain(img, sigma=sigma)
+        out_v = kdenoise._denoise_v1(img, sigma=sigma)
+        torch.cuda.synchronize()
+        err = float((out_k - out_p).abs().max())
+        torch.testing.assert_close(out_k, out_p, **DENOISE_TOL)
+        same = torch.equal(out_k, out_v)
+        _check(same, f"denoise {h}x{w} sigma {sigma}: the tiled kernel differs from tpt_denoise_v1")
+        print(f"denoise {h}x{w} sigma {sigma}: max abs diff vs plain {err:.3g} (atol 2e-5, rtol "
+              f"1e-4); equal to tpt_denoise_v1 bit for bit")
+        worst = max(worst, err)
+        results[f"denoise_{h}x{w}_sigma{sigma:g}_max_abs_err"] = err
+    timing = {}
+    for h, w in DENOISE_TIMED:
+        img = torch.from_numpy(np.random.default_rng(0).random((h, w, 3), np.float32)).to(dev)
+        img, out, taps = kdenoise._prepare(img, 5.0, 1.0, 0.08)
+        fns = {"new": (lambda: kdenoise.smart_denoise(img),
+                       lambda: kdenoise._launch("tpt_denoise", img, out, taps), "denoise_fixed"),
+               "v1": (lambda: kdenoise._denoise_v1(img),
+                      lambda: kdenoise._launch("tpt_denoise_v1", img, out, taps), "denoise_v1")}
+        got = {k: {"wrapper": [], "kernel": []} for k in fns}
+        for which in ("v1", "new", "new", "v1"):
+            wrapper, kernel, name = fns[which]
+            got[which]["wrapper"].append(_time_ms(wrapper, 3, 20))
+            got[which]["kernel"].append(_kernel_ms(kernel, name))
+        plain_ms = _time_ms(lambda: kdenoise.smart_denoise_plain(img), 1, 3)
+        bound_ms, bound_by = _denoise_bound(img)
+        print(f"timing {tag}: denoise {h}x{w} in turns (v1, new, new, v1): wrapper "
+              + ", ".join(f"{x:.4f}" for x in (got["v1"]["wrapper"][0], *got["new"]["wrapper"],
+                                                got["v1"]["wrapper"][1]))
+              + " ms; kernel alone (CUDA events, launches queued back to back) "
+              + _fmt_ms((got["v1"]["kernel"][0], *got["new"]["kernel"], got["v1"]["kernel"][1]))
+              + f" ms; plain {plain_ms:.3f} ms; bound {bound_ms:.5f} ms ({bound_by})")
+        timing[(h, w)] = dict(
+            ms=statistics.mean(got["new"]["wrapper"]),
+            kernel_ms=statistics.mean(got["new"]["kernel"]),
+            v1_ms=statistics.mean(got["v1"]["wrapper"]),
+            v1_kernel_ms=statistics.mean(got["v1"]["kernel"]),
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, turns=got)
+        results[f"denoise_{h}x{w}"] = timing[(h, w)]
+    return worst, timing
 
 
 def _outlier_rule(a, b, mean_tol=1e-4, outlier_frac=0.01, outlier_tol=0.05):
@@ -478,7 +608,8 @@ def _cull_phase(mt_shade, tri_pos, rays, results, tag):
             walk_ms = _time_ms(lambda: walk_k(*prep), 3, 20)
             walk_plain_ms = _time_ms(lambda: walk_p(*prep), 1, 3)
             results[f"{name}_walk_ms"], results[f"{name}_walk_plain_ms"] = walk_ms, walk_plain_ms
-            print(f"timing {tag}: {name} primary kernel walk{' and repack' * (cull == 'nf')} "
+            print(f"timing {tag}: {name} primary kernel walk"
+                  f"{' and repack' * (cull in ('nf', 'cond'))} "
                   f"{walk_ms:.3f} ms, plain walk "
                   f"{walk_plain_ms:.3f} ms")
             del prep
@@ -579,6 +710,27 @@ def _training_phase(pt, counters, results, tag, profile: bool):
     results.update(invert_launches=launches, invert_seconds=seconds, invert_step_ms=step_ms,
                    step_ms=warm_ms, step_plain_ms=plain_ms, invert_losses=losses,
                    invert_color_max_abs_err=err)
+
+    # cond end to end: the same warm step under TPT_CULL=nf and =cond, in
+    # turns, each launching only its own MT kernel (counts set to 0 just
+    # before each turn's first step and read after its last)
+    cull_steps = {"nf": [], "cond": []}
+    for cull in ("nf", "cond", "cond", "nf"):
+        def turn(cull=cull):
+            for fn in counters.values():
+                fn.launches = 0
+            ms = _time_ms(steps[False], 2, 10)
+            got = {name: fn.launches for name, fn in counters.items()}
+            _check(got[f"mt_{cull}"] >= 12 and not _mt_launched(got, (f"mt_{cull}",)),
+                   f"TPT_CULL={cull} training steps: launches {got}")
+            return ms
+
+        cull_steps[cull].append(_with_env({"TPT_CULL": cull}, turn))
+    print(f"timing {tag}: training step in turns (nf, cond, cond, nf): "
+          + ", ".join(f"{x:.3f}" for x in (cull_steps["nf"][0], *cull_steps["cond"],
+                                            cull_steps["nf"][1]))
+          + " ms (median of 10 warm steps each; each turn launched only its own MT kernel)")
+    results["step_cull_ms"] = cull_steps
 
     # the loss gradient at the initial colors through each culling kernel
     def color_grad():
@@ -967,7 +1119,6 @@ def _mxu_phase(mt_shade, tri_pos, rays, results, tag):
 
 
 H100_SMS = 132  # streaming multiprocessors of the H100 SXM
-V1_MAX_TILE = 4096  # the first walks' widest tile (8 rays a thread x 512)
 
 
 def _tile_dist(counts):
@@ -979,23 +1130,29 @@ def _tile_dist(counts):
                 heaviest=[(int(i), int(v)) for v, i in zip(top.values, top.indices)])
 
 
-def _walk_work(kind, stats, tile_rays, sub):
+def _walk_work(kind, stats, tile_rays, sub, n_chunks=0, alive=None):
     """FP32 operations of a walk per tile (T,), from its walk counts: the
-    pairs of the evaluated subs (PAIR_OPS_NF each) and, for the streamed
-    walk, its slab tests (16 chunk boxes per walked super, 4 sub boxes per
-    staged chunk, SLAB_OPS each), every lane of the tile."""
+    pairs of the evaluated subs (PAIR_OPS_NF each) and the slab tests
+    (SLAB_OPS each), every lane of the tile: for the streamed walk 16 chunk
+    boxes per walked super and 4 sub boxes per staged chunk; for cond every
+    chunk box of a tile that moves (`alive`, (T,)) and the subs of each
+    live chunk (none at sub 128, where the chunk is the sub)."""
     s = stats.double()
     if kind == "nf":
         return s * sub * tile_rays * PAIR_OPS_NF
+    if kind == "cond":
+        spc = 128 // sub
+        slabs = alive.double() * n_chunks + s[:, 0] * (spc if spc > 1 else 0)
+        return (s[:, 1] * sub * PAIR_OPS_NF + slabs * SLAB_OPS) * tile_rays
     return (s[:, 2] * sub * PAIR_OPS_NF + (s[:, 0] * 16 + s[:, 1] * 4) * SLAB_OPS) * tile_rays
 
 
-def _walk_bounds(kind, stats, tile_rays, sub, n_tris, n_rays, cluster):
-    """(walk bound ms, its binding term, critical-path bound ms): the walk's
-    own work over the FP32 peak against its bytes over the HBM rate; the
-    heaviest tile's work over the FP32 peak share of the `cluster` SMs it
-    runs on (67 TFLOP/s / 132 SMs each)."""
-    work = _walk_work(kind, stats, tile_rays, sub)
+def _walk_bounds(work, n_tris, n_rays, cluster):
+    """(walk bound ms, its binding term, critical-path bound ms) of a walk
+    whose per-tile work is `work`: its whole work over the FP32 peak
+    against its bytes over the HBM rate; the heaviest tile's work over the
+    FP32 peak share of the `cluster` SMs it runs on (67 TFLOP/s / 132 SMs
+    each)."""
     walk_ms, by = _bound(float(work.sum()), _mt_bytes(n_tris, n_rays, 20))
     critical_ms = float(work.max()) / (H100_FP32 / H100_SMS * cluster) * 1e3
     return walk_ms, by, critical_ms
@@ -1051,112 +1208,132 @@ def _sass_loads(lib_path: Path, kernels: dict, dump_dir=None) -> dict:
 
 
 def _walk_cases(tri_pos, rays, s_tri, s_rays):
-    """The walk phase's cases: the nf walk on the headline scene, the
-    streamed walk on the headline and the stress scene, each on primary
-    and first-bounce rays (nf cannot take the stress scene's 131,072
-    triangles)."""
+    """The walk phase's cases: the nf and cond walks and the streamed walk
+    on the headline scene, the streamed walk on the stress scene, each on
+    primary and first-bounce rays (nf and cond cannot take the stress
+    scene's 131,072 triangles)."""
     cases = {}
     for what in ("primary", "bounce1"):
         cases[f"nf_headline_{what}"] = ("nf", tri_pos, rays[what][0])
+        cases[f"cond_headline_{what}"] = ("cond", tri_pos, rays[what][0])
         cases[f"stream_headline_{what}"] = ("stream", tri_pos, rays[what][0])
         cases[f"stream_stress_{what}"] = ("stream", s_tri, s_rays[what][0])
     return cases
 
 
+# Each walk's kernel by name, as the profiler reports it.
+WALK_KERNELS = {"nf": "nf_walk_kernel", "cond": "cond_walk_kernel", "cond_v1": "mt_cond_kernel",
+                "stream": "stream_walk_kernel"}
+
+
+def _walk_setup(mt_shade, mt_stream, kind, tri_pos, phi):
+    """(prep, sub, plain walk, kept walk, first design or None, stats
+    shape) of one walk case; the walks take `stats=` and the kept one reads
+    the table `_pack_walk_table` packed once here."""
+    if kind == "nf":
+        sub = mt_shade.SUB_TRIS
+        prep = mt_shade._prepare(tri_pos, phi, None, sub)
+        table = mt_shade._pack_walk_table(prep[1], sub)
+        return (prep, sub, mt_shade._walk_plain,
+                lambda stats=None: mt_shade._walk_table_cuda(prep[0], table, *prep[2:5], prep[-1],
+                                                             stats=stats),
+                None, (prep[3].shape[0],))
+    if kind == "cond":
+        sub = mt_shade.SUB_TRIS
+        prep = mt_shade._prepare_cond(tri_pos, phi, None, sub)
+        table = mt_shade._pack_walk_table(prep[1], sub)
+        return (prep, sub, mt_shade._walk_cond_plain,
+                lambda stats=None: mt_shade._walk_cond_table_cuda(prep[0], table, *prep[2:],
+                                                                  stats=stats),
+                lambda stats=None: mt_shade._walk_cond_cuda_v1(*prep, stats=stats),
+                (prep[0].shape[1] // prep[-1], 2))
+    sub = mt_stream.SUB_TRIS
+    prep = mt_stream._prepare(tri_pos, phi, None)
+    table = mt_shade._pack_walk_table(prep[1], sub)
+    return (prep, sub, mt_stream._walk_plain,
+            lambda stats=None: mt_stream._walk_table_cuda(prep[0], table, *prep[2:7], prep[-1],
+                                                          stats=stats),
+            None, (prep[5].shape[0], 3))
+
+
 def _walk_phase(mt_shade, mt_stream, cases, results, tag):
-    """The Hopper redesigns of #1 (csrc/nf_walk.cu) and #3
-    (csrc/stream_walk.cu) on each case (kernel, scene, rays): the kept
-    design, the first design (`_walk_cuda_v1`) and every measured
-    step (`NF_WALK_VARIANTS` at sub 64, `WALK_VARIANTS`) held bit for bit
-    to the plain walk, with equal per-tile walk counts; the per-tile walk
-    distribution; the repack (`_pack_walk_table`) timed apart; the old and
-    kept walks timed in turns (old, kept, kept, old); every step timed
-    (the RPT x cluster sweep); the walk and critical-path bounds.  Returns
-    {case: summary}."""
+    """The Hopper walks of #1 (csrc/nf_walk.cu), #4b (csrc/cond_walk.cu)
+    and #3 (csrc/stream_walk.cu) on each case (kernel, scene, rays): the
+    kept design held bit for bit to the plain walk with equal per-tile walk
+    counts (cond's first design, `tpt_mt_cond_v1`, too); the per-tile walk
+    distribution; the repack (`_pack_walk_table`) timed apart; the walk
+    timed twice (cond in turns with its first design: old, kept, kept,
+    old), as the kernel's time by CUDA events around launches queued back
+    to back (`_kernel_ms`), and as CUDA events around
+    one call (the host launch path included); the walk and
+    critical-path bounds.  Returns {case: summary}."""
     import torch
 
     shapes = {"nf": mt_shade.walk_shape("tpt_mt_nf_shape", mt_shade.SUB_TRIS, 512),
+              "cond": mt_shade.walk_shape("tpt_mt_cond_shape", mt_shade.SUB_TRIS, 512),
               "stream": mt_shade.walk_shape("tpt_mt_stream_shape", 512)}
     for kind, shape in shapes.items():
         print(f"walk {kind} kept design at a 512-ray tile: {shape}")
         results[f"walk_{kind}_shape"] = shape
     out = {}
     for key, (kind, tri_pos, phi) in cases.items():
-        module = mt_shade if kind == "nf" else mt_stream
-        if kind == "nf":
-            sub = mt_shade.SUB_TRIS
-            prep = mt_shade._prepare(tri_pos, phi, None, sub)
-            stats_shape, variants = (prep[3].shape[0],), mt_shade.NF_WALK_VARIANTS
-            head, tail = prep[:1], prep[2:5]
-        else:
-            sub = mt_stream.SUB_TRIS
-            prep = mt_stream._prepare(tri_pos, phi, None)
-            stats_shape, variants = (prep[5].shape[0], 3), mt_stream.WALK_VARIANTS
-            head, tail = prep[:1], prep[2:7]
+        prep, sub, plain, kept, v1, stats_shape = _walk_setup(mt_shade, mt_stream, kind, tri_pos,
+                                                              phi)
         tile = prep[-1]
-        table = mt_shade._pack_walk_table(prep[1], sub)
         sp = torch.zeros(stats_shape, dtype=torch.int32, device=phi.device)
-        hp = module._walk_plain(*prep, stats=sp)
+        hp = plain(*prep, stats=sp)
 
-        def table_walk(variant=None, stats=None):
-            return module._walk_table_cuda(*head, table, *tail, tile, stats=stats,
-                                           variant=variant)
-
-        def check(what, hits, stats=None):
+        def check(what, hits, stats):
             _check(all(torch.equal(a, b) for a, b in zip(hits, hp)),
                    f"walk {key} {what}: hits differ from the plain walk's")
-            _check(stats is None or torch.equal(stats, sp),
-                   f"walk {key} {what}: walk counts differ from the plain walk's")
+            _check(torch.equal(stats, sp), f"walk {key} {what}: walk counts differ from the plain "
+                   "walk's")
 
-        sk = torch.zeros_like(sp)
-        check("kept", table_walk(stats=sk), sk)
-        v1 = tile <= V1_MAX_TILE
-        if v1:
-            sv = torch.zeros_like(sp) if kind == "stream" else None
-            check("v1", module._walk_cuda_v1(*prep, **({"stats": sv} if sv is not None else {})),
-                  sv)
+        for what, fn in (("kept", kept), ("v1", v1)):
+            if fn is not None:
+                sk = torch.zeros_like(sp)
+                check(what, fn(stats=sk), sk)
         torch.cuda.synchronize()
-        evaluated = sp if kind == "nf" else sp[:, 2]
+        evaluated = sp if kind == "nf" else sp[:, -1]  # subs evaluated
         dist = {"subs": _tile_dist(evaluated)}
+        if kind == "cond":
+            dist.update(chunks=_tile_dist(sp[:, 0]))
         if kind == "stream":
             dist.update(supers=_tile_dist(sp[:, 0]), chunks=_tile_dist(sp[:, 1]))
         heavy = int(evaluated.argmax())
 
-        times = {"v1": [], "kept": []}
+        times, calls = {"v1": [], "kept": []}, {"v1": [], "kept": []}
         for which in (("v1", "kept", "kept", "v1") if v1 else ("kept", "kept")):
-            fn = (lambda: module._walk_cuda_v1(*prep)) if which == "v1" else table_walk
-            times[which].append(_time_ms(fn, 3, 20))
+            fn = kept if which == "kept" else v1
+            times[which].append(_kernel_ms(fn, WALK_KERNELS[kind + "_v1" * (which == "v1")]))
+            calls[which].append(_time_ms(fn, 3, 20))
         repack_ms = _time_ms(lambda: mt_shade._pack_walk_table(prep[1], sub), 3, 20)
-        sweep = {}
-        for v in variants:
-            sv = torch.zeros_like(sp)
-            check(f"variant {v}", table_walk(v, sv), sv)
-            sweep[v] = _time_ms(lambda v=v: table_walk(v), 2, 10)
         cluster = shapes[kind]["cluster"]
-        walk_bound, walk_by, critical = _walk_bounds(kind, sp, tile, sub, tri_pos.shape[0],
-                                                     phi.shape[1], cluster)
+        alive = None
+        if kind == "cond":
+            alive = prep[0][4:7].abs().reshape(3, -1, tile).sum(dim=(0, 2)) > 0
+        work = _walk_work(kind, sp, tile, sub, n_chunks=-(-tri_pos.shape[0] // 128), alive=alive)
+        walk_bound, walk_by, critical = _walk_bounds(work, tri_pos.shape[0], phi.shape[1], cluster)
         kept_ms = statistics.mean(times["kept"])
         v1_ms = statistics.mean(times["v1"]) if v1 else None
-        print(f"walk {key}: {phi.shape[1]} rays, {sp.shape[0]} tiles of {tile}; kept, v1 and "
-              f"every step bit-equal to the plain walk with equal walk counts; per-tile walk "
-              f"{ {k: d for k, d in dist.items()} }; heaviest tile {heavy} counts "
-              f"{sp[heavy].tolist() if kind == 'stream' else int(sp[heavy])}")
-        print(f"timing {tag}: walk {key} in turns: "
-              + (f"v1 {times['v1'][0]:.4f}, " if v1 else "")
-              + f"kept {times['kept'][0]:.4f}, kept {times['kept'][1]:.4f}"
-              + (f", v1 {times['v1'][1]:.4f}" if v1 else "")
-              + f" ms; repack {repack_ms:.4f} ms; walk bound {walk_bound:.5f} ms ({walk_by}), "
-              f"critical-path bound {critical:.5f} ms (heaviest tile over {cluster} SM(s))")
-        print(f"timing {tag}: walk {key} steps (rpt, cluster, bulk copy"
-              + (", mask" if kind == "stream" else "") + ", lanes a ray): "
-              + "; ".join(f"{v} {ms:.4f}" for v, ms in sweep.items()) + " ms")
-        out[key] = dict(kind=kind, tile_rays=tile, times_ms=times, kept_ms=kept_ms, v1_ms=v1_ms,
-                        repack_ms=repack_ms, sweep_ms={str(v): ms for v, ms in sweep.items()},
-                        walk_bound_ms=walk_bound, walk_bound_by=walk_by,
-                        critical_path_bound_ms=critical, distribution=dist,
-                        heaviest_tile=heavy, heaviest_counts=sp[heavy].tolist())
+        print(f"walk {key}: {phi.shape[1]} rays, {sp.shape[0]} tiles of {tile}; kept"
+              f"{' and v1' if v1 else ''} bit-equal to the plain walk with equal walk counts; "
+              f"per-tile walk {dist}; heaviest tile {heavy} counts {sp[heavy].tolist()}")
+        for what, got in (("kernel (CUDA events, launches queued)", times),
+                          ("one call (CUDA events)", calls)):
+            print(f"timing {tag}: walk {key} {what} "
+                  + ("in turns (v1, kept, kept, v1): " if v1 else "twice: ")
+                  + _fmt_ms((*got["v1"][:1], *got["kept"], *got["v1"][1:])) + " ms")
+        print(f"timing {tag}: walk {key} repack {repack_ms:.4f} ms; walk bound {walk_bound:.5f} ms "
+              f"({walk_by}), critical-path bound {critical:.5f} ms (heaviest tile over {cluster} "
+              "SM(s))")
+        out[key] = dict(kind=kind, tile_rays=tile, times_ms=times, call_ms=calls, kept_ms=kept_ms,
+                        v1_ms=v1_ms, repack_ms=repack_ms, walk_bound_ms=walk_bound,
+                        walk_bound_by=walk_by, critical_path_bound_ms=critical,
+                        distribution=dist, heaviest_tile=heavy,
+                        heaviest_counts=sp[heavy].tolist())
         results[f"walk_{key}"] = out[key]
-        del prep, table, hp, sp
+        del prep, hp, sp
     return out
 
 
@@ -1247,6 +1424,74 @@ def _sweep_phase(pt, data, cam, counters, results, tag):
     return out
 
 
+def _cond_e2e_phase(mt_shade, trace, data, frame_params, kw, phi, counters, results, tag):
+    """Cond end to end: the headline frame under TPT_CULL=nf and =cond in
+    turns (nf, cond, cond, nf; CUDA-event median of 10 frames each, after 2
+    warm-up frames), each selecting only its own MT kernel (launch counts
+    set to 0 just before the first frame of each and read just after),
+    cond's frame held to nf's by the outlier rule; then cond's wrapper on
+    the primary rays `phi` at sub 64 split into its parts: padding and
+    packing (`_pad_scene`, `_pad_rays`), boxes (`treelet_boxes` at 128 and
+    64), table repack (`_pack_walk_table`) and walk (one call by CUDA
+    events, and the kernel's device time), beside nf's whole wrapper.
+    Returns the cond frame's launches of the cond kernel."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels.mt_intersect import treelet_boxes
+
+    frames, times, launches = {}, {"nf": [], "cond": []}, {}
+    for cull in ("nf", "cond", "cond", "nf"):
+        def run(cull=cull):
+            if cull not in frames:
+                for fn in counters.values():
+                    fn.launches = 0
+                frames[cull] = trace.render_frame(data, frame_params, **kw)
+                torch.cuda.synchronize()
+                launches[cull] = {n: fn.launches for n, fn in counters.items()}
+            times[cull].append(_time_ms(lambda: trace.render_frame(data, frame_params, **kw), 2,
+                                        10))
+
+        _with_env({"TPT_CULL": cull}, run)
+    for cull in ("nf", "cond"):
+        got = launches[cull]
+        _check(got[f"mt_{cull}"] >= 1 and not _mt_launched(got, (f"mt_{cull}",)),
+               f"TPT_CULL={cull} frame: launches {got}")
+    frac, agree = _outlier_rule(frames["cond"], frames["nf"])
+    paths = WIDTH * HEIGHT
+    print(f"cond end to end: the headline frame under TPT_CULL=cond vs =nf: outlier fraction "
+          f"{frac:.2e}, non-outlier mean diff {agree:.2e}; launches nf {launches['nf']}, cond "
+          f"{launches['cond']}")
+    print(f"timing {tag}: headline frame in turns (nf, cond, cond, nf): "
+          + ", ".join(f"{x:.3f}" for x in (times["nf"][0], *times["cond"], times["nf"][1]))
+          + f" ms; nf {paths / statistics.mean(times['nf']) / 1e3:.3f} Mpaths/s, cond "
+          f"{paths / statistics.mean(times['cond']) / 1e3:.3f} Mpaths/s")
+
+    tri = data.packed.tri_pos
+    sub, tile = mt_shade.SUB_TRIS, mt_shade._tile_rays(None)
+    tri_padded, cols_rows = mt_shade._pad_scene(tri, sub)
+    prep = mt_shade._prepare_cond(tri, phi, None, sub)
+    table = mt_shade._pack_walk_table(prep[1], sub)
+    parts = {
+        "pad_and_pack": lambda: (mt_shade._pad_scene(tri, sub), mt_shade._pad_rays(phi, tile)),
+        "boxes": lambda: (treelet_boxes(tri_padded, mt_shade.CHUNK_TRIS),
+                          treelet_boxes(tri_padded, sub)),
+        "repack": lambda: mt_shade._pack_walk_table(prep[1], sub),
+        "walk": lambda: mt_shade._walk_cond_table_cuda(prep[0], table, *prep[2:]),
+        "wrapper": lambda: mt_shade.mt_intersect_cond_phi(tri, phi),
+        "nf_wrapper": lambda: mt_shade.mt_intersect_nf_phi(tri, phi),
+    }
+    split = {name: _time_ms(fn, 3, 20) for name, fn in parts.items()}
+    split["walk_kernel"] = _kernel_ms(parts["walk"], WALK_KERNELS["cond"])
+    print(f"timing {tag}: mt_cond primary wrapper (sub 64) {split['wrapper']:.4f} ms: padding and "
+          f"packing {split['pad_and_pack']:.4f}, boxes {split['boxes']:.4f}, table repack "
+          f"{split['repack']:.4f}, walk {split['walk']:.4f} ms (its kernel "
+          f"{split['walk_kernel']:.4f} ms by CUDA events); mt_nf wrapper "
+          f"{split['nf_wrapper']:.4f} ms")
+    results["cond_e2e"] = dict(frame_ms=times, outlier_frac=frac, mean_diff=agree,
+                               launches=launches, wrapper_split_ms=split)
+    return launches["cond"]["mt_cond"]
+
+
 def _cli_phase(results, tag):
     """The port's CLI in this process, on the card: `benchmark` at the
     headline shape (its record must hold: no 'suspect', a device time);
@@ -1328,7 +1573,8 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
 
     def phase(name):
-        print(f"phase {name} from {time.perf_counter() - t_start:.1f} s")
+        print(f"phase {name} from {time.perf_counter() - t_start:.1f} s; card clocks (SM, max SM, "
+              f"power) {_clocks()}")
 
     dev = torch.device("cuda")
     card = _card()
@@ -1386,19 +1632,9 @@ def main(argv=None) -> int:
     r2 = _r2_phase(mt_intersect, counters, tri_pos, phi_primary,
                    mt_shade.mt_intersect_nf_phi(tri_pos, phi_primary), results, tag)
 
-    # --- denoise phase ------------------------------------------------------
+    # --- denoise phase: the tiled kernel vs plain and vs its first design --
     phase("denoise")
-    den_err = 0.0
-    for h, w in ((512, 512), (1080, 1920), (300, 517)):
-        img = torch.from_numpy(np.random.default_rng(h + w).random((h, w, 3), np.float32)).to(dev)
-        out_k = kdenoise.smart_denoise(img)
-        out_p = kdenoise.smart_denoise_plain(img)
-        torch.cuda.synchronize()
-        err = float((out_k - out_p).abs().max())
-        torch.testing.assert_close(out_k, out_p, **DENOISE_TOL)
-        print(f"denoise {h}x{w}: max abs diff {err:.3g} (atol 2e-5, rtol 1e-4)")
-        den_err = max(den_err, err)
-        results[f"denoise_{h}x{w}_max_abs_err"] = err
+    den_err, den = _denoise_phase(kdenoise, results, tag)
 
     # --- headline main path: Renderer.render_all() + display() ---------------
     phase("headline main path")
@@ -1431,11 +1667,6 @@ def main(argv=None) -> int:
     walk_ms = _time_ms(lambda: mt_shade._walk_cuda(*prep), 3, 30)
     walk_plain_ms = _time_ms(lambda: mt_shade._walk_plain(*prep), 1, 5)
     prep_ms = _time_ms(lambda: mt_shade._prepare(tri_pos, phi_primary, None), 3, 30)
-    img512 = torch.from_numpy(
-        np.random.default_rng(0).random((HEIGHT, WIDTH, 3), np.float32)).to(dev)
-    den_ms = _time_ms(lambda: kdenoise.smart_denoise(img512), 3, 30)
-    den_plain_ms = _time_ms(lambda: kdenoise.smart_denoise_plain(img512), 1, 5)
-    den_bound = _denoise_bound(img512)
     display_ms = _time_ms(renderer.display, 2, 10)
     print(f"timing {tag}: headline frame kernel path {ms_k:.3f} ms "
           f"({paths / ms_k / 1e3:.2f} Mpaths/s), plain path {ms_p:.3f} ms "
@@ -1443,11 +1674,10 @@ def main(argv=None) -> int:
     print(f"timing {tag}: mt primary wrapper {mt_ms:.3f} ms (precull {prep_ms:.3f} ms, kernel "
           f"walk and repack {walk_ms:.3f} ms), plain wrapper {mt_plain_ms:.3f} ms (plain walk "
           f"{walk_plain_ms:.3f} ms)")
-    print(f"timing {tag}: denoise 512x512 kernel {den_ms:.3f} ms, plain {den_plain_ms:.3f} ms "
-          f"(bound {den_bound[0]:.4f} ms, {den_bound[1]}); display() {display_ms:.3f} ms")
+    print(f"timing {tag}: display() {display_ms:.3f} ms")
     results.update(frame_ms=ms_k, frame_plain_ms=ms_p, mt_ms=mt_ms, mt_plain_ms=mt_plain_ms,
                    mt_walk_ms=walk_ms, mt_walk_plain_ms=walk_plain_ms, mt_prepare_ms=prep_ms,
-                   denoise_ms=den_ms, denoise_plain_ms=den_plain_ms, display_ms=display_ms)
+                   display_ms=display_ms)
     if opts.profile:
         _profile(lambda: trace.render_frame(data, frame_params, **kw), tag, results, "headline")
 
@@ -1455,6 +1685,11 @@ def main(argv=None) -> int:
     phase("intersector")
     _intersector_phase(trace, data, frame_params, kw, img_k, counters, results, tag)
     del renderer, img_k, img_p, prep
+
+    # --- cond end to end: the headline frame under TPT_CULL=nf and =cond -----
+    phase("cond end to end")
+    cond_launches = _cond_e2e_phase(mt_shade, trace, data, frame_params, kw, phi_primary,
+                                    counters, results, tag)
 
     # --- sweep phase: make_budget under TPT_MXU_DETS=0 / =1 (the MXU main path)
     phase("sweep")
@@ -1490,7 +1725,7 @@ def main(argv=None) -> int:
                                             subs_evaluated=evaluated)
     results["stress_compile_s"] = compile_s
 
-    # --- walk phase: the Hopper redesigns of #1 and #3, their steps and v1 --
+    # --- walk phase: the Hopper walks of #1, #4b and #3 vs plain ------------
     phase("walk")
     walks = _walk_phase(mt_shade, mt_stream, _walk_cases(tri_pos, rays, s_tri, s_rays),
                         results, tag)
@@ -1583,26 +1818,31 @@ def main(argv=None) -> int:
 
     # --- the walks' inner loops in SASS: shared loads a pair, old and new ----
     phase("sass")
-    nf_shape, st_shape = results["walk_nf_shape"], results["walk_stream_shape"]
+    shp = {k: results[f"walk_{k}_shape"] for k in ("nf", "cond", "stream")}
+
+    def tail(k):
+        return f"Li{shp[k]['rpt']}ELi{shp[k]['cluster']}ELi{shp[k]['tpr']}EE"
+
     sass = _sass_loads(lib_path, {
-        "nf_v1": "mt_list_kernelILi1ELi64ELb1EE",
-        "nf": (f"nf_walk_kernelILi64ELi{nf_shape['rpt']}ELi{nf_shape['cluster']}ELb1E"
-               f"Li{nf_shape['tpr']}EE"),
-        "stream_v1": "mt_stream_kernelILi1EE",
-        "stream": (f"stream_walk_kernelILi{st_shape['rpt']}ELi{st_shape['cluster']}ELb1ELb1E"
-                   f"Li{st_shape['tpr']}EE")}, Path(opts.out) if opts.out else None)
+        "nf": f"nf_walk_kernelILi64E{tail('nf')}",
+        "cond_v1": "mt_cond_kernelILi1ELi64EE",
+        "cond": f"cond_walk_kernelILi64E{tail('cond')}",
+        "stream": f"stream_walk_kernelI{tail('stream')}"}, Path(opts.out) if opts.out else None)
     for label, got in sass.items():
-        print(f"sass {label} (nf at sub 64): pair loop {got}")
+        print(f"sass {label} (nf and cond at sub 64): pair loop {got}")
     results["sass_inner_loop"] = sass
 
     def bound(b):
         return {"bound_ms": b[0], "bound_by": b[1], "library_ms": None}
 
-    def walk(key):  # the redesigned walk alone, beside its first design
+    def walk(key):  # the redesigned walk alone (cond: beside its first design)
         w = walks[key]
-        return {"walk_ms": w["kept_ms"], "v1_walk_ms": w["v1_ms"], "repack_ms": w["repack_ms"],
+        return {"walk_ms": w["kept_ms"], "repack_ms": w["repack_ms"],
                 "walk_bound_ms": w["walk_bound_ms"],
-                "critical_path_bound_ms": w["critical_path_bound_ms"]}
+                "critical_path_bound_ms": w["critical_path_bound_ms"],
+                **({"v1_walk_ms": w["v1_ms"]} if w["v1_ms"] is not None else {})}
+
+    den512, den1080 = den[(512, 512)], den[(1080, 1920)]
 
     r2_src = "tpu_pathtracer_torch/csrc/mt_intersect.cu"
     kernels = [
@@ -1612,18 +1852,25 @@ def main(argv=None) -> int:
          **bound(cull_bounds["nf"]), **walk("nf_headline_primary")},
         {"name": "denoise", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/denoise.cu",
          "replaces": "tpu_pathtracer/ops/pallas/denoise.py:33",
-         "launches": launches["denoise"], "max_abs_err": den_err, "ms": den_ms,
-         "plain_ms": den_plain_ms, **bound(den_bound)},
+         "launches": launches["denoise"], "max_abs_err": den_err, "ms": den512["ms"],
+         "plain_ms": den512["plain_ms"], **bound((den512["bound_ms"], den512["bound_by"])),
+         "kernel_ms": den512["kernel_ms"], "v1_ms": den512["v1_ms"],
+         "v1_kernel_ms": den512["v1_kernel_ms"], "ms_1080p": den1080["ms"],
+         "kernel_ms_1080p": den1080["kernel_ms"], "v1_ms_1080p": den1080["v1_ms"],
+         "v1_kernel_ms_1080p": den1080["v1_kernel_ms"], "bound_ms_1080p": den1080["bound_ms"]},
         {"name": "mt_stream", "route": "cuda",
          "source": "tpu_pathtracer_torch/csrc/stream_walk.cu",
          "replaces": "tpu_pathtracer/ops/pallas/mt_shade.py:628",
          "launches": s_launches["mt_stream"], "max_abs_err": stream_err, "ms": st_ms,
          "plain_ms": st_plain_ms, **bound(st_bound), **walk("stream_stress_primary")},
-        *({"name": f"mt_{cull}", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/mt_shade.cu",
-           "replaces": f"tpu_pathtracer/ops/pallas/mt_shade.py:{line}",
-           "launches": cull_launches[cull], "max_abs_err": culls[cull][0], "ms": culls[cull][1],
-           "plain_ms": culls[cull][2], **bound(cull_bounds[cull])}
-          for cull, line in (("list", 255), ("cond", 183))),
+        {"name": "mt_list", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/mt_shade.cu",
+         "replaces": "tpu_pathtracer/ops/pallas/mt_shade.py:255",
+         "launches": cull_launches["list"], "max_abs_err": culls["list"][0],
+         "ms": culls["list"][1], "plain_ms": culls["list"][2], **bound(cull_bounds["list"])},
+        {"name": "mt_cond", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/cond_walk.cu",
+         "replaces": "tpu_pathtracer/ops/pallas/mt_shade.py:183", "launches": cond_launches,
+         "max_abs_err": culls["cond"][0], "ms": culls["cond"][1], "plain_ms": culls["cond"][2],
+         **bound(cull_bounds["cond"]), **walk("cond_headline_primary")},
         *({"name": name, "route": "cuda", "source": r2_src,
            "replaces": f"tpu_pathtracer/ops/pallas/mt_intersect.py:{line}",
            "launches": r2[name]["launches"], "max_abs_err": r2[name]["max_abs_err"],

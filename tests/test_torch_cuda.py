@@ -431,13 +431,34 @@ def test_mt_kernel_empty_scene_launches_nothing(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hw", [(512, 512), (300, 517), (7, 3)])
-def test_denoise_kernel_matches_plain(cuda, hw):
+@pytest.mark.parametrize("hw", [(512, 512), (1080, 1920), (300, 517), (6, 10), (7, 3)])
+@pytest.mark.parametrize("sigma", [5.0, 3.0])
+def test_denoise_kernel_matches_plain(cuda, sigma, hw):
+    """The tiled kernel (compile-time taps at sigma 5, the tap table read at
+    run time at sigma 3) against the plain version within the stated
+    tolerance, and against its first design (`tpt_denoise_v1`) bit for
+    bit; images smaller than the halo included."""
     img = torch.from_numpy(np.random.default_rng(sum(hw)).random(hw + (3,), np.float32)).to(cuda)
     before = kdenoise.smart_denoise.launches
-    out = kdenoise.smart_denoise(img)
+    out = kdenoise.smart_denoise(img, sigma=sigma)
     assert kdenoise.smart_denoise.launches == before + 1
-    torch.testing.assert_close(out, kdenoise.smart_denoise_plain(img), atol=2e-5, rtol=1e-4)
+    torch.testing.assert_close(out, kdenoise.smart_denoise_plain(img, sigma=sigma), atol=2e-5,
+                               rtol=1e-4)
+    assert torch.equal(out, kdenoise._denoise_v1(img, sigma=sigma))
+    assert kdenoise.smart_denoise.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_denoise_kernel_takes_the_widest_radius_and_refuses_a_wider_one(cuda):
+    """Radius 17 (921 taps; the staged tile needs more than 48 KB of shared
+    memory) runs; radius 18 (1,029 taps, above the 1,024 cap) raises."""
+    img = torch.from_numpy(np.random.default_rng(17).random((70, 90, 3), np.float32)).to(cuda)
+    out = kdenoise.smart_denoise(img, sigma=17.0)
+    torch.testing.assert_close(out, kdenoise.smart_denoise_plain(img, sigma=17.0), atol=2e-5,
+                               rtol=1e-4)
+    assert torch.equal(out, kdenoise._denoise_v1(img, sigma=17.0))
+    with pytest.raises(RuntimeError):
+        kdenoise.smart_denoise(img, sigma=18.0)
 
 
 R2_WRAPPERS = {
@@ -513,9 +534,9 @@ def test_r2_kernels_empty_and_oversized_scenes_launch_nothing(cuda):
         assert kernel.launches == before
 
 
-# --- the Hopper walks (csrc/nf_walk.cu, csrc/stream_walk.cu) -----------------
+# --- the Hopper walks (csrc/nf_walk.cu, csrc/stream_walk.cu, csrc/cond_walk.cu)
 
-WALK_WIDTHS = [128, 512, 1024, 4096, 8192]
+WALK_WIDTHS = [128, 200, 333, 512, 1024, 4096, 8192]  # 200, 333: uneven over a cluster
 
 
 def _stream_mesh(cuda):
@@ -541,19 +562,16 @@ def _walk_inputs(cuda, kind, stream):
 
 
 def _assert_walks_agree(cuda, module, prep, n_stats, park=None, r=None):
-    """Kept walk, first design (`_walk_cuda_v1`) and plain walk on the same
-    prepared inputs: hits bit-equal, walk counts equal.  Returns the plain
-    walk counts."""
+    """Kept walk and plain walk on the same prepared inputs: hits
+    bit-equal, walk counts equal.  Returns the plain walk counts."""
     n_tiles = prep[0].shape[1] // prep[-1]
     sk = torch.zeros((n_tiles,) + n_stats, dtype=torch.int32, device=cuda)
     sp = torch.zeros_like(sk)
     hk = module._walk_cuda(*prep, stats=sk)
     hp = module._walk_plain(*prep, stats=sp)
-    # the first designs take tiles of up to 8 x 512 rays
-    hv = module._walk_cuda_v1(*prep) if prep[-1] <= 4096 else hp
     torch.cuda.synchronize()
-    for a, b, c in zip(hk, hp, hv):
-        assert torch.equal(a, b) and torch.equal(c, b)
+    for a, b in zip(hk, hp):
+        assert torch.equal(a, b)
     assert torch.equal(sk, sp)
     if park is not None:
         t, idx = hk[0][:r], hk[1][:r]
@@ -562,13 +580,21 @@ def _assert_walks_agree(cuda, module, prep, n_stats, park=None, r=None):
     return sp
 
 
+def _any_tile(monkeypatch):
+    """Let the wrappers take a tile width that is no multiple of 128."""
+    for module in (mt_shade, mt_stream):
+        monkeypatch.setattr(module, "_widened_tile", lambda tile_rays, r: tile_rays)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("tile_rays", WALK_WIDTHS)
 @pytest.mark.parametrize("kind", ["soup", "mesh"])
-def test_nf_walk_matches_plain_and_v1(cuda, kind, tile_rays):
+def test_nf_walk_matches_plain(cuda, kind, tile_rays, monkeypatch):
     """The Hopper nf walk (sub 64) at every tile width the wrappers give,
-    wide tiles included: hits bit-equal to the plain walk and to the first
-    walk, per-tile walk counts equal to the plain walk's."""
+    wide tiles included, and at widths that split unevenly over a
+    cluster's CTAs and threads (lanes past the tile start at -INF): hits
+    bit-equal to the plain walk, per-tile walk counts equal to its."""
+    _any_tile(monkeypatch)
     tri, phi_t, park = _walk_inputs(cuda, kind, stream=False)
     prep = mt_shade._prepare(tri, phi_t, tile_rays, 64)
     assert prep[-1] == tile_rays
@@ -581,11 +607,11 @@ def test_nf_walk_matches_plain_and_v1(cuda, kind, tile_rays):
 @pytest.mark.cuda
 @pytest.mark.parametrize("tile_rays", WALK_WIDTHS)
 @pytest.mark.parametrize("kind", ["soup", "mesh"])
-def test_stream_walk_matches_plain_and_v1(cuda, kind, tile_rays):
+def test_stream_walk_matches_plain(cuda, kind, tile_rays, monkeypatch):
     """The Hopper streamed walk at every tile width: hits bit-equal to the
-    plain walk and to the first walk, walk counts (supers walked, chunks
-    staged, subs evaluated) equal to the plain walk's; on the mesh both
-    culling levels decide."""
+    plain walk, walk counts (supers walked, chunks staged, subs evaluated)
+    equal to its; on the mesh both culling levels decide."""
+    _any_tile(monkeypatch)
     tri, phi_t, park = _walk_inputs(cuda, kind, stream=True)
     prep = mt_stream._prepare(tri, phi_t, tile_rays)
     assert prep[-1] == tile_rays
@@ -609,45 +635,6 @@ def test_nf_walk_counts_equal_plain(cuda, sub, rays):
     sk = mt_shade.nf_walk_stats(tri, phi_t, sub=sub)
     sp = mt_shade.nf_walk_stats(tri, phi_t, sub=sub, plain=True)
     assert torch.equal(sk, sp) and int(sk.sum()) > 0
-
-
-def _any_tile(monkeypatch):
-    """Let the wrappers take a tile width that is no multiple of 128."""
-    for module in (mt_shade, mt_stream):
-        monkeypatch.setattr(module, "_widened_tile", lambda tile_rays, r: tile_rays)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("tile_rays", [200, 333, 512])
-def test_walk_variants_match_plain(cuda, tile_rays, monkeypatch):
-    """Every measured step of both walks (`NF_WALK_VARIANTS` at sub 64,
-    `WALK_VARIANTS`), at tile widths that split unevenly over a cluster's
-    CTAs and threads (lanes past the tile start at -INF): hits and walk
-    counts equal to the plain walk's."""
-    _any_tile(monkeypatch)
-    tri, phi_t, _ = _walk_inputs(cuda, "mesh", stream=False)
-    prep = mt_shade._prepare(tri, phi_t, tile_rays, 64)
-    table = mt_shade._pack_walk_table(prep[1], 64)
-    sp = torch.zeros((prep[3].shape[0],), dtype=torch.int32, device=cuda)
-    hp = mt_shade._walk_plain(*prep, stats=sp)
-    for v in mt_shade.NF_WALK_VARIANTS:
-        sk = torch.zeros_like(sp)
-        hk = mt_shade._walk_table_cuda(prep[0], table, *prep[2:5], tile_rays, stats=sk, variant=v)
-        torch.cuda.synchronize()
-        assert all(torch.equal(a, b) for a, b in zip(hk, hp)), v
-        assert torch.equal(sk, sp), v
-    tri, phi_t, _ = _walk_inputs(cuda, "mesh", stream=True)
-    prep = mt_stream._prepare(tri, phi_t, tile_rays)
-    table = mt_shade._pack_walk_table(prep[1], mt_stream.SUB_TRIS)
-    sp = torch.zeros((prep[5].shape[0], 3), dtype=torch.int32, device=cuda)
-    hp = mt_stream._walk_plain(*prep, stats=sp)
-    for v in mt_stream.WALK_VARIANTS:
-        sk = torch.zeros_like(sp)
-        hk = mt_stream._walk_table_cuda(prep[0], table, *prep[2:7], tile_rays, stats=sk,
-                                        variant=v)
-        torch.cuda.synchronize()
-        assert all(torch.equal(a, b) for a, b in zip(hk, hp)), v
-        assert torch.equal(sk, sp), v
 
 
 @pytest.mark.cuda
@@ -700,5 +687,108 @@ def test_walk_count_check_catches_a_skipped_chunk_retest(cuda, tmp_path, monkeyp
     print(f"plain walk counts {sp.sum(dim=0).tolist()}, mutant {bad.sum(dim=0).tolist()}")
     assert all(torch.equal(a, b) for a, b in
                zip(hits, mt_stream.mt_intersect_stream2_phi_plain(tri, phi_t)))
+    assert not torch.equal(bad, sp)
+    assert int(bad[:, 1].sum()) > int(sp[:, 1].sum())
+
+
+def _cond_prep(tri, phi_t, tile_rays, sub):
+    """`mt_shade._prepare_cond` at any tile width."""
+    tri_padded, cols_rows = mt_shade._pad_scene(tri, sub)
+    return (mt_shade._pad_rays(phi_t, tile_rays), cols_rows,
+            mt_intersect.treelet_boxes(tri_padded, mt_shade.CHUNK_TRIS),
+            mt_intersect.treelet_boxes(tri_padded, sub), tile_rays)
+
+
+def _cond_rays(cuda, rays, size=256):
+    if rays == "primary":
+        return tpt.default_scene().compile(device=cuda).packed.tri_pos, _camera_rays(cuda, size)
+    return _bounce_rays(cuda, size)
+
+
+def _cond_walks(cuda, prep):
+    """(kernel hits, kernel walk counts, plain hits, plain walk counts)."""
+    sk = torch.zeros((prep[0].shape[1] // prep[-1], 2), dtype=torch.int32, device=cuda)
+    sp = torch.zeros_like(sk)
+    hk = mt_shade._walk_cond_cuda(*prep, stats=sk)
+    hp = mt_shade._walk_cond_plain(*prep, stats=sp)
+    torch.cuda.synchronize()
+    return hk, sk, hp, sp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_rays", [512, 200, 333, 4096, 8192])
+@pytest.mark.parametrize("rays", ["primary", "bounce"])
+@pytest.mark.parametrize("sub", [8, 16, 32, 64, 128])
+def test_cond_walk_matches_plain(cuda, sub, rays, tile_rays):
+    """The Hopper cond walk (csrc/cond_walk.cu) on the default scene's
+    camera and first-bounce rays at every sub, at tile widths that split
+    unevenly over the cluster and wide ones: hits bit-equal to the plain
+    walk and to the first design (`tpt_mt_cond_v1`, tiles up to 4,096
+    rays), per-tile walk counts (chunks live, subs evaluated) equal to the
+    plain walk's; both culling levels decide."""
+    tri, phi_t = _cond_rays(cuda, rays)
+    prep = _cond_prep(tri, phi_t, tile_rays, sub)
+    hk, sk, hp, sp = _cond_walks(cuda, prep)
+    assert all(torch.equal(a, b) for a, b in zip(hk, hp))
+    assert torch.equal(sk, sp)
+    if tile_rays <= 4096:
+        sv = torch.zeros_like(sp)
+        hv = mt_shade._walk_cond_cuda_v1(*prep, stats=sv)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(hv, hp)) and torch.equal(sv, sp)
+    live, evaluated = (int(x) for x in sp.sum(dim=0))
+    assert int((hp[1] >= 0).sum()) > 100
+    assert live < sp.shape[0] * prep[2].shape[0]
+    if sub < mt_shade.CHUNK_TRIS:
+        assert evaluated < live * (mt_shade.CHUNK_TRIS // sub)
+
+
+@pytest.mark.cuda
+def test_cond_walk_repeats_on_bounce_rays(cuda):
+    """The cond walk, launched 300 times on first-bounce rays of the
+    default scene at 512 x 512 (parked lanes, prefetched chunks that a
+    re-test drops), returns the plain walk's hits and counts every time."""
+    tri, phi_t = _bounce_rays(cuda, size=512)
+    prep = mt_shade._prepare_cond(tri, phi_t, None, 64)
+    _, _, hp, sp = _cond_walks(cuda, prep)
+    table = mt_shade._pack_walk_table(prep[1], 64)
+    differ = torch.zeros((), dtype=torch.int64, device=cuda)
+    for _ in range(300):
+        sk = torch.zeros_like(sp)
+        hk = mt_shade._walk_cond_table_cuda(prep[0], table, *prep[2:], stats=sk)
+        differ += sum((a != b).sum() for a, b in zip(hk, hp)) + (sk != sp).sum()
+    torch.cuda.synchronize()
+    assert int(differ) == 0
+    assert int(sp[:, 1].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_walk_count_check_catches_a_dropped_cond_mask_reformation(cuda, tmp_path, monkeypatch):
+    """Mutation check of the cond walk's decisions by mask: a copy of the
+    kernels that does not form the chunk and sub masks again after an
+    evaluated sub (blocks stay live under the t they were first tested
+    against) still finds the same hits, but evaluates more subs than the
+    plain walk, and the walk-count check sees it."""
+    tri, phi_t = _cond_rays(cuda, "primary")
+    sp = mt_shade.cond_walk_stats(tri, phi_t, sub=32, plain=True)
+    assert torch.equal(mt_shade.cond_walk_stats(tri, phi_t, sub=32), sp)
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, src)
+    walk = src / "cond_walk.cu"
+    text = walk.read_text()
+    reform = "retest(subs, kGroup) << 16 | retest(chunks, 0)"
+    assert text.count(reform) == 1
+    walk.write_text(text.replace(reform, "subs << 16 | chunks"))
+    monkeypatch.setattr(_build, "CSRC", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    _build.load.cache_clear()
+    try:
+        bad = mt_shade.cond_walk_stats(tri, phi_t, sub=32)
+        hits = mt_shade.mt_intersect_cond_phi(tri, phi_t, sub=32)
+    finally:
+        _build.load.cache_clear()  # the next load() builds from the package's sources
+    print(f"plain walk counts {sp.sum(dim=0).tolist()}, mutant {bad.sum(dim=0).tolist()}")
+    assert all(torch.equal(a, b) for a, b in
+               zip(hits, mt_shade.mt_intersect_cond_phi_plain(tri, phi_t, sub=32)))
     assert not torch.equal(bad, sp)
     assert int(bad[:, 1].sum()) > int(sp[:, 1].sum())

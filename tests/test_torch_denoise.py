@@ -6,6 +6,8 @@ the port.  Tolerance atol 2e-5 / rtol 1e-4, as tests/test_pallas_denoise.py
 holds the Pallas kernel to the jnp version (exp differs by an ulp between
 XLA and torch)."""
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -64,3 +66,50 @@ def test_tap_table_matches_jax_taps():
         assert fy == np.float32(dy - np.floor(dy)) and w > 0
     assert range_scale == np.float32(0.5 / 0.08**2)
 
+
+
+def test_torch_device_taps_are_cached_and_equal_tap_table():
+    """The kernels' tap table is built once per (sigma, k_sigma, threshold,
+    device) and holds `tap_table`'s rows on the device and on the host."""
+    kdenoise.device_taps.cache_clear()
+    cpu = torch.device("cpu")
+    for _ in range(3):
+        got = kdenoise.device_taps(5.0, 1.0, 0.08, cpu)
+    kdenoise.device_taps(3.0, 1.0, 0.08, cpu)
+    info = kdenoise.device_taps.cache_info()
+    assert info.misses == 2 and info.hits == 2
+    taps, range_scale = tap_table()
+    assert torch.equal(got.device, torch.from_numpy(taps)) and got.device.device == cpu
+    assert np.array_equal(got.host, taps) and got.host.flags["C_CONTIGUOUS"]
+    assert got.neg_range_scale == -float(range_scale) and got.radius == 5
+
+
+def _tap_offsets(radius):
+    """The integer rule csrc/denoise.cu `tap_offset` compiles the taps by:
+    column dx holds isqrt(4 m) + 1 taps (m = r^2 - dx^2), tap j at row floor
+    j - ceil(sqrt(m)), with a row fraction unless m is a perfect square."""
+    out = []
+    for dx in range(-radius, radius + 1):
+        m = radius * radius - dx * dx
+        s = math.isqrt(m)
+        frac = s * s != m
+        out += [(dx, j - (s + 1 if frac else s), frac) for j in range(math.isqrt(4 * m) + 1)]
+    return out
+
+
+@pytest.mark.parametrize("radius", range(0, 18))  # 17: the widest under the kernel's 1,024 taps
+def test_torch_tap_offsets_follow_the_integer_rule(radius):
+    taps, _ = tap_table(float(radius) if radius else 0.4, 1.0)
+    assert len(taps) == len(_tap_offsets(radius)) <= 1024
+    for (dx, y0, frac), row in zip(_tap_offsets(radius), taps):
+        assert (int(row[0]), int(row[1]), bool(row[2] > 0)) == (dx, y0, frac)
+
+
+@pytest.mark.parametrize("sigma,hw", [(3.0, (20, 50)), (5.0, (6, 10)), (3.0, (6, 10))])
+def test_torch_plain_denoise_matches_jax_at_other_radii_and_small_images(sigma, hw):
+    """A second radius (sigma 3: 31 taps), and an image smaller than the
+    halo, where the wrap goes round more than once."""
+    img = _image(*hw, seed=3)
+    ref = np.asarray(j_smart_denoise(jnp.asarray(img), sigma=sigma))
+    out = smart_denoise(torch.from_numpy(img), sigma=sigma).numpy()
+    np.testing.assert_allclose(out, ref, **TOL)

@@ -1,7 +1,7 @@
 """The Hopper walks' inputs and walk counts on the CPU: the packed walk
-table (`mt_shade._pack_walk_table`, read by csrc/nf_walk.cu and
-csrc/stream_walk.cu) and the near-to-far walk's per-tile counts
-(`mt_shade.nf_walk_stats`).
+table (`mt_shade._pack_walk_table`, read by csrc/nf_walk.cu,
+csrc/cond_walk.cu and csrc/stream_walk.cu) and the near-to-far walk's
+per-tile counts (`mt_shade.nf_walk_stats`).
 
 The table is read back here by a plain evaluation in torch, which must
 give the determinants of `determinants` on the sub-block-major rows bit
@@ -78,6 +78,26 @@ def test_walk_table_gives_the_determinants_stream():
     assert chunk.numel() * 4 == 10240
     assert torch.equal(chunk[:, 0], cols_rows[4 * 128:8 * 128].reshape(4, 4, 32, 10)[:, 0, :, 4]
                        .reshape(-1))
+
+
+@pytest.mark.parametrize("sub", [8, 16, 32, 64, 128])
+def test_torch_walk_table_gives_the_determinants_cond(sub):
+    """The cond walk stages the table a 128-triangle chunk at a time: chunk
+    c's 128 rows give the determinants of its 128 / sub sub-treelets'
+    coefficient blocks bit for bit (a soup of 700 triangles, 6 chunks, the
+    last one partly padding)."""
+    tri, phi = _soup(30 + sub, n=700)
+    _, cols_rows, chunk_boxes, sub_boxes, _ = mt_shade._prepare_cond(tri, phi, None, sub)
+    table = mt_shade._pack_walk_table(cols_rows, sub)
+    n_chunks, spc = chunk_boxes.shape[0], sub_boxes.shape[0] // chunk_boxes.shape[0]
+    assert table.shape == (n_chunks * mt_shade.CHUNK_TRIS, mt_shade.WALK_TABLE_FLOATS)
+    coef = cols_rows.reshape(-1, 4, sub, 10)
+    for c in range(n_chunks):
+        rows = table[c * mt_shade.CHUNK_TRIS:(c + 1) * mt_shade.CHUNK_TRIS]
+        blocks = coef[c * spc:(c + 1) * spc]
+        want = determinants(phi[None].expand(spc, 10, phi.shape[1]), blocks)
+        for got, w in zip(_table_determinants(rows, phi), want):
+            assert torch.equal(got, w.reshape(mt_shade.CHUNK_TRIS, -1))
 
 
 def test_walk_table_index_is_cached():

@@ -91,47 +91,36 @@ def build() -> Path:
     return out
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# Every C entry point: (argument types, result type).
+_SIGNATURES = {
+    "tpt_mt_nf": ([_P] * 10 + [_I] * 5 + [_P], _I),
+    "tpt_mt_nf_shape": ([_I, _I, ctypes.POINTER(_I)], _I),
+    "tpt_mt_cond": ([_P] * 9 + [_I] * 5 + [_P], _I),
+    "tpt_mt_cond_shape": ([_I, _I, ctypes.POINTER(_I)], _I),
+    "tpt_mt_cond_v1": ([_P] * 9 + [_I] * 5 + [_P], _I),
+    "tpt_mt_list": ([_P] * 8 + [_I] * 5 + [_P], _I),
+    "tpt_mt_nf_mxu": ([_P] * 9 + [_I] * 5 + [_P], _I),
+    "tpt_mt_list_mxu": ([_P] * 8 + [_I] * 5 + [_P], _I),
+    "tpt_mt_cond_mxu": ([_P] * 9 + [_I] * 5 + [_P], _I),
+    "tpt_mxu_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "tpt_mxu_smem_limit": ([_I, ctypes.POINTER(ctypes.c_size_t)], _I),
+    "tpt_mt_stream": ([_P] * 12 + [_I] * 6 + [_P], _I),
+    "tpt_mt_stream_shape": ([_I, ctypes.POINTER(_I)], _I),
+    "tpt_mt_r2": ([_P] * 8 + [_I] * 4 + [_P], _I),
+    "tpt_denoise": ([_P] * 4 + [_I] * 4 + [_F, _P], _I),
+    "tpt_denoise_v1": ([_P] * 3 + [_I] * 3 + [_F, _P], _I),
+    "tpt_error_string": ([_I], ctypes.c_char_p),
+}
+
+
 @functools.cache
 def load() -> ctypes.CDLL:
     """Build if needed, then load and declare the C entry points."""
     lib = ctypes.CDLL(str(build()))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.tpt_mt_nf.argtypes = [p] * 10 + [i] * 5 + [p]
-    lib.tpt_mt_nf.restype = i
-    lib.tpt_mt_nf_variant.argtypes = [p] * 10 + [i] * 9 + [p]
-    lib.tpt_mt_nf_variant.restype = i
-    lib.tpt_mt_nf_shape.argtypes = [i, i, ctypes.POINTER(i)]
-    lib.tpt_mt_nf_shape.restype = i
-    lib.tpt_mt_nf_v1.argtypes = [p] * 9 + [i] * 5 + [p]
-    lib.tpt_mt_nf_v1.restype = i
-    lib.tpt_mt_list.argtypes = [p] * 8 + [i] * 5 + [p]
-    lib.tpt_mt_list.restype = i
-    lib.tpt_mt_cond.argtypes = [p] * 9 + [i] * 5 + [p]
-    lib.tpt_mt_cond.restype = i
-    lib.tpt_mt_nf_mxu.argtypes = lib.tpt_mt_nf_v1.argtypes
-    lib.tpt_mt_nf_mxu.restype = i
-    lib.tpt_mt_list_mxu.argtypes = lib.tpt_mt_list.argtypes
-    lib.tpt_mt_list_mxu.restype = i
-    lib.tpt_mt_cond_mxu.argtypes = lib.tpt_mt_cond.argtypes
-    lib.tpt_mt_cond_mxu.restype = i
-    lib.tpt_mxu_smem_bytes.argtypes = [i, i]
-    lib.tpt_mxu_smem_bytes.restype = ctypes.c_size_t
-    lib.tpt_mxu_smem_limit.argtypes = [i, ctypes.POINTER(ctypes.c_size_t)]
-    lib.tpt_mxu_smem_limit.restype = i
-    lib.tpt_mt_stream.argtypes = [p] * 12 + [i] * 6 + [p]
-    lib.tpt_mt_stream.restype = i
-    lib.tpt_mt_stream_variant.argtypes = [p] * 12 + [i] * 11 + [p]
-    lib.tpt_mt_stream_variant.restype = i
-    lib.tpt_mt_stream_shape.argtypes = [i, ctypes.POINTER(i)]
-    lib.tpt_mt_stream_shape.restype = i
-    lib.tpt_mt_stream_v1.argtypes = lib.tpt_mt_stream.argtypes
-    lib.tpt_mt_stream_v1.restype = i
-    lib.tpt_mt_r2.argtypes = [p] * 8 + [i] * 4 + [p]
-    lib.tpt_mt_r2.restype = i
-    lib.tpt_denoise.argtypes = [p, p, p, i, i, i, f, p]
-    lib.tpt_denoise.restype = i
-    lib.tpt_error_string.argtypes = [i]
-    lib.tpt_error_string.restype = ctypes.c_char_p
+    for name, (args, res) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, res
     return lib
 
 

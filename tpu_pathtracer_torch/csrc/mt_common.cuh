@@ -1,5 +1,6 @@
 // Device code shared by the port's Möller–Trumbore kernels (mt_shade.cu,
-// mt_stream.cu), so all of them round identically.
+// and through walk.cuh nf_walk.cu, stream_walk.cu and cond_walk.cu), so all
+// of them round identically.
 //
 // Everything here mirrors an elementwise step of the plain PyTorch versions
 // (ops/mt_matmul.py `determinants`, `epilogue`, `nearest`; ops/kernels/

@@ -16,16 +16,16 @@
 // the lists or boxes; this file only walks them.  Every kernel is templated
 // on the sub-treelet size SUB (8, 16, 32, 64 or 128 triangles).
 //
-// The nf walk here is its first design, kept as `tpt_mt_nf_v1` for one
-// comparison; the walk the wrappers launch is its Hopper redesign in
-// nf_walk.cu.  list and cond keep this design.
+// The FP32 walks here are list (`tpt_mt_list`) and the first design of
+// cond, kept as `tpt_mt_cond_v1` for comparison only: the nf and cond walks
+// the wrappers launch are their Hopper redesigns in nf_walk.cu and
+// cond_walk.cu.  The MXU variants of all three follow below.
 //
 // Design: one block per ray tile, each thread owning RPT rays of the tile
 // (RPT = 1 at the default 512-ray tile), each ray's best (t, idx, u, v) in
-// registers.  nf and list stage each listed sub's 4 x SUB x 10 coefficient
-// rows in shared memory; every thread then evaluates its rays against the
-// SUB triangles, reading the coefficients as warp-wide broadcasts.  nf
-// refreshes the tile's bound by a block-wide max of t after each sub.
+// registers.  list stages each listed sub's 4 x SUB x 10 coefficient rows
+// in shared memory; every thread then evaluates its rays against the SUB
+// triangles, reading the coefficients as warp-wide broadcasts.
 // cond first checks that some lane of the tile moves (the TPU's tile-alive
 // gate; padding lanes, rd = 1e30, count as moving), then decides each chunk
 // with `__syncthreads_or` of "entry < current t" over the tile, stages a
@@ -44,9 +44,7 @@
 // block barrier.  Kept exact rather than fast: the library is built with
 // -fmad=false, the sums run in the feature order of `_FEATS` and the slab
 // test in `_slab_entries`' order (mt_common.cuh), so results and culling
-// decisions equal the plain PyTorch versions bit for bit.  nf_walk.cu
-// redesigns the nf walk with more rays a thread, a packed table,
-// double-buffered staging and thread block clusters.
+// decisions equal the plain PyTorch versions bit for bit.
 
 #include <cstdint>
 #include <type_traits>
@@ -64,20 +62,17 @@ constexpr int kChunk = 128;  // the cond kernel's chunk (and padding granule)
 template <int N>
 using Int = std::integral_constant<int, N>;
 
-// nf (NF = true) and list (NF = false) walks over the per-tile lists.
-template <int RPT, int SUB, bool NF>
+// The list walk over the per-tile lists: every entry, in list order.
+template <int RPT, int SUB>
 __global__ void __launch_bounds__(kMaxThreads)
     mt_list_kernel(const float* __restrict__ phi_t,      // (10, r_pad)
                    const float* __restrict__ cols_rows,  // (4*n_pad, 10)
                    const int* __restrict__ counts,       // (n_tiles,)
                    const int* __restrict__ lists,        // (n_tiles, ms)
-                   const float* __restrict__ emins,      // (n_tiles, ms); nf only
                    float* __restrict__ out_t, int* __restrict__ out_idx,
                    float* __restrict__ out_u, float* __restrict__ out_v,
                    int r_pad, int tile_rays, int ms) {
   __shared__ float rows[4 * SUB * 10];
-  __shared__ float warp_max[kMaxThreads / 32];
-  __shared__ float tile_max;
 
   const int tile = blockIdx.x;
   const int tid = threadIdx.x;
@@ -89,31 +84,20 @@ __global__ void __launch_bounds__(kMaxThreads)
   for (int k = 0; k < RPT; ++k) {
     const int lane = tid + k * blockDim.x;
     ray[k] = lane < tile_rays ? tile * tile_rays + lane : -1;
-    best[k] = tpt::load_ray(phi_t, r_pad, ray[k], tile * tile_rays, phi[k], NF);
+    best[k] = tpt::load_ray(phi_t, r_pad, ray[k], tile * tile_rays, phi[k], false);
   }
 
   const int count = counts[tile];
-  float tmax = kInf;
   for (int j = 0; j < count; ++j) {
-    if constexpr (NF) {
-      if (!(emins[tile * ms + j] < tmax)) break;
-    }
     const int s = lists[tile * ms + j];
     const float* src = cols_rows + static_cast<size_t>(s) * (4 * SUB * 10);
     __syncthreads();  // the previous sub's rows are no longer read
     for (int i = tid; i < 4 * SUB * 10; i += blockDim.x) rows[i] = src[i];
     __syncthreads();
 
-    float m = -CUDART_INF_F;
 #pragma unroll
-    for (int k = 0; k < RPT; ++k) {
-      if (ray[k] >= 0) {
-        tpt::eval_sub<SUB>(rows, phi[k], s * SUB, best[k]);
-        m = fmaxf(m, best[k].t);
-      }
-    }
-    // block-wide max of t: the tile's bound for the next entry
-    if constexpr (NF) tmax = tpt::block_max(m, warp_max, &tile_max);
+    for (int k = 0; k < RPT; ++k)
+      if (ray[k] >= 0) tpt::eval_sub<SUB>(rows, phi[k], s * SUB, best[k]);
   }
 
 #pragma unroll
@@ -238,17 +222,15 @@ int threads_for(int tile_rays, int rpt) {
   return (threads + 31) / 32 * 32;
 }
 
-template <bool NF>
 int launch_list(const float* phi_t, const float* cols_rows, const int* counts,
-                const int* lists, const float* emins, float* t, int* idx,
-                float* u, float* v, int r_pad, int tile_rays, int n_tiles,
-                int ms, int sub, cudaStream_t stream) {
+                const int* lists, float* t, int* idx, float* u, float* v, int r_pad,
+                int tile_rays, int n_tiles, int ms, int sub, cudaStream_t stream) {
   if (tile_rays <= 0 || n_tiles <= 0 || ms <= 0 || r_pad != n_tiles * tile_rays)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool ok = by_shape(tile_rays, sub, [&](auto rpt, auto s) {
     constexpr int RPT = decltype(rpt)::value, SUB = decltype(s)::value;
-    mt_list_kernel<RPT, SUB, NF><<<n_tiles, threads_for(tile_rays, RPT), 0, stream>>>(
-        phi_t, cols_rows, counts, lists, emins, t, idx, u, v, r_pad, tile_rays, ms);
+    mt_list_kernel<RPT, SUB><<<n_tiles, threads_for(tile_rays, RPT), 0, stream>>>(
+        phi_t, cols_rows, counts, lists, t, idx, u, v, r_pad, tile_rays, ms);
   });
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -627,28 +609,19 @@ int smem_limit(int device, size_t* limit) {
 
 }  // namespace
 
-// The first design of the nf walk, kept only for comparison with its
-// Hopper redesign (nf_walk.cu) in chip_smoke.py and the card tests; no
-// render path calls it.
-extern "C" int tpt_mt_nf_v1(const float* phi_t, const float* cols_rows,
-                            const int* counts, const int* lists,
-                            const float* emins, float* t, int* idx, float* u,
-                            float* v, int r_pad, int tile_rays, int n_tiles,
-                            int ms, int sub, cudaStream_t stream) {
-  return launch_list<true>(phi_t, cols_rows, counts, lists, emins, t, idx, u,
-                           v, r_pad, tile_rays, n_tiles, ms, sub, stream);
-}
-
 extern "C" int tpt_mt_list(const float* phi_t, const float* cols_rows,
                            const int* counts, const int* lists, float* t,
                            int* idx, float* u, float* v, int r_pad,
                            int tile_rays, int n_tiles, int ms, int sub,
                            cudaStream_t stream) {
-  return launch_list<false>(phi_t, cols_rows, counts, lists, nullptr, t, idx,
-                            u, v, r_pad, tile_rays, n_tiles, ms, sub, stream);
+  return launch_list(phi_t, cols_rows, counts, lists, t, idx, u, v, r_pad,
+                     tile_rays, n_tiles, ms, sub, stream);
 }
 
-extern "C" int tpt_mt_cond(const float* phi_t, const float* cols_rows,
+// The first design of the cond walk, kept only for comparison with its
+// Hopper redesign (cond_walk.cu) in chip_smoke.py and the card tests; no
+// render path calls it.
+extern "C" int tpt_mt_cond_v1(const float* phi_t, const float* cols_rows,
                            const float* chunk_boxes, const float* sub_boxes,
                            float* t, int* idx, float* u, float* v,
                            int* walk_stats, int r_pad, int tile_rays,

@@ -13,13 +13,13 @@
 // What bounds it on the H100.  The walk is one serial chain per tile
 // (stage a sub, evaluate it, take the tile's max t), and the kernel ends
 // when its heaviest tile does: the light tiles finish early and the
-// heaviest walks alone on its SM.  The first design (kept as
-// `tpt_mt_nf_v1` in mt_shade.cu) ran one 512-thread block per tile, one
-// ray a thread, read 19 coefficients a pair as 4-byte shared broadcasts
-// (shared loads, not arithmetic, set its pace), and staged each sub with a
-// blocking copy between two barriers.  This design:
-//   a. RPT rays a thread against a packed table of 20 floats a triangle,
-//      read as five 128-bit broadcasts, so one load serves RPT pairs;
+// heaviest walks alone on its SM.  A first design ran one 512-thread
+// block per tile, one ray a thread, read 19 coefficients a pair as 4-byte
+// shared broadcasts (shared loads, not arithmetic, set its pace), and
+// staged each sub with a blocking copy between two barriers.  This
+// design:
+//   a. one ray a thread against a packed table of 20 floats a triangle,
+//      read as five 128-bit broadcasts;
 //   b. double-buffered staging: the next listed sub is bulk-copied (TMA,
 //      `cp.async.bulk` on an mbarrier) into the idle buffer while the
 //      current one is evaluated, when its entry distance is still below
@@ -33,16 +33,15 @@
 //   e. each ray's triangles are split over TPR lanes, whose nearest hits
 //      are combined by (t, index) with warp shuffles: spreading rays alone
 //      leaves one lane walking all SUB triangles of a sub in series.
-// (Step c, decisions by mask, concerns the streamed walk only.)  Measured
-// on the H100 (PERF.md, the sweep of chip_smoke.py): every decision
-// across a cluster costs a cluster barrier, so clusters pay only with e;
-// more rays a thread does not pay.  A tile with an empty list skips the
-// walk and its barriers.  The per-pair arithmetic is unchanged (-fmad=false, `_FEATS`
+// (Step c, decisions by mask, concerns the streamed and cond walks.)
+// Measured on the H100 (PERF.md): every decision across a
+// cluster costs a cluster barrier, so clusters pay only with e; more rays
+// a thread does not pay.  A tile with an empty list skips the walk and its
+// barriers.  The per-pair arithmetic is unchanged (-fmad=false, `_FEATS`
 // order, __frcp_rn), so hits are bit-equal to the plain version.
 //
 // `tpt_mt_nf` runs the design the sweep kept (kRpt, kCluster, kTpr
-// below); `tpt_mt_nf_variant` runs the steps' variants at sub 64 for the
-// measurements in chip_smoke.py.
+// below); wider tiles fall back to other shapes (walk.cuh `fit_shape`).
 
 #include "walk.cuh"
 
@@ -58,7 +57,7 @@ constexpr int kRpt = 1;
 constexpr int kCluster = 8;
 constexpr int kTpr = 2;
 
-template <int SUB, int RPT, int C, bool ASYNC, int TPR>
+template <int SUB, int RPT, int C, int TPR>
 __global__ void __launch_bounds__(kThreads)
     nf_walk_kernel(const float* __restrict__ phi_t,   // (10, r_pad)
                    const float4* __restrict__ table,  // (n_pad, 20) as float4
@@ -92,7 +91,7 @@ __global__ void __launch_bounds__(kThreads)
   int walked = 0;
   const int count = counts[tile];  // the same in every CTA of the cluster
   if (count > 0) {  // a tile with an empty list only writes its lanes
-    Stager<kBytes, ASYNC> st;
+    Stager<kBytes> st;
     st.init(buf[0], buf[1], bars);
     cluster_sync<C>();
     int parity = 0;
@@ -142,7 +141,7 @@ struct Args {
 };
 
 template <int SUB>
-using Kernel = decltype(&nf_walk_kernel<SUB, 1, 1, true, 1>);
+using Kernel = decltype(&nf_walk_kernel<SUB, 1, 1, 1>);
 
 template <int SUB>
 int launch(Kernel<SUB> kernel, const Shape& shape, const Args& a) {
@@ -159,12 +158,11 @@ template <int SUB>
 Kernel<SUB> kept(int tile_rays, Shape& shape) {
   shape = Shape{kRpt, kCluster, kTpr};
   if (!fit_shape(tile_rays, shape)) return nullptr;
-  if (shape == Shape{kRpt, kCluster, kTpr}) return nf_walk_kernel<SUB, kRpt, kCluster, true, kTpr>;
-  if (shape == Shape{kRpt, kMaxCluster, kTpr})
-    return nf_walk_kernel<SUB, kRpt, kMaxCluster, true, kTpr>;
-  if (shape.rpt == 1) return nf_walk_kernel<SUB, 1, kMaxCluster, true, 1>;
-  if (shape.rpt == 2) return nf_walk_kernel<SUB, 2, kMaxCluster, true, 1>;
-  return nf_walk_kernel<SUB, 4, kMaxCluster, true, 1>;
+  if (shape == Shape{kRpt, kCluster, kTpr}) return nf_walk_kernel<SUB, kRpt, kCluster, kTpr>;
+  if (shape == Shape{kRpt, kMaxCluster, kTpr}) return nf_walk_kernel<SUB, kRpt, kMaxCluster, kTpr>;
+  if (shape.rpt == 1) return nf_walk_kernel<SUB, 1, kMaxCluster, 1>;
+  if (shape.rpt == 2) return nf_walk_kernel<SUB, 2, kMaxCluster, 1>;
+  return nf_walk_kernel<SUB, 4, kMaxCluster, 1>;
 }
 
 template <typename F>
@@ -199,38 +197,6 @@ extern "C" int tpt_mt_nf(const float* phi_t, const float* table, const int* coun
     const Kernel<SUB> kernel = kept<SUB>(a.tile_rays, shape);
     return launch<SUB>(kernel, shape, a);
   });
-}
-
-// The steps measured at sub 64 (PERF.md): (a) RPT 1, 2, 4 with
-// blocking copies; (a+b) with the bulk-copy prefetch; (a+b+d) clusters of
-// 2, 4 and 8; (a+b+d+e) a ray's triangles split over 2, 4 or 8 lanes.
-extern "C" int tpt_mt_nf_variant(const float* phi_t, const float* table, const int* counts,
-                                 const int* lists, const float* emins, float* t, int* idx,
-                                 float* u, float* v, int* walk_stats, int r_pad, int tile_rays,
-                                 int n_tiles, int ms, int sub, int rpt, int c, int async,
-                                 int tpr, cudaStream_t stream) {
-  const Args a{phi_t, reinterpret_cast<const float4*>(table), counts, lists, emins, t, idx, u,
-               v, walk_stats, r_pad, tile_rays, n_tiles, ms, stream};
-  if (!valid(a) || sub != 64) return static_cast<int>(cudaErrorInvalidValue);
-  int err = static_cast<int>(cudaErrorInvalidValue);
-  auto run = [&](auto cf) {
-    using Cf = decltype(cf);
-    if (Cf::rpt != rpt || Cf::c != c || Cf::async != (async != 0) || Cf::tpr != tpr)
-      return false;
-    err = launch<64>(nf_walk_kernel<64, Cf::rpt, Cf::c, Cf::async, Cf::tpr>,
-                     Shape{Cf::rpt, Cf::c, Cf::tpr}, a);
-    return true;
-  };
-  (void)(run(Cfg<1, 1, false, true, 1>{}) || run(Cfg<2, 1, false, true, 1>{}) ||
-         run(Cfg<4, 1, false, true, 1>{}) || run(Cfg<1, 1, true, true, 1>{}) ||
-         run(Cfg<2, 1, true, true, 1>{}) || run(Cfg<4, 1, true, true, 1>{}) ||
-         run(Cfg<1, 2, true, true, 1>{}) || run(Cfg<2, 2, true, true, 1>{}) ||
-         run(Cfg<1, 4, true, true, 1>{}) || run(Cfg<2, 4, true, true, 1>{}) ||
-         run(Cfg<1, 8, true, true, 1>{}) || run(Cfg<2, 8, true, true, 1>{}) ||
-         run(Cfg<1, 2, true, true, 2>{}) || run(Cfg<1, 4, true, true, 2>{}) ||
-         run(Cfg<1, 4, true, true, 4>{}) || run(Cfg<1, 8, true, true, 2>{}) ||
-         run(Cfg<1, 8, true, true, 4>{}) || run(Cfg<1, 8, true, true, 8>{}));
-  return err;
 }
 
 // The kept design's launch shape at this sub and tile width (walk.cuh

@@ -17,13 +17,12 @@
 // What bounds it on the H100.  One tile's walk is a serial chain of
 // decisions, and the kernel ends when its heaviest tile does (on the
 // stress scene one tile evaluates 241 subs where the mean is 4): the
-// light tiles finish early and the heaviest walks alone on its SM.  The
-// first design (kept as `tpt_mt_stream_v1` in mt_stream.cu) ran one
-// 512-thread block per tile, one ray a thread, paid a `__syncthreads_or`
-// for each of a walked super's 16 chunk tests and each sub test, staged a
-// live chunk with a blocking 20 KB copy, and read 19 coefficients a pair
-// as 4-byte shared broadcasts.  This design:
-//   a. RPT rays a thread against a packed table of 20 floats a triangle
+// light tiles finish early and the heaviest walks alone on its SM.  A
+// first design ran one 512-thread block per tile, one ray a thread, paid
+// a `__syncthreads_or` for each of a walked super's 16 chunk tests and
+// each sub test, staged a live chunk with a blocking 20 KB copy, and read
+// 19 coefficients a pair as 4-byte shared broadcasts.  This design:
+//   a. one ray a thread against a packed table of 20 floats a triangle
 //      (a chunk is 10 KB), read as five 128-bit broadcasts;
 //   b. double-buffered staging: the next candidate chunk is bulk-copied
 //      (TMA `cp.async.bulk` on an mbarrier) into the idle buffer while the
@@ -46,16 +45,16 @@
 //      (t, index) with warp shuffles, and each mask bit's slab test and
 //      re-tests are made by one lane of the ray: spreading rays alone
 //      leaves one lane walking the 32 triangles of every sub in series.
-// Measured on the H100 (PERF.md, the sweep of chip_smoke.py): every
-// decision across a cluster costs a cluster barrier, so clusters pay only
-// with e; more rays a thread does not pay.  A tile with an empty list skips the walk and its barriers.
+// Measured on the H100 (PERF.md): every decision across a
+// cluster costs a cluster barrier, so clusters pay only with e; more rays
+// a thread does not pay.  A tile with an empty list skips the walk and its
+// barriers.
 // The per-pair arithmetic and the slab test are unchanged (-fmad=false,
 // `_FEATS` order, __frcp_rn, `_slab_entries`' order), so hits and walk
 // counts equal the plain version's.
 //
 // `tpt_mt_stream` runs the design the sweep kept (kRpt, kCluster, kTpr
-// below); `tpt_mt_stream_variant` runs the steps' variants for the
-// measurements in chip_smoke.py.
+// below); wider tiles fall back to other shapes (walk.cuh `fit_shape`).
 
 #include "walk.cuh"
 
@@ -76,7 +75,7 @@ constexpr int kRpt = 1;
 constexpr int kCluster = 8;
 constexpr int kTpr = 2;
 
-template <int RPT, int C, bool ASYNC, bool MASK, int TPR>
+template <int RPT, int C, int TPR>
 __global__ void __launch_bounds__(kThreads)
     stream_walk_kernel(const float* __restrict__ phi_t,        // (10, r_pad)
                        const float4* __restrict__ table,       // (n_pad, 20) as float4
@@ -94,8 +93,8 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ __align__(128) float4 buf[2][kBytes / 16];
   __shared__ Vote slots[2][kMaxSlots];
   __shared__ __align__(8) uint64_t bars[2];
-  // MASK: this CTA's rays' entry distances, [kEntryRows][lanes]: rows 0-15
-  // the walked super's chunks, rows 16-19 the current chunk's subs
+  // this CTA's rays' entry distances, [kEntryRows][lanes]: rows 0-15 the
+  // walked super's chunks, rows 16-19 the current chunk's subs
   extern __shared__ float entry[];
 
   const int tile = blockIdx.x / C, rank = blockIdx.x % C;
@@ -116,19 +115,19 @@ __global__ void __launch_bounds__(kThreads)
     best[k] = tpt::load_ray(phi_t, r_pad, ray[k], ray0, phi[k]);
     tpt::slab_inv(phi[k], inv[k]);
   }
-  // With TPR lanes a ray, the masked walk's slab tests and re-tests of
-  // block b are made by the ray's lane b % TPR alone (`own`); the
-  // decisions OR the lanes' bits.
-  const uint32_t own = !MASK || TPR == 1 ? 0xffffffffu
-                       : (0xffffffffu / ((1u << TPR) - 1u)) << (threadIdx.x % TPR);
-  // Entry distances of this thread's rays to `box`, stored in `row`
-  // (MASK); the bit: some ray enters before its current t.
+  // With TPR lanes a ray, the slab tests and re-tests of block b are made
+  // by the ray's lane b % TPR alone (`own`); the decisions OR the lanes'
+  // bits.
+  const uint32_t own =
+      TPR == 1 ? 0xffffffffu : (0xffffffffu / ((1u << TPR) - 1u)) << (threadIdx.x % TPR);
+  // Entry distances of this thread's rays to `box`, stored in `row`; the
+  // bit: some ray enters before its current t.
   auto enters = [&](const float* box, int row) {
     bool live = false;
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
       const float e = tpt::slab_entry(box, phi[r], inv[r]);
-      if constexpr (MASK) entry[row * lanes + threadIdx.x + r * blockDim.x] = e;
+      entry[row * lanes + threadIdx.x + r * blockDim.x] = e;
       live |= ray[r] >= 0 && e < best[r].t;
     }
     return live;
@@ -154,7 +153,7 @@ __global__ void __launch_bounds__(kThreads)
   const int* list = lists + static_cast<size_t>(tile) * ms;
   const float* emin = emins + static_cast<size_t>(tile) * ms;
   float tmax = kInf;
-  Stager<kBytes, ASYNC> st;
+  Stager<kBytes> st;
   if (count > 0) {  // a tile with an empty list only writes its lanes
     st.init(buf[0], buf[1], bars);
     cluster_sync<C>();
@@ -163,62 +162,42 @@ __global__ void __launch_bounds__(kThreads)
     if (!(emin[j] < tmax)) break;
     ++walked;
     const int first = list[j] * kChunksPerSuper;  // the super's first chunk
-    if constexpr (MASK) {
-      uint32_t bits = 0;
+    uint32_t bits = 0;
 #pragma unroll  // the 16 boxes' loads in flight together
-      for (int k = 0; k < kChunksPerSuper; ++k)
-        if ((own >> k) & 1u)
-          bits |= static_cast<uint32_t>(enters(chunk_boxes + (first + k) * 8, k)) << k;
-      Decision d = decide<C>(slots, parity, bits, rays_max<RPT>(best, ray));
-      uint32_t chunks = d.bits;  // live chunks after the current one
-      while (chunks) {
-        const int k = __ffs(chunks) - 1;
-        chunks &= chunks - 1;
-        ++staged;
-        const int c = first + k;
-        const float4* rows = st.take(table, c);
-        if (chunks) st.prefetch(table, first + __ffs(chunks) - 1);
-        uint32_t sb = 0;
+    for (int k = 0; k < kChunksPerSuper; ++k)
+      if ((own >> k) & 1u)
+        bits |= static_cast<uint32_t>(enters(chunk_boxes + (first + k) * 8, k)) << k;
+    Decision d = decide<C>(slots, parity, bits, rays_max<RPT>(best, ray));
+    uint32_t chunks = d.bits;  // live chunks after the current one
+    while (chunks) {
+      const int k = __ffs(chunks) - 1;
+      chunks &= chunks - 1;
+      ++staged;
+      const int c = first + k;
+      const float4* rows = st.take(table, c);
+      if (chunks) st.prefetch(table, first + __ffs(chunks) - 1);
+      uint32_t sb = 0;
 #pragma unroll
-        for (int s = 0; s < kSubsPerChunk; ++s)
-          if ((own >> s) & 1u)
-            sb |= static_cast<uint32_t>(
-                      enters(sub_boxes + (c * kSubsPerChunk + s) * 8, kChunksPerSuper + s))
-                  << s;
-        d = decide<C>(slots, parity, sb << 16 | retest(chunks, 0), rays_max<RPT>(best, ray));
-        uint32_t subs = d.bits >> 16;
+      for (int s = 0; s < kSubsPerChunk; ++s)
+        if ((own >> s) & 1u)
+          sb |= static_cast<uint32_t>(
+                    enters(sub_boxes + (c * kSubsPerChunk + s) * 8, kChunksPerSuper + s))
+                << s;
+      d = decide<C>(slots, parity, sb << 16 | retest(chunks, 0), rays_max<RPT>(best, ray));
+      uint32_t subs = d.bits >> 16;
+      chunks = d.bits & 0xffffu;
+      while (subs) {
+        const int s = __ffs(subs) - 1;
+        subs &= subs - 1;
+        ++evaluated;
+        eval_table<kSub, RPT, TPR>(rows + s * kSubVecs, phi, (c * kSubsPerChunk + s) * kSub, best);
+        d = decide<C>(slots, parity, retest(subs, kChunksPerSuper) << 16 | retest(chunks, 0),
+                      rays_max<RPT>(best, ray));
+        subs = d.bits >> 16;
         chunks = d.bits & 0xffffu;
-        while (subs) {
-          const int s = __ffs(subs) - 1;
-          subs &= subs - 1;
-          ++evaluated;
-          eval_table<kSub, RPT, TPR>(rows + s * kSubVecs, phi, (c * kSubsPerChunk + s) * kSub, best);
-          d = decide<C>(slots, parity, retest(subs, kChunksPerSuper) << 16 | retest(chunks, 0),
-                        rays_max<RPT>(best, ray));
-          subs = d.bits >> 16;
-          chunks = d.bits & 0xffffu;
-        }
       }
-      tmax = d.tmax;  // taken after the super's last evaluation
-    } else {
-      for (int k = 0; k < kChunksPerSuper; ++k) {
-        const int c = first + k;
-        if (!decide<C>(slots, parity, enters(chunk_boxes + c * 8, 0), -CUDART_INF_F).bits)
-          continue;
-        ++staged;
-        const float4* rows = st.take(table, c);
-        if (k + 1 < kChunksPerSuper) st.prefetch(table, c + 1);
-        for (int s = 0; s < kSubsPerChunk; ++s) {
-          if (!decide<C>(slots, parity, enters(sub_boxes + (c * kSubsPerChunk + s) * 8, 0),
-                         -CUDART_INF_F)
-                   .bits)
-            continue;
-          ++evaluated;
-          eval_table<kSub, RPT, TPR>(rows + s * kSubVecs, phi, (c * kSubsPerChunk + s) * kSub, best);
-        }
-      }
-      tmax = decide<C>(slots, parity, 0u, rays_max<RPT>(best, ray)).tmax;
     }
+    tmax = d.tmax;  // taken after the super's last evaluation
   }
   if (count > 0) {
     st.drain();
@@ -260,18 +239,16 @@ struct Args {
   cudaStream_t stream;
 };
 
-using Kernel = decltype(&stream_walk_kernel<1, 1, true, true, 1>);
+using Kernel = decltype(&stream_walk_kernel<1, 1, 1>);
 
-// Dynamic shared memory of a masked walk's entry distances.
-size_t entry_bytes(bool mask, int threads, int rpt) {
-  return mask ? sizeof(float) * kEntryRows * threads * rpt : 0;
-}
+// Dynamic shared memory of the entry distances.
+size_t entry_bytes(int threads, int rpt) { return sizeof(float) * kEntryRows * threads * rpt; }
 
-int launch(Kernel kernel, const Shape& shape, bool mask, const Args& a) {
+int launch(Kernel kernel, const Shape& shape, const Args& a) {
   const int threads = threads_for(a.tile_rays, shape);
   if (kernel == nullptr || threads == 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch_cluster(kernel, a.n_tiles, shape.c, threads,
-                        entry_bytes(mask, threads, shape.rpt), a.stream, a.phi_t, a.table,
+                        entry_bytes(threads, shape.rpt), a.stream, a.phi_t, a.table,
                         a.chunk_boxes, a.sub_boxes, a.counts, a.lists, a.emins, a.t, a.idx, a.u,
                         a.v, a.walk_stats, a.r_pad, a.tile_rays, a.ms);
 }
@@ -281,13 +258,11 @@ int launch(Kernel kernel, const Shape& shape, bool mask, const Args& a) {
 Kernel kept(int tile_rays, Shape& shape) {
   shape = Shape{kRpt, kCluster, kTpr};
   if (!fit_shape(tile_rays, shape)) return nullptr;
-  if (shape == Shape{kRpt, kCluster, kTpr})
-    return stream_walk_kernel<kRpt, kCluster, true, true, kTpr>;
-  if (shape == Shape{kRpt, kMaxCluster, kTpr})
-    return stream_walk_kernel<kRpt, kMaxCluster, true, true, kTpr>;
-  if (shape.rpt == 1) return stream_walk_kernel<1, kMaxCluster, true, true, 1>;
-  if (shape.rpt == 2) return stream_walk_kernel<2, kMaxCluster, true, true, 1>;
-  return stream_walk_kernel<4, kMaxCluster, true, true, 1>;
+  if (shape == Shape{kRpt, kCluster, kTpr}) return stream_walk_kernel<kRpt, kCluster, kTpr>;
+  if (shape == Shape{kRpt, kMaxCluster, kTpr}) return stream_walk_kernel<kRpt, kMaxCluster, kTpr>;
+  if (shape.rpt == 1) return stream_walk_kernel<1, kMaxCluster, 1>;
+  if (shape.rpt == 2) return stream_walk_kernel<2, kMaxCluster, 1>;
+  return stream_walk_kernel<4, kMaxCluster, 1>;
 }
 
 bool valid(const Args& a, int sub, int chunks_per_super) {
@@ -308,45 +283,7 @@ extern "C" int tpt_mt_stream(const float* phi_t, const float* table, const float
   if (!valid(a, sub, chunks_per_super)) return static_cast<int>(cudaErrorInvalidValue);
   Shape shape;
   const Kernel kernel = kept(tile_rays, shape);
-  return launch(kernel, shape, true, a);
-}
-
-// The steps measured (PERF.md): (a) RPT 1, 2, 4 with blocking copies
-// and one test at a time; (a+b) with the bulk-copy prefetch; (a+c) and
-// (a+b+c) with decisions by mask; (a+b+c+d) clusters of 2, 4 and 8;
-// (a+b+c+d+e) a ray's triangles split over 2, 4 or 8 lanes.
-extern "C" int tpt_mt_stream_variant(const float* phi_t, const float* table,
-                                     const float* chunk_boxes, const float* sub_boxes,
-                                     const int* counts, const int* lists, const float* emins,
-                                     float* t, int* idx, float* u, float* v, int* walk_stats,
-                                     int r_pad, int tile_rays, int n_tiles, int ms, int sub,
-                                     int chunks_per_super, int rpt, int c, int async, int mask,
-                                     int tpr, cudaStream_t stream) {
-  const Args a{phi_t, reinterpret_cast<const float4*>(table), chunk_boxes, sub_boxes, counts,
-               lists, emins, t, idx, u, v, walk_stats, r_pad, tile_rays, n_tiles, ms, stream};
-  if (!valid(a, sub, chunks_per_super)) return static_cast<int>(cudaErrorInvalidValue);
-  int err = static_cast<int>(cudaErrorInvalidValue);
-  auto run = [&](auto cf) {
-    using Cf = decltype(cf);
-    if (Cf::rpt != rpt || Cf::c != c || Cf::async != (async != 0) ||
-        Cf::mask != (mask != 0) || Cf::tpr != tpr)
-      return false;
-    err = launch(stream_walk_kernel<Cf::rpt, Cf::c, Cf::async, Cf::mask, Cf::tpr>,
-                 Shape{Cf::rpt, Cf::c, Cf::tpr}, Cf::mask, a);
-    return true;
-  };
-  (void)(run(Cfg<1, 1, false, false, 1>{}) || run(Cfg<2, 1, false, false, 1>{}) ||
-         run(Cfg<4, 1, false, false, 1>{}) || run(Cfg<1, 1, true, false, 1>{}) ||
-         run(Cfg<2, 1, true, false, 1>{}) || run(Cfg<1, 1, false, true, 1>{}) ||
-         run(Cfg<2, 1, false, true, 1>{}) || run(Cfg<1, 1, true, true, 1>{}) ||
-         run(Cfg<2, 1, true, true, 1>{}) || run(Cfg<4, 1, true, true, 1>{}) ||
-         run(Cfg<1, 2, true, true, 1>{}) || run(Cfg<2, 2, true, true, 1>{}) ||
-         run(Cfg<1, 4, true, true, 1>{}) || run(Cfg<2, 4, true, true, 1>{}) ||
-         run(Cfg<1, 8, true, true, 1>{}) || run(Cfg<2, 8, true, true, 1>{}) ||
-         run(Cfg<1, 2, true, true, 2>{}) || run(Cfg<1, 4, true, true, 2>{}) ||
-         run(Cfg<1, 4, true, true, 4>{}) || run(Cfg<1, 8, true, true, 2>{}) ||
-         run(Cfg<1, 8, true, true, 4>{}) || run(Cfg<1, 8, true, true, 8>{}));
-  return err;
+  return launch(kernel, shape, a);
 }
 
 // The kept design's launch shape at this tile width (walk.cuh `describe`).
@@ -356,5 +293,5 @@ extern "C" int tpt_mt_stream_shape(int tile_rays, int* out) {
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int threads = threads_for(tile_rays, shape);
   return describe(reinterpret_cast<const void*>(kernel), shape, threads,
-                  entry_bytes(true, threads, shape.rpt), out);
+                  entry_bytes(threads, shape.rpt), out);
 }

@@ -1,7 +1,7 @@
-// Device code shared by the Hopper walks of the near-to-far (nf_walk.cu)
-// and streamed (stream_walk.cu) Möller–Trumbore kernels: the packed
-// coefficient table, the tile-wide decisions across a thread block
-// cluster, and the bulk-copy staging.
+// Device code shared by the Hopper walks of the near-to-far (nf_walk.cu),
+// streamed (stream_walk.cu) and in-kernel culling (cond_walk.cu)
+// Möller–Trumbore kernels: the packed coefficient table, the tile-wide
+// decisions across a thread block cluster, and the bulk-copy staging.
 //
 // The arithmetic is mt_common.cuh's: one rounding per operation, sums in
 // `_FEATS` order, `take_pair`'s epilogue, so the walks stay bit-equal to
@@ -180,12 +180,11 @@ __device__ __forceinline__ void cluster_sync() {
 }
 
 // ---------------------------------------------------------------------------
-// Staging: two shared-memory buffers of BYTES each.  With ASYNC, thread 0
-// fills a buffer with the 1-D bulk copy of the Tensor Memory Accelerator
+// Staging: two shared-memory buffers of BYTES each.  Thread 0 fills a
+// buffer with the 1-D bulk copy of the Tensor Memory Accelerator
 // (`cp.async.bulk`, a contiguous block, so no tensor map), which completes
 // on the buffer's mbarrier; the walk prefetches its next candidate block
-// into the idle buffer while it evaluates the current one.  Without ASYNC,
-// the block copies cooperatively, with a barrier before use.  Every thread
+// into the idle buffer while it evaluates the current one.  Every thread
 // tracks the same state (the walk's decisions are tile-uniform) and waits
 // on every copy that was issued, so a prefetch the walk drops is waited on
 // before its buffer is reused and the mbarrier phases stay in step.
@@ -196,12 +195,12 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 
 // (Per-buffer state is kept in scalars and bit masks, not arrays: a
 // register array indexed at run time would live in local memory.)
-template <int BYTES, bool ASYNC>
+template <int BYTES>
 struct Stager {
   static_assert(BYTES % 16 == 0, "bulk copies move multiples of 16 bytes");
   float4* buf0;
   float4* buf1;
-  uint64_t* bar;     // two mbarriers (ASYNC)
+  uint64_t* bar;     // two mbarriers
   int id0, id1;      // block held or in flight in each buffer, -1 none
   uint32_t pending;  // bit b: a copy into buffer b not yet waited on
   uint32_t phase;    // bit b: parity of buffer b's next mbarrier phase
@@ -217,14 +216,12 @@ struct Stager {
     id0 = id1 = -1;
     pending = phase = 0u;
     cur = 1;
-    if constexpr (ASYNC) {
-      if (threadIdx.x == 0) {
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&bar[0])) : "memory");
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&bar[1])) : "memory");
-        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-      }
-      __syncthreads();
+    if (threadIdx.x == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&bar[0])) : "memory");
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&bar[1])) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
+    __syncthreads();
   }
 
   __device__ void wait(int b) {
@@ -243,7 +240,7 @@ struct Stager {
     pending &= ~(1u << b);
   }
 
-  // Start copying block `block` of `table` into buffer b (ASYNC only).
+  // Start copying block `block` of `table` into buffer b.
   __device__ void issue(int b, const float4* table, int block) {
     if ((pending >> b) & 1u) {
       // A dropped prefetch lands before its buffer is reused, and every
@@ -277,24 +274,15 @@ struct Stager {
   __device__ const float4* take(const float4* table, int block) {
     const int b = cur ^ 1;
     cur = b;
-    float4* dst = buffer(b);
-    if constexpr (ASYNC) {
-      if (held(b) != block) issue(b, table, block);
-      wait(b);
-    } else {
-      const float4* src = table + static_cast<size_t>(block) * (BYTES / 16);
-      for (int i = threadIdx.x; i < BYTES / 16; i += blockDim.x) dst[i] = src[i];
-      __syncthreads();
-    }
-    return dst;
+    if (held(b) != block) issue(b, table, block);
+    wait(b);
+    return buffer(b);
   }
 
-  // Prefetch a candidate block into the idle buffer (ASYNC only).
+  // Prefetch a candidate block into the idle buffer.
   __device__ void prefetch(const float4* table, int block) {
-    if constexpr (ASYNC) {
-      const int b = cur ^ 1;
-      if (held(b) != block) issue(b, table, block);
-    }
+    const int b = cur ^ 1;
+    if (held(b) != block) issue(b, table, block);
   }
 
   // No copy may be in flight when the CTA exits.
@@ -309,14 +297,6 @@ struct Stager {
 
 template <int N>
 using Int = std::integral_constant<int, N>;
-
-// A step's compile-time shape: rays a thread, cluster size, bulk-copy
-// staging, decisions by mask (the streamed walk), lanes a ray.
-template <int R, int Cl, bool A, bool M, int T>
-struct Cfg {
-  static constexpr int rpt = R, c = Cl, tpr = T;
-  static constexpr bool async = A, mask = M;
-};
 
 // The run-time shape of a launch: rays a thread, cluster size, lanes a ray.
 struct Shape {

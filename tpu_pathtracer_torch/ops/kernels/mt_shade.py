@@ -39,11 +39,12 @@ kernel for a CUDA tensor, counting the launch in its `.launches`, and runs
 its plain version for a CPU tensor.  The plain versions walk the same
 lists, chunks and subs in the same order, vectorised over tiles, with the
 same elementwise arithmetic, so kernel and plain version agree bit for bit.
-The 'nf' kernel is the Hopper walk of csrc/nf_walk.cu, which reads its
-own coefficient table (`_pack_walk_table`: 20 floats a triangle) and
-writes per-tile walk counts on request (`nf_walk_stats`); its first
-design stays in csrc/mt_shade.cu as `_walk_cuda_v1`, for comparison only.
-'list' and 'cond' are csrc/mt_shade.cu.
+The 'nf' and 'cond' kernels are the Hopper walks of csrc/nf_walk.cu and
+csrc/cond_walk.cu, which read their own coefficient table
+(`_pack_walk_table`: 20 floats a triangle) and write per-tile walk counts
+on request (`nf_walk_stats`, `cond_walk_stats`); the first design of
+'cond' stays in csrc/mt_shade.cu as `tpt_mt_cond_v1`, launched only by
+`_walk_cond_cuda_v1`, for comparison.  'list' is csrc/mt_shade.cu.
 
 The MXU variants (`mt_intersect_{nf,list,cond}_mxu_phi`, kernel #5) walk
 the same way.  Their plain versions take each sub-treelet's determinants
@@ -216,17 +217,6 @@ def _pack_mma(cols_rows, sub: int):
 # ua, va: 4-9; ta: 0-3), then one zero: 20 floats, five float4 loads.
 WALK_TABLE = tuple((q, k) for q, ks in enumerate(FEATS) for k in ks)
 WALK_TABLE_FLOATS = 20
-# The measured steps of the Hopper 'nf' walk at sub 64 (`_walk_table_cuda`'s
-# `variant`; csrc/nf_walk.cu `tpt_mt_nf_variant`): (rays a thread, cluster
-# size, bulk-copy staging, lanes a ray).  Step a: a packed table and RPT
-# rays a thread; b: the bulk-copy prefetch; d: a cluster of C CTAs a tile;
-# e: a ray's triangles split over several lanes.
-NF_WALK_VARIANTS = (
-    (1, 1, 0, 1), (2, 1, 0, 1), (4, 1, 0, 1), (1, 1, 1, 1), (2, 1, 1, 1), (4, 1, 1, 1),
-    (1, 2, 1, 1), (2, 2, 1, 1), (1, 4, 1, 1), (2, 4, 1, 1), (1, 8, 1, 1), (2, 8, 1, 1),
-    (1, 2, 1, 2), (1, 4, 1, 2), (1, 4, 1, 4), (1, 8, 1, 2), (1, 8, 1, 4), (1, 8, 1, 8),
-)
-
 
 @functools.lru_cache(maxsize=16)
 def _walk_table_index(n: int, sub: int, device: torch.device):
@@ -486,16 +476,9 @@ def _walk_cuda(phi_pad, cols_rows, counts, lists, emins, tile_rays: int, mxu: bo
     return _walk_rows_cuda("mt_nf_mxu", phi_pad, cols_rows, counts, lists, emins, tile_rays)
 
 
-def _walk_cuda_v1(phi_pad, cols_rows, counts, lists, emins, tile_rays: int):
-    """Launch the first design of the 'nf' walk (csrc/mt_shade.cu
-    `tpt_mt_nf_v1`), kept only to compare its redesign with; outputs
-    (R_pad,) x4."""
-    return _walk_rows_cuda("mt_nf_v1", phi_pad, cols_rows, counts, lists, emins, tile_rays)
-
-
 def _walk_rows_cuda(what, phi_pad, rows, counts, lists, emins, tile_rays: int):
-    """Launch `tpt_<what>` of csrc/mt_shade.cu, an nf walk over the
-    sub-block-major rows (or the `_pack_mma` table); outputs (R_pad,) x4."""
+    """Launch `tpt_<what>` of csrc/mt_shade.cu, the MXU nf walk over the
+    `_pack_mma` table; outputs (R_pad,) x4."""
     from ... import _build
 
     lib = _build.load()
@@ -504,8 +487,7 @@ def _walk_rows_cuda(what, phi_pad, rows, counts, lists, emins, tile_rays: int):
     _check_inputs(what, (phi_pad, torch.float32), (rows, torch.float32),
                   (counts, torch.int32), (lists, torch.int32), (emins, torch.float32), device=dev)
     sub = rows.shape[0] // (4 * ms)
-    if what == "mt_nf_mxu":
-        _check_mxu_shape(what, lib, rows, tile_rays, sub)
+    _check_mxu_shape(what, lib, rows, tile_rays, sub)
     out = _outputs(phi_pad.shape[1], dev)
     err = getattr(lib, f"tpt_{what}")(
         *map(_ptr, (phi_pad, rows, counts, lists, emins, *out)),
@@ -515,14 +497,10 @@ def _walk_rows_cuda(what, phi_pad, rows, counts, lists, emins, tile_rays: int):
     return out
 
 
-def _walk_table_cuda(phi_pad, table, counts, lists, emins, tile_rays: int, stats=None,
-                     variant=None):
+def _walk_table_cuda(phi_pad, table, counts, lists, emins, tile_rays: int, stats=None):
     """Launch the Hopper 'nf' walk of csrc/nf_walk.cu on the walk table;
     outputs (R_pad,) x4.  `stats`, if given, a (T,) int32 tensor, receives
-    each tile's count of evaluated subs.  `variant`, (rays a thread,
-    cluster size, bulk-copy staging, lanes a ray), picks one of the
-    measured steps at sub 64 (`tpt_mt_nf_variant`) instead of the kept
-    design."""
+    each tile's count of evaluated subs."""
     from ... import _build
 
     lib = _build.load()
@@ -537,22 +515,20 @@ def _walk_table_cuda(phi_pad, table, counts, lists, emins, tile_rays: int, stats
         if stats.shape != (n_tiles,):
             raise ValueError("mt_nf kernel: walk stats must be a (T,) int32 tensor")
     out = _outputs(phi_pad.shape[1], dev)
-    args = (*map(_ptr, (phi_pad, table, counts, lists, emins, *out, stats)),
-            phi_pad.shape[1], tile_rays, n_tiles, ms, table.shape[0] // ms)
-    if variant is None:
-        err = lib.tpt_mt_nf(*args, _stream(dev))
-    else:
-        err = lib.tpt_mt_nf_variant(*args, *(int(x) for x in variant), _stream(dev))
+    err = lib.tpt_mt_nf(*map(_ptr, (phi_pad, table, counts, lists, emins, *out, stats)),
+                        phi_pad.shape[1], tile_rays, n_tiles, ms, table.shape[0] // ms,
+                        _stream(dev))
     if err:
         raise RuntimeError(f"mt_nf kernel launch failed: {_build.error_string(err)}")
     return out
 
 
 def walk_shape(fn, *args) -> dict:
-    """What `tpt_mt_nf_shape` / `tpt_mt_stream_shape` (`fn`, by name) say
-    of the kept Hopper walk at this shape: rays a thread, cluster size,
-    threads and registers a thread, static and dynamic shared bytes, CTAs
-    resident per SM, clusters resident on the card, lanes a ray."""
+    """What `tpt_mt_nf_shape`, `tpt_mt_cond_shape` or `tpt_mt_stream_shape`
+    (`fn`, by name) say of the kept Hopper walk at this shape: rays a
+    thread, cluster size, threads and registers a thread, static and
+    dynamic shared bytes, CTAs resident per SM, clusters resident on the
+    card, lanes a ray."""
     from ... import _build
 
     out = (ctypes.c_int * 9)()
@@ -589,32 +565,66 @@ def _walk_list_cuda(phi_pad, cols_rows, counts, lists, tile_rays: int, mxu: bool
 
 def _walk_cond_cuda(phi_pad, cols_rows, chunk_boxes, sub_boxes, tile_rays: int, stats=None,
                     mxu: bool = False):
-    """Launch the 'cond' kernel of csrc/mt_shade.cu (with `mxu`, its MXU
-    variant); outputs (R_pad,) x4.  `stats`, if given, a (T, 2) int32
-    tensor, receives the walk counts."""
+    """Launch the 'cond' kernel (csrc/cond_walk.cu, on the table
+    `_pack_walk_table` repacks; with `mxu`, the MXU variant of
+    csrc/mt_shade.cu on the `_pack_mma` table) on the current stream;
+    outputs (R_pad,) x4.  `stats`, if given, a (T, 2) int32 tensor,
+    receives the walk counts."""
+    sub = CHUNK_TRIS * chunk_boxes.shape[0] // sub_boxes.shape[0]
+    if not mxu:
+        return _walk_cond_table_cuda(phi_pad, _pack_walk_table(cols_rows, sub), chunk_boxes,
+                                     sub_boxes, tile_rays, stats)
     from ... import _build
 
-    lib = _build.load()
+    _check_mxu_shape("mt_cond_mxu", _build.load(), cols_rows, tile_rays, sub)
+    return _cond_launch("mt_cond_mxu", 4, phi_pad, cols_rows, chunk_boxes, sub_boxes, tile_rays,
+                        stats)
+
+
+def _walk_cond_table_cuda(phi_pad, table, chunk_boxes, sub_boxes, tile_rays: int, stats=None):
+    """Launch the Hopper 'cond' walk of csrc/cond_walk.cu on the walk
+    table; outputs (R_pad,) x4.  `stats`, if given, a (T, 2) int32 tensor,
+    receives the walk counts."""
+    if table.shape[1:] != (WALK_TABLE_FLOATS,):
+        raise ValueError("mt_cond kernel: the table must be `_pack_walk_table`'s (Np, 20) rows")
+    return _cond_launch("mt_cond", 1, phi_pad, table, chunk_boxes, sub_boxes, tile_rays, stats)
+
+
+def _walk_cond_cuda_v1(phi_pad, cols_rows, chunk_boxes, sub_boxes, tile_rays: int, stats=None):
+    """Launch the first design of the 'cond' walk (csrc/mt_shade.cu
+    `tpt_mt_cond_v1`, on the sub-block-major rows), kept only to compare
+    its redesign with; outputs (R_pad,) x4."""
+    if cols_rows.shape[1:] != (10,):
+        raise ValueError("mt_cond_v1 kernel: the table must be `_pad_scene`'s (4*Np, 10) rows")
+    return _cond_launch("mt_cond_v1", 4, phi_pad, cols_rows, chunk_boxes, sub_boxes, tile_rays,
+                        stats)
+
+
+def _cond_launch(what, rows_a_tri: int, phi_pad, table, chunk_boxes, sub_boxes, tile_rays: int,
+                 stats=None):
+    """Launch `tpt_<what>`, a 'cond' walk over `table`, whose row width
+    the caller has checked and which holds `rows_a_tri` rows a triangle;
+    outputs (R_pad,) x4.  `stats`, if given, a (T, 2) int32 tensor,
+    receives the walk counts."""
+    from ... import _build
+
     dev = phi_pad.device
     n_tiles = phi_pad.shape[1] // tile_rays
     n_chunks, n_subs = chunk_boxes.shape[0], sub_boxes.shape[0]
-    what = "mt_cond_mxu" if mxu else "mt_cond"
-    _check_inputs(what, (phi_pad, torch.float32), (cols_rows, torch.float32),
+    _check_inputs(what, (phi_pad, torch.float32), (table, torch.float32),
                   (chunk_boxes, torch.float32), (sub_boxes, torch.float32), device=dev)
-    if (cols_rows.shape != (4 * n_chunks * CHUNK_TRIS, 16 if mxu else 10)
-            or cols_rows.data_ptr() % 16 or n_subs % n_chunks):
+    if (table.shape[0] != rows_a_tri * n_chunks * CHUNK_TRIS
+            or table.data_ptr() % 16 or n_subs % n_chunks):
         raise ValueError(f"{what} kernel: coefficient table and boxes do not match")
-    sub = CHUNK_TRIS * n_chunks // n_subs
-    if mxu:
-        _check_mxu_shape(what, lib, cols_rows, tile_rays, sub)
     if stats is not None:
         _check_inputs(what, (stats, torch.int32), device=dev)
         if stats.shape != (n_tiles, 2):
             raise ValueError(f"{what} kernel: walk stats must be a (T, 2) int32 tensor")
     out = _outputs(phi_pad.shape[1], dev)
-    err = (lib.tpt_mt_cond_mxu if mxu else lib.tpt_mt_cond)(
-        *map(_ptr, (phi_pad, cols_rows, chunk_boxes, sub_boxes, *out, stats)),
-        phi_pad.shape[1], tile_rays, n_tiles, n_chunks, sub, _stream(dev))
+    err = getattr(_build.load(), f"tpt_{what}")(
+        *map(_ptr, (phi_pad, table, chunk_boxes, sub_boxes, *out, stats)),
+        phi_pad.shape[1], tile_rays, n_tiles, n_chunks, CHUNK_TRIS * n_chunks // n_subs,
+        _stream(dev))
     if err:
         raise RuntimeError(f"{what} kernel launch failed: {_build.error_string(err)}")
     return out

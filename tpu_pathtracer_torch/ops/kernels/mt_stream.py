@@ -31,8 +31,7 @@ csrc/stream_walk.cu) for a CUDA tensor and runs
 `mt_intersect_stream2_phi_plain` for a CPU tensor.  The plain version walks
 the same lists, chunks and subs in the same order with the same
 elementwise arithmetic, vectorised over tiles, so the two agree bit for
-bit, walk counts included.  The first design of the kernel stays in
-csrc/mt_stream.cu as `_walk_cuda_v1`, for comparison only.
+bit, walk counts included.
 """
 
 from __future__ import annotations
@@ -65,19 +64,6 @@ from .mt_shade import (
 SUB_TRIS = 32  # the stream's own sub-treelet granule
 SUBS_PER_CHUNK = CHUNK_TRIS // SUB_TRIS
 SUPER_TRIS = CHUNK_TRIS * CHUNKS_PER_SUPER
-# The measured steps of the Hopper walk (`_walk_table_cuda`'s `variant`;
-# csrc/stream_walk.cu `tpt_mt_stream_variant`): (rays a thread, cluster
-# size, bulk-copy staging, decisions by mask, lanes a ray).  Step a: a
-# packed table and RPT rays a thread; b: the bulk-copy prefetch; c:
-# decisions by mask; d: a cluster of C CTAs a tile; e: a ray's triangles
-# split over several lanes.
-WALK_VARIANTS = (
-    (1, 1, 0, 0, 1), (2, 1, 0, 0, 1), (4, 1, 0, 0, 1), (1, 1, 1, 0, 1), (2, 1, 1, 0, 1),
-    (1, 1, 0, 1, 1), (2, 1, 0, 1, 1), (1, 1, 1, 1, 1), (2, 1, 1, 1, 1), (4, 1, 1, 1, 1),
-    (1, 2, 1, 1, 1), (2, 2, 1, 1, 1), (1, 4, 1, 1, 1), (2, 4, 1, 1, 1), (1, 8, 1, 1, 1),
-    (2, 8, 1, 1, 1), (1, 2, 1, 1, 2), (1, 4, 1, 1, 2), (1, 4, 1, 1, 4), (1, 8, 1, 1, 2),
-    (1, 8, 1, 1, 4), (1, 8, 1, 1, 8),
-)
 
 
 def _prepare(tri_pos, phi_t, tile_rays):
@@ -153,28 +139,9 @@ def _walk_cuda(phi_pad, cols_rows, chunk_boxes, sub_boxes, counts, lists, emins,
                             sub_boxes, counts, lists, emins, tile_rays, stats=stats)
 
 
-def _walk_cuda_v1(phi_pad, cols_rows, chunk_boxes, sub_boxes, counts, lists, emins,
-                  tile_rays: int, stats=None):
-    """Launch the first design of the walk (csrc/mt_stream.cu
-    `tpt_mt_stream_v1`) on the sub-block-major rows, kept only to compare
-    its redesign with; outputs (R_pad,) x4."""
-    return _launch("tpt_mt_stream_v1", phi_pad, cols_rows, 10, chunk_boxes, sub_boxes, counts,
-                   lists, emins, tile_rays, stats)
-
-
 def _walk_table_cuda(phi_pad, table, chunk_boxes, sub_boxes, counts, lists, emins,
-                     tile_rays: int, stats=None, variant=None):
-    """Launch the Hopper walk on the walk table; outputs (R_pad,) x4.
-    `variant`, (rays a thread, cluster size, bulk-copy staging, decisions
-    by mask, lanes a ray), picks one of the measured steps
-    (`tpt_mt_stream_variant`) instead of the kept design."""
-    name = "tpt_mt_stream" if variant is None else "tpt_mt_stream_variant"
-    return _launch(name, phi_pad, table, WALK_TABLE_FLOATS, chunk_boxes, sub_boxes, counts,
-                   lists, emins, tile_rays, stats, variant or ())
-
-
-def _launch(name, phi_pad, table, width, chunk_boxes, sub_boxes, counts, lists, emins,
-            tile_rays, stats, variant=()):
+                     tile_rays: int, stats=None):
+    """Launch the Hopper walk on the walk table; outputs (R_pad,) x4."""
     from ... import _build
 
     lib = _build.load()
@@ -185,8 +152,7 @@ def _launch(name, phi_pad, table, width, chunk_boxes, sub_boxes, counts, lists, 
                   (chunk_boxes, torch.float32), (sub_boxes, torch.float32),
                   (counts, torch.int32), (lists, torch.int32), (emins, torch.float32), device=dev)
     n_chunks = chunk_boxes.shape[0]
-    rows = (4 if width == 10 else 1) * n_chunks * CHUNK_TRIS
-    if (table.shape != (rows, width) or table.data_ptr() % 16
+    if (table.shape != (n_chunks * CHUNK_TRIS, WALK_TABLE_FLOATS) or table.data_ptr() % 16
             or sub_boxes.shape[0] != n_chunks * SUBS_PER_CHUNK
             or n_chunks != n_list * CHUNKS_PER_SUPER):
         raise ValueError("mt_stream kernel: coefficient table or boxes do not match the lists")
@@ -195,10 +161,9 @@ def _launch(name, phi_pad, table, width, chunk_boxes, sub_boxes, counts, lists, 
         if stats.shape != (n_tiles, 3):
             raise ValueError("mt_stream kernel: walk stats must be a (T, 3) int32 tensor")
     out = _outputs(r_pad, dev)
-    err = getattr(lib, name)(
+    err = lib.tpt_mt_stream(
         *map(_ptr, (phi_pad, table, chunk_boxes, sub_boxes, counts, lists, emins, *out, stats)),
-        r_pad, tile_rays, n_tiles, n_list, SUB_TRIS, CHUNKS_PER_SUPER,
-        *(int(x) for x in variant), _stream(dev))
+        r_pad, tile_rays, n_tiles, n_list, SUB_TRIS, CHUNKS_PER_SUPER, _stream(dev))
     if err:
         raise RuntimeError(f"mt_stream kernel launch failed: {_build.error_string(err)}")
     return out

@@ -18,13 +18,14 @@ def device_time(fn: Callable[[], object], *, device="cuda", match: str = "") -> 
 
     Returns {"total_s": the summed duration of the device activity whose
     name contains `match` (every kernel, copy and fill by default),
-    "programs": {name: seconds}, "ok": bool}.  For a `device` that is not
-    a CUDA device nothing is profiled and "ok" is False: the profiler's CUDA
-    activity is requested only where a card runs the work."""
+    "count": how many such activities were recorded, "programs": {name:
+    seconds}, "ok": bool}.  For a `device` that is not a CUDA device
+    nothing is profiled and "ok" is False: the profiler's CUDA activity is
+    requested only where a card runs the work."""
     import torch
 
     if torch.device(device).type != "cuda" or not torch.cuda.is_available():
-        return {"total_s": 0.0, "programs": {}, "ok": False,
+        return {"total_s": 0.0, "count": 0, "programs": {}, "ok": False,
                 "error": f"no CUDA activity on device {device}"}
     from torch.profiler import ProfilerActivity, profile
 
@@ -33,11 +34,13 @@ def device_time(fn: Callable[[], object], *, device="cuda", match: str = "") -> 
         fn()
         torch.cuda.synchronize(device)
     programs: dict = {}
+    count = 0
     for evt in prof.key_averages():  # CUDA activity only: kernels, copies, fills
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = evt.self_cuda_time_total
         if us > 0:
             programs[evt.key] = us / 1e6
+            count += evt.count if match in evt.key else 0
     total = sum(dur for name, dur in programs.items() if match in name)
-    return {"total_s": total, "programs": programs, "ok": bool(programs)}
+    return {"total_s": total, "count": count, "programs": programs, "ok": bool(programs)}
