@@ -19,7 +19,7 @@ public entry points:
     pixel, 4 bounces, materials.color from np.random.default_rng(0), Adam
     at 5e-2, 60 steps), through the near-to-far kernel and torch autograd;
     then the loss gradient at the initial colors with TPT_CULL=list and
-    =cond, through the list and cond kernels (csrc/mt_shade.cu,
+    =cond, through the list and cond kernels (csrc/nf_walk.cu,
     csrc/cond_walk.cu), and with intersector='bvh8' (the fat-leaf BVH
     walk, torch ops);
   * cond end to end: the headline frame and the training step under
@@ -40,26 +40,34 @@ public entry points:
     `render.benchmark.make_budget` under TPT_MXU_DETS=0 and =1, timed by
     `utils.devtime.device_time` and the host clock (the JAX package's
     round-5 sweep), and one frame under TPT_MXU_DETS=1 with TPT_CULL=list
-    and =cond; the MXU variants of nf, list and cond are held at
-    sub-treelets of 32, 64 and 128 on the headline rays to their plain
-    versions and to the FP32 kernels by `mt_shade.hit_agreement`'s rule;
+    and =cond (csrc/mxu_walk.cu); the MXU variants of nf, list and cond
+    are held at sub-treelets of 32, 64 and 128 on the headline rays to
+    their plain versions and to the FP32 kernels by
+    `mt_shade.hit_agreement`'s rule, nf's and cond's walk counts to within
+    1% of tiles of their plain versions'; each profiled make_budget call
+    prints the profiler's records of the walk kernel beside the wrapper's
+    launches;
   * CLI: `tpu_pathtracer_torch.cli` in this process: `benchmark` at the
     headline shape, `render` with --timing, --checkpoint and --resume
     (equal to a fresh render bit for bit), and `render --env sky:...`.
 
-The near-to-far, cond and streamed walks are Hopper redesigns
-(csrc/nf_walk.cu, csrc/cond_walk.cu, csrc/stream_walk.cu).  Their walk
-phase holds each bit for bit to the plain walk with equal per-tile walk
-counts, on the headline scene (nf, cond at sub 64 and streamed) and the
-stress scene (streamed), primary and first-bounce rays; prints each
-case's per-tile walk distribution (mean, max, the five heaviest tiles),
-the walk timed twice (cond in turns with its first design,
-`tpt_mt_cond_v1`: old, kept, kept, old), the table repack timed apart,
-the walk bound (the walk's own pairs and slab tests) and the
-critical-path bound (the heaviest tile's work over the FP32 share of the
-SMs it runs on), and the kept designs' registers, shared memory and CTAs
-per SM.  The nf and cond walk counts are also held to the plain walk's at
-every sub of the cull phase.  The denoise phase holds the tiled kernel
+The near-to-far, list, cond, streamed and MXU walks are Hopper redesigns
+(csrc/nf_walk.cu, csrc/cond_walk.cu, csrc/stream_walk.cu,
+csrc/mxu_walk.cu).  Their walk phase holds each FP32 walk bit for bit to
+the plain walk with equal per-tile walk counts, and each MXU walk to its
+plain walk by `hit_agreement` with walk counts within 1% of tiles, on the
+headline scene (nf, list, cond and their MXU variants at sub 64, and
+streamed) and the stress scene (streamed), primary and first-bounce rays;
+prints each case's per-tile walk distribution (mean, max, the five
+heaviest tiles), the walk's kernel timed twice (list, cond and the MXU
+walks in turns with their first designs, `tpt_mt_list_v1`,
+`tpt_mt_cond_v1`, `tpt_mt_*_mxu_v1`: old, kept, kept, old), the table
+repack timed apart, the walk bound (the walk's own pairs and slab tests)
+and the critical-path bound (the heaviest tile's work over the FP32, or
+for the MXU walks the TF32 and FP32, share of the SMs it runs on), and
+the kept designs' registers, shared memory and CTAs per SM.  The nf, list
+and cond walk counts are also held to the plain walk's at every sub of
+the cull phase.  The denoise phase holds the tiled kernel
 (csrc/denoise.cu) to the plain version and to its first design
 (`tpt_denoise_v1`) at 512x512, 1080x1920, 300x517 and 6x10 and at a
 second radius, and times the kernel launch alone and the whole wrapper
@@ -593,6 +601,19 @@ def _cull_phase(mt_shade, tri_pos, rays, results, tag):
                                                      tile_dist=_tile_dist(sk))
                     line += (f"; walk counts equal to the plain walk's over {sk.shape[0]} tiles: "
                              f"{int(sk.sum())} subs evaluated, {_tile_dist(sk)}")
+                if cull == "list":
+                    prep = mt_shade._prepare_list(tri_pos, phi, None, sub)
+                    sk = torch.zeros_like(prep[2])
+                    sp = torch.zeros_like(prep[2])
+                    hk = mt_shade._walk_list_cuda(*prep, stats=sk)
+                    _check(all(torch.equal(a, b) for a, b in
+                               zip(hk, mt_shade._walk_list_plain(*prep, stats=sp)))
+                           and torch.equal(sk, sp) and torch.equal(sk, prep[2]),
+                           f"{name} {what}: walk or walk counts differ from plain")
+                    results[f"{name}_{what}"].update(subs_evaluated=int(sk.sum()))
+                    line += (f"; walk counts equal to the plain walk's (every listed sub) over "
+                             f"{sk.shape[0]} tiles: {int(sk.sum())} subs evaluated")
+                    del prep
                 if cull == "cond":
                     sk = mt_shade.cond_walk_stats(tri_pos, phi, sub=sub)
                     sp = mt_shade.cond_walk_stats(tri_pos, phi, sub=sub, plain=True)
@@ -609,7 +630,7 @@ def _cull_phase(mt_shade, tri_pos, rays, results, tag):
             walk_plain_ms = _time_ms(lambda: walk_p(*prep), 1, 3)
             results[f"{name}_walk_ms"], results[f"{name}_walk_plain_ms"] = walk_ms, walk_plain_ms
             print(f"timing {tag}: {name} primary kernel walk"
-                  f"{' and repack' * (cull in ('nf', 'cond'))} "
+                  " and repack "
                   f"{walk_ms:.3f} ms, plain walk "
                   f"{walk_plain_ms:.3f} ms")
             del prep
@@ -856,19 +877,22 @@ def _r2_timing(mt_intersect, name, tri_pos, ro, rd, stats, results, key, tag, pl
     phi_pad, _, boxes, chunk, _ = prep
     ms = _time_ms(lambda: kernel(tri_pos, ro, rd), 3, 20)
     walk_ms = _time_ms(lambda: mt_intersect._walk_cuda(*prep), 3, 20)
+    kernel_ms = _kernel_ms(lambda: mt_intersect._walk_cuda(*prep), "mt_r2_kernel")
     plain_ms = _time_ms(lambda: plain(tri_pos, ro, rd), 1, plain_reps)
     walk_plain_ms = _time_ms(lambda: mt_intersect._walk_plain(*prep), 1, plain_reps)
     evaluated = int(stats[:, 0].sum())
     ops = evaluated * chunk * mt_intersect.TILE_RAYS * PAIR_OPS_R2 \
         + phi_pad.shape[1] * boxes.shape[0] * SLAB_OPS
     bound_ms, bound_by = _bound(ops, _mt_bytes(tri_pos.shape[0], ro.shape[0]))
-    print(f"timing {tag}: {name} {key} wrapper {ms:.3f} ms (kernel walk {walk_ms:.3f} ms), plain "
-          f"wrapper {plain_ms:.3f} ms (plain walk {walk_plain_ms:.3f} ms); bound {bound_ms:.4f} ms "
-          f"({bound_by}: {ops / 1e9:.3f} GFLOP)")
-    results[f"{name}_{key}"].update(ms=ms, walk_ms=walk_ms, plain_ms=plain_ms,
+    print(f"timing {tag}: {name} {key} wrapper {ms:.3f} ms (kernel {kernel_ms:.4f} ms by CUDA "
+          f"events, launches queued; walk call {walk_ms:.3f} ms), plain wrapper {plain_ms:.3f} ms "
+          f"(plain walk {walk_plain_ms:.3f} ms); bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{ops / 1e9:.3f} GFLOP)")
+    results[f"{name}_{key}"].update(ms=ms, walk_ms=walk_ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
                                     walk_plain_ms=walk_plain_ms, bound_ms=bound_ms,
                                     bound_by=bound_by, gflop=ops / 1e9)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def _r2_phase(mt_intersect, counters, tri_pos, phi, nf_hit, results, tag):
@@ -1035,11 +1059,11 @@ def _mxu_phase(mt_shade, tri_pos, rays, results, tag):
     (hit and triangle equal on >= 99.9% of the primary rays' lanes, every
     differing lane a near-tie within 1e-5, an edge or a floor lane, floor
     lanes on the bounce rays counted apart; t, u and v within 1e-4 of the
-    magnitude their sums are conditioned by, where the triangle agrees),
-    and cond's walk
-    counts against its plain version's (at most 1% of the tiles may differ:
-    a box whose entry ties a ray's t may be decided the other way when the
-    two t differ by a rounding).  Times every walk; returns {cull: (largest
+    magnitude their sums are conditioned by, where the triangle agrees), no
+    output NaN, and nf's and cond's walk counts against their plain
+    versions' (at most 1% of the tiles may differ: an entry that ties a
+    ray's t may be decided the other way when the two t differ by a
+    rounding).  Times one call of every walk; returns {cull: (largest
     t/u/v difference against plain, wrapper ms, plain wrapper ms)} at sub
     64."""
     import functools
@@ -1072,17 +1096,20 @@ def _mxu_phase(mt_shade, tri_pos, rays, results, tag):
                       f"{vs_plain}; vs the FP32 kernel {vs_fp32}; max |t,u,v| diff vs plain "
                       f"{err:.3g}")
                 _check(hits > 0, f"{name} {what}: no ray hit the scene")
+                _check(not any(bool(torch.isnan(x).any()) for x in (hk.t, hk.u, hk.v)),
+                       f"{name} {what}: NaN in the outputs")
                 _check(vs_plain["ok"], f"{name} {what}: disagrees with its plain version")
                 _check(vs_fp32["ok"], f"{name} {what}: disagrees with the FP32 kernel")
                 results[f"{name}_{what}"] = dict(hits=hits, vs_plain=vs_plain, vs_fp32=vs_fp32,
                                                  max_abs_err=err)
                 line = f"{name} {what}"
-                if cull == "cond":
-                    sk = mt_shade.cond_walk_stats(tri_pos, phi, sub=sub, mxu=True)
-                    sp = mt_shade.cond_walk_stats(tri_pos, phi, sub=sub, mxu=True, plain=True)
-                    sf = mt_shade.cond_walk_stats(tri_pos, phi, sub=sub)
+                if cull != "list":
+                    stats = mt_shade.cond_walk_stats if cull == "cond" else mt_shade.nf_walk_stats
+                    width = 2 if cull == "cond" else 1
+                    sk, sp, sf = (stats(tri_pos, phi, sub=sub, **kw).reshape(-1, width)
+                                  for kw in ({"mxu": True}, {"mxu": True, "plain": True}, {}))
                     tiles = int((sk != sp).any(dim=1).sum())
-                    ek, ep, ef = (int(x[:, 1].sum()) for x in (sk, sp, sf))
+                    ek, ep, ef = (int(x[:, -1].sum()) for x in (sk, sp, sf))
                     print(f"{line}: walk counts: {tiles} of {sk.shape[0]} tiles differ from the "
                           f"plain walk's, subs evaluated {ek} (plain {ep}, FP32 kernel {ef})")
                     _check(tiles <= 0.01 * sk.shape[0] and abs(ek - ep) <= 0.01 * ep,
@@ -1095,12 +1122,12 @@ def _mxu_phase(mt_shade, tri_pos, rays, results, tag):
             prep_p = prepares[cull](tri_pos, phi, None, sub)
             walk_ms = _time_ms(lambda: walk_k(*prep, mxu=True), 3, 20)
             walk_plain_ms = _time_ms(lambda: walk_p(*prep_p, mxu=True), 1, 3)
-            pack_ms = _time_ms(lambda: mt_shade._pack_mma(prep_p[1], sub), 3, 20)
+            pack_ms = _time_ms(lambda: mt_shade._pack_mxu_table(prep_p[1], sub), 3, 20)
             results[f"{name}_walk_ms"], results[f"{name}_walk_plain_ms"] = walk_ms, walk_plain_ms
             results[f"{name}_pack_ms"] = pack_ms
-            print(f"timing {tag}: {name} primary kernel walk {walk_ms:.3f} ms (FP32 kernel walk "
+            print(f"timing {tag}: {name} primary walk call {walk_ms:.3f} ms (FP32 walk call "
                   f"{results[f'mt_{cull}_sub{sub}_walk_ms']:.3f} ms), plain walk "
-                  f"{walk_plain_ms:.3f} ms; table repack (`_pack_mma`) {pack_ms:.3f} ms")
+                  f"{walk_plain_ms:.3f} ms; table split (`_pack_mxu_table`) {pack_ms:.3f} ms")
             del prep, prep_p
         phi = rays["primary"][0]
         fp32_kernel = mt_shade._ROUTES[cull, False][0]
@@ -1131,31 +1158,47 @@ def _tile_dist(counts):
 
 
 def _walk_work(kind, stats, tile_rays, sub, n_chunks=0, alive=None):
-    """FP32 operations of a walk per tile (T,), from its walk counts: the
-    pairs of the evaluated subs (PAIR_OPS_NF each) and the slab tests
-    (SLAB_OPS each), every lane of the tile: for the streamed walk 16 chunk
-    boxes per walked super and 4 sub boxes per staged chunk; for cond every
-    chunk box of a tile that moves (`alive`, (T,)) and the subs of each
-    live chunk (none at sub 128, where the chunk is the sub)."""
+    """(pairs, slab tests) of a walk per tile (T,), from its walk counts,
+    every lane of the tile: the pairs of the evaluated subs; the slab tests
+    of the streamed walk (16 chunk boxes per walked super, 4 sub boxes per
+    staged chunk) and of cond (every chunk box of a tile that moves,
+    `alive` (T,), and the subs of each live chunk; none at sub 128, where
+    the chunk is the sub); nf and list make none."""
     s = stats.double()
-    if kind == "nf":
-        return s * sub * tile_rays * PAIR_OPS_NF
+    if kind in ("nf", "list"):
+        return s * sub * tile_rays, s * 0
     if kind == "cond":
         spc = 128 // sub
         slabs = alive.double() * n_chunks + s[:, 0] * (spc if spc > 1 else 0)
-        return (s[:, 1] * sub * PAIR_OPS_NF + slabs * SLAB_OPS) * tile_rays
-    return (s[:, 2] * sub * PAIR_OPS_NF + (s[:, 0] * 16 + s[:, 1] * 4) * SLAB_OPS) * tile_rays
+        return s[:, 1] * sub * tile_rays, slabs * tile_rays
+    return s[:, 2] * sub * tile_rays, (s[:, 0] * 16 + s[:, 1] * 4) * tile_rays
 
 
-def _walk_bounds(work, n_tris, n_rays, cluster):
+def _walk_bounds(pairs, slabs, n_tris, n_rays, cluster, mxu=False):
     """(walk bound ms, its binding term, critical-path bound ms) of a walk
-    whose per-tile work is `work`: its whole work over the FP32 peak
-    against its bytes over the HBM rate; the heaviest tile's work over the
-    FP32 peak share of the `cluster` SMs it runs on (67 TFLOP/s / 132 SMs
-    each)."""
-    walk_ms, by = _bound(float(work.sum()), _mt_bytes(n_tris, n_rays, 20))
-    critical_ms = float(work.max()) / (H100_FP32 / H100_SMS * cluster) * 1e3
-    return walk_ms, by, critical_ms
+    whose per-tile pairs and slab tests are these.  FP32 walks: the whole
+    walk's FP32 operations (PAIR_OPS_NF a pair, SLAB_OPS a slab test) over
+    the FP32 peak against its bytes (the 20 floats a triangle the function
+    needs) over the HBM rate; the heaviest tile's operations over the FP32
+    share of the `cluster` SMs it runs on (67 TFLOP/s / 132 SMs each).  MXU
+    walks: the determinants' PAIR_FLOPS_MXU a pair over the TF32 peak
+    against the epilogue's and slab tests' operations over the FP32 peak
+    and the same bytes (not the 80 floats of the kernel's split table); the
+    heaviest tile likewise over its SMs' shares."""
+    nbytes = _mt_bytes(n_tris, n_rays, 20)
+    if not mxu:
+        work = pairs * PAIR_OPS_NF + slabs * SLAB_OPS
+        walk_ms, by = _bound(float(work.sum()), nbytes)
+        critical_ms = float(work.max()) / (H100_FP32 / H100_SMS * cluster) * 1e3
+        return walk_ms, by, critical_ms
+    tensor = pairs * PAIR_FLOPS_MXU
+    fp32 = pairs * PAIR_OPS_MXU_EPILOGUE + slabs * SLAB_OPS
+    terms = {"operations": max(float(tensor.sum()) / H100_TF32, float(fp32.sum()) / H100_FP32),
+             "bytes": nbytes / H100_HBM}
+    by = max(terms, key=terms.get)
+    share = cluster / H100_SMS
+    critical = (tensor / (H100_TF32 * share)).maximum(fp32 / (H100_FP32 * share))
+    return terms[by] * 1e3, by, float(critical.max()) * 1e3
 
 
 def _sass_loads(lib_path: Path, kernels: dict, dump_dir=None) -> dict:
@@ -1208,95 +1251,156 @@ def _sass_loads(lib_path: Path, kernels: dict, dump_dir=None) -> dict:
 
 
 def _walk_cases(tri_pos, rays, s_tri, s_rays):
-    """The walk phase's cases: the nf and cond walks and the streamed walk
-    on the headline scene, the streamed walk on the stress scene, each on
-    primary and first-bounce rays (nf and cond cannot take the stress
-    scene's 131,072 triangles)."""
+    """The walk phase's cases: the nf, list and cond walks, their MXU
+    variants and the streamed walk on the headline scene, the streamed walk
+    on the stress scene, each on primary and first-bounce rays (nf, list
+    and cond cannot take the stress scene's 131,072 triangles)."""
     cases = {}
     for what in ("primary", "bounce1"):
-        cases[f"nf_headline_{what}"] = ("nf", tri_pos, rays[what][0])
-        cases[f"cond_headline_{what}"] = ("cond", tri_pos, rays[what][0])
-        cases[f"stream_headline_{what}"] = ("stream", tri_pos, rays[what][0])
+        for kind in ("nf", "list", "cond", "nf_mxu", "list_mxu", "cond_mxu", "stream"):
+            cases[f"{kind}_headline_{what}"] = (kind, tri_pos, rays[what][0])
         cases[f"stream_stress_{what}"] = ("stream", s_tri, s_rays[what][0])
     return cases
 
 
 # Each walk's kernel by name, as the profiler reports it.
-WALK_KERNELS = {"nf": "nf_walk_kernel", "cond": "cond_walk_kernel", "cond_v1": "mt_cond_kernel",
-                "stream": "stream_walk_kernel"}
+WALK_KERNELS = {"nf": "nf_walk_kernel", "list": "nf_walk_kernel", "list_v1": "mt_list_kernel",
+                "cond": "cond_walk_kernel", "cond_v1": "mt_cond_kernel",
+                "stream": "stream_walk_kernel", "nf_mxu": "mxu_walk_kernel",
+                "list_mxu": "mxu_walk_kernel", "cond_mxu": "mxu_cond_kernel",
+                "nf_mxu_v1": "mxu::mt_list_kernel", "list_mxu_v1": "mxu::mt_list_kernel",
+                "cond_mxu_v1": "mxu::mt_cond_kernel"}
 
 
 def _walk_setup(mt_shade, mt_stream, kind, tri_pos, phi):
     """(prep, sub, plain walk, kept walk, first design or None, stats
-    shape) of one walk case; the walks take `stats=` and the kept one reads
-    the table `_pack_walk_table` packed once here."""
-    if kind == "nf":
-        sub = mt_shade.SUB_TRIS
-        prep = mt_shade._prepare(tri_pos, phi, None, sub)
+    shape) of one walk case.  The plain, kept and first-design walks take
+    `stats=` (a first design without walk counts ignores it); the kept one
+    reads the table `_pack_walk_table` (MXU: `_pack_mxu_table`) packed once
+    here, the MXU first design `_pack_mma`'s; the MXU plain walk runs with
+    TF32 off."""
+    import functools
+
+    if kind == "stream":
+        sub = mt_stream.SUB_TRIS
+        prep = mt_stream._prepare(tri_pos, phi, None)
         table = mt_shade._pack_walk_table(prep[1], sub)
-        return (prep, sub, mt_shade._walk_plain,
-                lambda stats=None: mt_shade._walk_table_cuda(prep[0], table, *prep[2:5], prep[-1],
-                                                             stats=stats),
-                None, (prep[3].shape[0],))
-    if kind == "cond":
-        sub = mt_shade.SUB_TRIS
-        prep = mt_shade._prepare_cond(tri_pos, phi, None, sub)
-        table = mt_shade._pack_walk_table(prep[1], sub)
-        return (prep, sub, mt_shade._walk_cond_plain,
-                lambda stats=None: mt_shade._walk_cond_table_cuda(prep[0], table, *prep[2:],
-                                                                  stats=stats),
-                lambda stats=None: mt_shade._walk_cond_cuda_v1(*prep, stats=stats),
-                (prep[0].shape[1] // prep[-1], 2))
-    sub = mt_stream.SUB_TRIS
-    prep = mt_stream._prepare(tri_pos, phi, None)
+        return (prep, sub, mt_stream._walk_plain,
+                lambda stats=None: mt_stream._walk_table_cuda(prep[0], table, *prep[2:7],
+                                                              prep[-1], stats=stats),
+                None, (prep[5].shape[0], 3))
+    cull = kind.removesuffix("_mxu")
+    sub = mt_shade.SUB_TRIS
+    prepare, plain, _ = mt_shade._MXU_WALKS[cull]
+    prep = prepare(tri_pos, phi, None, sub)
+    n_tiles = prep[0].shape[1] // prep[-1]
+    stats_shape = (n_tiles, 2) if cull == "cond" else (n_tiles,)
+    if kind.endswith("_mxu"):
+        table, rows = mt_shade._pack_mxu_table(prep[1], sub), mt_shade._pack_mma(prep[1], sub)
+
+        def plain_mxu(*args, stats=None):
+            with mt_shade._full_fp32():
+                return plain(*args, stats=stats, mxu=True)
+
+        _, _, walk = mt_shade._MXU_WALKS[cull]
+        return (prep, sub, plain_mxu,
+                lambda stats=None: walk(prep[0], table, *prep[2:], mxu=True, stats=stats),
+                lambda stats=None: mt_shade._walk_mxu_cuda_v1(
+                    cull, prep[0], rows, *prep[2:], **({"stats": stats} if cull == "cond" else {})),
+                stats_shape)
     table = mt_shade._pack_walk_table(prep[1], sub)
-    return (prep, sub, mt_stream._walk_plain,
-            lambda stats=None: mt_stream._walk_table_cuda(prep[0], table, *prep[2:7], prep[-1],
-                                                          stats=stats),
-            None, (prep[5].shape[0], 3))
+    if kind == "nf":
+        return (prep, sub, mt_shade._walk_plain,
+                lambda stats=None: mt_shade._list_launch("mt_nf", prep[0], table, *prep[2:5],
+                                                         prep[-1], stats),
+                None, stats_shape)
+    if kind == "list":
+        return (prep, sub, mt_shade._walk_list_plain,
+                lambda stats=None: mt_shade._list_launch("mt_list", prep[0], table, *prep[2:4],
+                                                         None, prep[-1], stats),
+                lambda stats=None: mt_shade._walk_list_cuda_v1(*prep), stats_shape)
+    return (prep, sub, mt_shade._walk_cond_plain,
+            lambda stats=None: mt_shade._walk_cond_table_cuda(prep[0], table, *prep[2:],
+                                                              stats=stats),
+            functools.partial(mt_shade._walk_cond_cuda_v1, *prep), stats_shape)
 
 
 def _walk_phase(mt_shade, mt_stream, cases, results, tag):
-    """The Hopper walks of #1 (csrc/nf_walk.cu), #4b (csrc/cond_walk.cu)
-    and #3 (csrc/stream_walk.cu) on each case (kernel, scene, rays): the
-    kept design held bit for bit to the plain walk with equal per-tile walk
-    counts (cond's first design, `tpt_mt_cond_v1`, too); the per-tile walk
-    distribution; the repack (`_pack_walk_table`) timed apart; the walk
-    timed twice (cond in turns with its first design: old, kept, kept,
-    old), as the kernel's time by CUDA events around launches queued back
-    to back (`_kernel_ms`), and as CUDA events around
-    one call (the host launch path included); the walk and
-    critical-path bounds.  Returns {case: summary}."""
+    """The Hopper walks of #1 and #4a (csrc/nf_walk.cu), #4b
+    (csrc/cond_walk.cu), #3 (csrc/stream_walk.cu) and #5 (csrc/mxu_walk.cu)
+    on each case (kernel, scene, rays).  The FP32 walks are held bit for
+    bit to the plain walk with equal per-tile walk counts (list's and
+    cond's first designs, `tpt_mt_list_v1` / `tpt_mt_cond_v1`, too); the
+    MXU walks and their first designs (`tpt_mt_*_mxu_v1`) to their plain
+    walks by `hit_agreement` (floor lanes at most 0.3%, no NaN), with walk
+    counts within 1% of tiles (list: equal).  Prints the per-tile walk
+    distribution; the repack (`_pack_walk_table`, `_pack_mxu_table`) timed
+    apart; the walk timed twice (beside a first design in turns: v1, kept,
+    kept, v1), as the kernel's time by CUDA events around launches queued
+    back to back (`_kernel_ms`), and as CUDA events around one call (the
+    host launch path included); the walk and critical-path bounds.  Returns
+    {case: summary}."""
     import torch
 
-    shapes = {"nf": mt_shade.walk_shape("tpt_mt_nf_shape", mt_shade.SUB_TRIS, 512),
-              "cond": mt_shade.walk_shape("tpt_mt_cond_shape", mt_shade.SUB_TRIS, 512),
-              "stream": mt_shade.walk_shape("tpt_mt_stream_shape", 512)}
+    sub = mt_shade.SUB_TRIS
+    shapes = {kind: mt_shade.walk_shape(f"tpt_mt_{kind}_shape", sub, 512)
+              for kind in ("nf", "list", "cond", "nf_mxu", "list_mxu", "cond_mxu")}
+    shapes["stream"] = mt_shade.walk_shape("tpt_mt_stream_shape", 512)
     for kind, shape in shapes.items():
         print(f"walk {kind} kept design at a 512-ray tile: {shape}")
         results[f"walk_{kind}_shape"] = shape
     out = {}
     for key, (kind, tri_pos, phi) in cases.items():
+        mxu = kind.endswith("_mxu")
         prep, sub, plain, kept, v1, stats_shape = _walk_setup(mt_shade, mt_stream, kind, tri_pos,
                                                               phi)
-        tile = prep[-1]
+        tile, r = prep[-1], phi.shape[1]
         sp = torch.zeros(stats_shape, dtype=torch.int32, device=phi.device)
         hp = plain(*prep, stats=sp)
 
+        def as_hit(walk_out):
+            t, idx, u, v = (x[:r] for x in walk_out)
+            return mt_shade.Hit(idx >= 0, t, idx, u, v)
+
+        agreement = {}
+
         def check(what, hits, stats):
+            if mxu:
+                _check(not any(bool(torch.isnan(x).any()) for x in hits),
+                       f"walk {key} {what}: NaN in the outputs")
+                agreement[what] = mt_shade.hit_agreement(tri_pos, phi, as_hit(hits), as_hit(hp))
+                _check(agreement[what]["ok"], f"walk {key} {what}: disagrees with the plain walk: "
+                       f"{agreement[what]}")
+                if stats is None:
+                    return
+                two = stats_shape[1:] == (2,)
+                sk2, sp2 = (stats, sp) if two else (stats[:, None], sp[:, None])
+                tiles = int((sk2 != sp2).any(dim=1).sum())
+                ek, ep = int(sk2[:, -1].sum()), int(sp2[:, -1].sum())
+                agreement[what].update(tiles_differ=tiles, subs_evaluated=ek)
+                _check(tiles <= 0.01 * sk2.shape[0] and abs(ek - ep) <= 0.01 * ep
+                       and (kind != "list_mxu" or tiles == 0),
+                       f"walk {key} {what}: walk counts differ from the plain walk's: {tiles} "
+                       f"tiles, subs {ek} against {ep}")
+                return
             _check(all(torch.equal(a, b) for a, b in zip(hits, hp)),
                    f"walk {key} {what}: hits differ from the plain walk's")
-            _check(torch.equal(stats, sp), f"walk {key} {what}: walk counts differ from the plain "
-                   "walk's")
+            if stats is not None:
+                _check(torch.equal(stats, sp), f"walk {key} {what}: walk counts differ from the "
+                       "plain walk's")
 
         for what, fn in (("kept", kept), ("v1", v1)):
-            if fn is not None:
-                sk = torch.zeros_like(sp)
-                check(what, fn(stats=sk), sk)
+            if fn is None:
+                continue
+            sk = torch.zeros_like(sp)
+            hits = fn(stats=sk)
+            # first designs without walk counts: list's, MXU nf's and list's
+            counted = what == "kept" or kind in ("cond", "cond_mxu")
+            check(what, hits, sk if counted else None)
         torch.cuda.synchronize()
-        evaluated = sp if kind == "nf" else sp[:, -1]  # subs evaluated
+        evaluated = sp if sp.dim() == 1 else sp[:, -1]  # subs evaluated
         dist = {"subs": _tile_dist(evaluated)}
-        if kind == "cond":
+        if kind in ("cond", "cond_mxu"):
             dist.update(chunks=_tile_dist(sp[:, 0]))
         if kind == "stream":
             dist.update(supers=_tile_dist(sp[:, 0]), chunks=_tile_dist(sp[:, 1]))
@@ -1307,18 +1411,22 @@ def _walk_phase(mt_shade, mt_stream, cases, results, tag):
             fn = kept if which == "kept" else v1
             times[which].append(_kernel_ms(fn, WALK_KERNELS[kind + "_v1" * (which == "v1")]))
             calls[which].append(_time_ms(fn, 3, 20))
-        repack_ms = _time_ms(lambda: mt_shade._pack_walk_table(prep[1], sub), 3, 20)
+        pack = mt_shade._pack_mxu_table if mxu else mt_shade._pack_walk_table
+        repack_ms = _time_ms(lambda: pack(prep[1], sub), 3, 20)
         cluster = shapes[kind]["cluster"]
         alive = None
-        if kind == "cond":
+        if kind in ("cond", "cond_mxu"):
             alive = prep[0][4:7].abs().reshape(3, -1, tile).sum(dim=(0, 2)) > 0
-        work = _walk_work(kind, sp, tile, sub, n_chunks=-(-tri_pos.shape[0] // 128), alive=alive)
-        walk_bound, walk_by, critical = _walk_bounds(work, tri_pos.shape[0], phi.shape[1], cluster)
+        pairs, slabs = _walk_work(kind.removesuffix("_mxu"), sp, tile, sub,
+                                  n_chunks=-(-tri_pos.shape[0] // 128), alive=alive)
+        walk_bound, walk_by, critical = _walk_bounds(pairs, slabs, tri_pos.shape[0], r, cluster,
+                                                     mxu)
         kept_ms = statistics.mean(times["kept"])
         v1_ms = statistics.mean(times["v1"]) if v1 else None
-        print(f"walk {key}: {phi.shape[1]} rays, {sp.shape[0]} tiles of {tile}; kept"
-              f"{' and v1' if v1 else ''} bit-equal to the plain walk with equal walk counts; "
-              f"per-tile walk {dist}; heaviest tile {heavy} counts {sp[heavy].tolist()}")
+        held = ("held to the plain walk by hit_agreement " + str(agreement) if mxu else
+                f"kept{' and v1' if v1 else ''} bit-equal to the plain walk with equal walk counts")
+        print(f"walk {key}: {r} rays, {sp.shape[0]} tiles of {tile}; {held}; per-tile walk "
+              f"{dist}; heaviest tile {heavy} counts {sp[heavy].tolist()}")
         for what, got in (("kernel (CUDA events, launches queued)", times),
                           ("one call (CUDA events)", calls)):
             print(f"timing {tag}: walk {key} {what} "
@@ -1331,7 +1439,7 @@ def _walk_phase(mt_shade, mt_stream, cases, results, tag):
                         v1_ms=v1_ms, repack_ms=repack_ms, walk_bound_ms=walk_bound,
                         walk_bound_by=walk_by, critical_path_bound_ms=critical,
                         distribution=dist, heaviest_tile=heavy,
-                        heaviest_counts=sp[heavy].tolist())
+                        heaviest_counts=sp[heavy].tolist(), agreement=agreement)
         results[f"walk_{key}"] = out[key]
         del prep, hp, sp
     return out
@@ -1373,6 +1481,8 @@ def _sweep_phase(pt, data, cam, counters, results, tag):
     print(f"sweep: make_budget at {WIDTH}x{HEIGHT}, 1 spp, {BOUNCES} bounces, {SWEEP_FRAMES} frames "
           "a call, TPT_MXU_DETS=0 / =1")
     frames, wall, dev, launches = {}, {"0": [], "1": []}, {"0": [], "1": []}, {}
+    records = {"0": [], "1": []}
+    walks = {"0": ("mt_nf", WALK_KERNELS["nf"]), "1": ("mt_nf_mxu", WALK_KERNELS["nf_mxu"])}
     for flag in ("0", "1", "1", "0"):
         def timed():
             if flag not in frames:
@@ -1385,20 +1495,35 @@ def _sweep_phase(pt, data, cam, counters, results, tag):
             torch.cuda.synchronize()
             wall[flag].append((time.perf_counter() - t0) * 1e3 / SWEEP_FRAMES)
             launches[flag] = {n: fn.launches for n, fn in counters.items()}
-            dt = device_time(lambda: budget(data, params, SWEEP_FRAMES))
-            _check(dt["ok"] and dt["total_s"] > 0, f"no device time from the profiler: {dt}")
-            dev[flag].append(dt["total_s"] * 1e3 / SWEEP_FRAMES)
+            # the profiled call: its device time, and the walk kernel's records beside the
+            # wrapper's launches in the same call
+            wrapper, walk = walks[flag]
+            before = counters[wrapper].launches
+            dt = device_time(lambda: budget(data, params, SWEEP_FRAMES), match=walk)
+            total = sum(dt["programs"].values())
+            _check(dt["ok"] and total > 0, f"no device time from the profiler: {dt}")
+            _check(not any(old in name for name in dt["programs"]
+                           for old in ("mt_list_kernel", "mt_cond_kernel")),
+                   f"TPT_MXU_DETS={flag}: a first-design kernel ran: {list(dt['programs'])}")
+            dev[flag].append(total * 1e3 / SWEEP_FRAMES)
+            records[flag].append((dt["count"], counters[wrapper].launches - before))
 
         _with_env({"TPT_MXU_DETS": flag}, timed)
     for flag, kernel in (("0", "mt_nf"), ("1", "mt_nf_mxu")):
         got = launches[flag]
         _check(got[kernel] >= SWEEP_FRAMES and not _mt_launched(got, (kernel,)),
                f"TPT_MXU_DETS={flag}: launches {got}")
-        results[f"sweep_mxu{flag}"] = dict(device_ms=dev[flag], wall_ms=wall[flag], launches=got)
+        dropped = sum(n - c for c, n in records[flag])
+        results[f"sweep_mxu{flag}"] = dict(device_ms=dev[flag], wall_ms=wall[flag], launches=got,
+                                           walk_records_vs_launches=records[flag])
         print(f"timing {tag}: sweep TPT_MXU_DETS={flag}: device {statistics.mean(dev[flag]):.3f} "
-              f"ms/frame ({', '.join(f'{x:.3f}' for x in dev[flag])}), wall "
-              f"{statistics.mean(wall[flag]):.3f} ms/frame "
+              f"ms/frame ({', '.join(f'{x:.3f}' for x in dev[flag])}"
+              + (f"; the profiler dropped {dropped} walk kernel records, so these read low" if dropped
+                 else "") + f"), wall {statistics.mean(wall[flag]):.3f} ms/frame "
               f"({', '.join(f'{x:.3f}' for x in wall[flag])}); launches {got}")
+        print(f"sweep TPT_MXU_DETS={flag}: profiler records of {walks[flag][1]} against "
+              f"{walks[flag][0]}.launches in each profiled make_budget call: "
+              + ", ".join(f"{c} of {n}" for c, n in records[flag]))
     frac, agree = _outlier_rule(frames["1"], frames["0"])
     print(f"sweep: frame under TPT_MXU_DETS=1 vs =0: outlier fraction {frac:.2e}, non-outlier mean "
           f"diff {agree:.2e}")
@@ -1818,29 +1943,40 @@ def main(argv=None) -> int:
 
     # --- the walks' inner loops in SASS: shared loads a pair, old and new ----
     phase("sass")
-    shp = {k: results[f"walk_{k}_shape"] for k in ("nf", "cond", "stream")}
+    shp = {k: results[f"walk_{k}_shape"]
+           for k in ("nf", "list", "cond", "stream", "nf_mxu", "list_mxu", "cond_mxu")}
 
     def tail(k):
-        return f"Li{shp[k]['rpt']}ELi{shp[k]['cluster']}ELi{shp[k]['tpr']}EE"
+        return f"Li{shp[k]['rpt']}ELi{shp[k]['cluster']}ELi{shp[k]['tpr']}E"
+
+    def mxu_tail(k):  # m-tiles a warp, cluster
+        return f"Li{shp[k]['rpt'] // 2}ELi{shp[k]['cluster']}E"
 
     sass = _sass_loads(lib_path, {
-        "nf": f"nf_walk_kernelILi64E{tail('nf')}",
+        "nf": f"nf_walk_kernelILi64E{tail('nf')}Lb1E",
+        "list_v1": "mt_list_kernelILi1ELi64EE",
+        "list": f"nf_walk_kernelILi64E{tail('list')}Lb0E",
         "cond_v1": "mt_cond_kernelILi1ELi64EE",
-        "cond": f"cond_walk_kernelILi64E{tail('cond')}",
-        "stream": f"stream_walk_kernelI{tail('stream')}"}, Path(opts.out) if opts.out else None)
+        "cond": f"cond_walk_kernelILi64E{tail('cond')}E",
+        "stream": f"stream_walk_kernelI{tail('stream')}E",
+        "nf_mxu_v1": "mt_list_kernelILi64ELb1EE",
+        "nf_mxu": f"mxu_walk_kernelILi64E{mxu_tail('nf_mxu')}Lb1E",
+        "list_mxu": f"mxu_walk_kernelILi64E{mxu_tail('list_mxu')}Lb0E",
+        "cond_mxu": f"mxu_cond_kernelILi64E{mxu_tail('cond_mxu')}E"},
+        Path(opts.out) if opts.out else None)
     for label, got in sass.items():
-        print(f"sass {label} (nf and cond at sub 64): pair loop {got}")
+        print(f"sass {label} (at sub 64): pair loop {got}")
     results["sass_inner_loop"] = sass
 
     def bound(b):
         return {"bound_ms": b[0], "bound_by": b[1], "library_ms": None}
 
-    def walk(key):  # the redesigned walk alone (cond: beside its first design)
+    def walk(key):  # the redesigned walk's kernel (beside its first design's, where kept)
         w = walks[key]
-        return {"walk_ms": w["kept_ms"], "repack_ms": w["repack_ms"],
+        return {"kernel_ms": w["kept_ms"], "repack_ms": w["repack_ms"],
                 "walk_bound_ms": w["walk_bound_ms"],
                 "critical_path_bound_ms": w["critical_path_bound_ms"],
-                **({"v1_walk_ms": w["v1_ms"]} if w["v1_ms"] is not None else {})}
+                **({"v1_kernel_ms": w["v1_ms"]} if w["v1_ms"] is not None else {})}
 
     den512, den1080 = den[(512, 512)], den[(1080, 1920)]
 
@@ -1863,10 +1999,11 @@ def main(argv=None) -> int:
          "replaces": "tpu_pathtracer/ops/pallas/mt_shade.py:628",
          "launches": s_launches["mt_stream"], "max_abs_err": stream_err, "ms": st_ms,
          "plain_ms": st_plain_ms, **bound(st_bound), **walk("stream_stress_primary")},
-        {"name": "mt_list", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/mt_shade.cu",
+        {"name": "mt_list", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/nf_walk.cu",
          "replaces": "tpu_pathtracer/ops/pallas/mt_shade.py:255",
          "launches": cull_launches["list"], "max_abs_err": culls["list"][0],
-         "ms": culls["list"][1], "plain_ms": culls["list"][2], **bound(cull_bounds["list"])},
+         "ms": culls["list"][1], "plain_ms": culls["list"][2], **bound(cull_bounds["list"]),
+         **walk("list_headline_primary")},
         {"name": "mt_cond", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/cond_walk.cu",
          "replaces": "tpu_pathtracer/ops/pallas/mt_shade.py:183", "launches": cond_launches,
          "max_abs_err": culls["cond"][0], "ms": culls["cond"][1], "plain_ms": culls["cond"][2],
@@ -1874,15 +2011,16 @@ def main(argv=None) -> int:
         *({"name": name, "route": "cuda", "source": r2_src,
            "replaces": f"tpu_pathtracer/ops/pallas/mt_intersect.py:{line}",
            "launches": r2[name]["launches"], "max_abs_err": r2[name]["max_abs_err"],
-           "ms": r2[name]["ms"], "plain_ms": r2[name]["plain_ms"],
-           **bound((r2[name]["bound_ms"], r2[name]["bound_by"]))}
+           "ms": r2[name]["ms"], "kernel_ms": r2[name]["kernel_ms"],
+           "plain_ms": r2[name]["plain_ms"], **bound((r2[name]["bound_ms"], r2[name]["bound_by"]))}
           for name, line in (("mt_pallas_r2", 62), ("mt_stream_r2", 293))),
         *({"name": f"mt_{cull}_mxu", "route": "cuda",
-           "source": "tpu_pathtracer_torch/csrc/mt_shade.cu",
+           "source": "tpu_pathtracer_torch/csrc/mxu_walk.cu",
            "replaces": "tpu_pathtracer/ops/pallas/mt_shade.py:118",
            "launches": mxu_launches[f"mt_{cull}_mxu"], "max_abs_err": mxu[cull]["max_abs_err"],
            "ms": mxu[cull]["ms"], "plain_ms": mxu[cull]["plain_ms"],
-           **bound((mxu[cull]["bound_ms"], mxu[cull]["bound_by"]))}
+           **bound((mxu[cull]["bound_ms"], mxu[cull]["bound_by"])),
+           **walk(f"{cull}_mxu_headline_primary")}
           for cull in CULLS),
     ]
     results["kernels"] = kernels

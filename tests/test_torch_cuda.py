@@ -269,8 +269,9 @@ def test_mxu_kernels_match_plain_on_soups(cuda, cull, sub, n_tris, n_rays, tile_
 @pytest.mark.parametrize("cull", ["nf", "list", "cond"])
 @pytest.mark.parametrize("tile_rays,sub", [(128, 64), (1024, 64), (4096, 32), (8192, 128)])
 def test_mxu_kernels_take_every_tile_width(cuda, cull, tile_rays, sub):
-    """The MXU kernels keep the tile's state in shared memory, so every
-    tile width the wrapper produces runs, up to 8,192 rays at sub 128."""
+    """Every tile width the wrapper produces runs, up to 8,192 rays at sub
+    128 (csrc/mxu_walk.cu: 1, 2 or 4 m-tiles a warp over a cluster of 8;
+    cond's widest over a cluster of 16)."""
     rng = np.random.default_rng(tile_rays + sub)
     tri = torch.from_numpy(_soup(rng, 1500)).to(cuda)
     phi_t, _ = _parked_rays(rng, 3 * tile_rays - 77)
@@ -284,10 +285,34 @@ def test_mxu_kernels_take_every_tile_width(cuda, cull, tile_rays, sub):
 
 @pytest.mark.cuda
 def test_mxu_kernels_refuse_a_tile_beyond_shared_memory(cuda):
+    """The first-design MXU kernels keep the tile's best state in shared
+    memory: a 16,384-ray tile does not fit, and the wrapper refuses it
+    before launching."""
     tri = torch.from_numpy(_soup(np.random.default_rng(3), 300)).to(cuda)
     phi_t = torch.ones((10, 256), device=cuda)
+    prep = mt_shade._mma_prepare(mt_shade._prepare_cond, mt_shade._pack_mma)(tri, phi_t, 16384, 64)
     with pytest.raises(ValueError, match="shared memory"):
-        mt_shade.mt_intersect_cond_mxu_phi(tri, phi_t, tile_rays=16384, sub=64)
+        mt_shade._walk_mxu_cuda_v1("cond", *prep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cull", ["nf", "list", "cond"])
+def test_mxu_kernels_refuse_a_tile_no_shape_places(cuda, cull):
+    """The MXU walks place tiles of up to 8,192 rays; the wrapper refuses a
+    wider one with a ValueError and launches nothing."""
+    tri = torch.from_numpy(_soup(np.random.default_rng(3), 300)).to(cuda)
+    phi_t = torch.ones((10, 256), device=cuda)
+    wrapper = MXU_WRAPPERS[cull][0]
+    before = wrapper.launches
+    if cull == "cond":
+        with pytest.raises(ValueError, match="no launch shape"):
+            wrapper(tri, phi_t, tile_rays=16384, sub=64)
+    else:  # the nf and list wrappers widen the tile only past 512 tiles
+        prepare, _, walk = mt_shade._MXU_WALKS[cull]
+        prep = mt_shade._mma_prepare(prepare)(tri, phi_t, 16384, 64)
+        with pytest.raises(ValueError, match="no launch shape"):
+            walk(*prep, mxu=True)
+    assert wrapper.launches == before
 
 
 @pytest.mark.cuda
@@ -358,23 +383,20 @@ def _bounce_rays(cuda, size=256):
     return data.packed.tri_pos, phi_t
 
 
-@pytest.mark.cuda
-def test_mxu_rule_catches_a_dropped_epsilon_test(cuda, tmp_path, monkeypatch):
-    """Mutation check of `hit_agreement`'s rule on rays leaving the default
-    scene's surfaces, which re-hit them at t about 0: the MXU nf kernel
-    passes it against its plain version, and a copy of the kernels built
-    with the epilogue's t test as ts > 0 (EPSILON*|a| dropped) fails it."""
+def _mxu_mutant_agreement(cuda, tmp_path, monkeypatch, old, new):
+    """`hit_agreement` of the MXU nf kernel against its plain version on
+    rays leaving the default scene's surfaces (which re-hit them at t about
+    0), as built from csrc/ and from a copy of csrc/ whose mxu_walk.cu has
+    its one `old` replaced by `new`: (intact, mutant)."""
     tri, phi_t = _bounce_rays(cuda)
     hp = mt_shade.mt_intersect_nf_mxu_phi_plain(tri, phi_t)
     good = mt_shade.hit_agreement(tri, phi_t, mt_shade.mt_intersect_nf_mxu_phi(tri, phi_t), hp)
-    assert good["ok"], good
     src = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, src)
-    common = src / "mt_common.cuh"
-    text = common.read_text()
-    t_test = "ts > __fmul_rn(kEpsilon, abs_a)"
-    assert text.count(t_test) == 1
-    common.write_text(text.replace(t_test, "ts > 0.f"))
+    walk = src / "mxu_walk.cu"
+    text = walk.read_text()
+    assert text.count(old) == 1
+    walk.write_text(text.replace(old, new))
     monkeypatch.setattr(_build, "CSRC", src)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     _build.load.cache_clear()
@@ -382,7 +404,30 @@ def test_mxu_rule_catches_a_dropped_epsilon_test(cuda, tmp_path, monkeypatch):
         bad = mt_shade.hit_agreement(tri, phi_t, mt_shade.mt_intersect_nf_mxu_phi(tri, phi_t), hp)
     finally:
         _build.load.cache_clear()  # the next load() builds from the package's sources
-    print(f"intact kernel: {good}\nEPSILON test dropped: {bad}")
+    print(f"intact kernel: {good}\nmutant ({new}): {bad}")
+    return good, bad
+
+
+@pytest.mark.cuda
+def test_mxu_rule_catches_a_dropped_epsilon_test(cuda, tmp_path, monkeypatch):
+    """Mutation check of `hit_agreement`'s rule: the MXU nf kernel passes it
+    against its plain version, and a copy of csrc/mxu_walk.cu whose
+    epilogue tests t as ts > 0 (EPSILON*|a| dropped) fails it."""
+    good, bad = _mxu_mutant_agreement(cuda, tmp_path, monkeypatch,
+                                      "ts > __fmul_rn(kEpsilon, abs_a)", "ts > 0.f")
+    assert good["ok"], good
+    assert not bad["ok"], bad
+
+
+@pytest.mark.cuda
+def test_mxu_rule_catches_a_hi_that_keeps_its_low_bits(cuda, tmp_path, monkeypatch):
+    """Mutation check of the rays' 3xTF32 split: a copy of csrc/mxu_walk.cu
+    whose hi is x itself (no `cvt.rna`) keeps bits the MMA ignores, so lo =
+    x - hi is 0 and the rays enter the product at TF32's precision; the
+    rule catches it."""
+    good, bad = _mxu_mutant_agreement(cuda, tmp_path, monkeypatch, "hi = to_tf32(x);",
+                                      "hi = __float_as_uint(x);")
+    assert good["ok"], good
     assert not bad["ok"], bad
 
 
@@ -792,3 +837,179 @@ def test_walk_count_check_catches_a_dropped_cond_mask_reformation(cuda, tmp_path
                zip(hits, mt_shade.mt_intersect_cond_phi_plain(tri, phi_t, sub=32)))
     assert not torch.equal(bad, sp)
     assert int(bad[:, 1].sum()) > int(sp[:, 1].sum())
+
+
+# --- the Hopper list walk (csrc/nf_walk.cu) and MXU walks (csrc/mxu_walk.cu)
+
+
+def _list_walks(cuda, prep):
+    """(kernel hits, kernel walk counts, plain hits, plain walk counts) of
+    the list walk on `_prepare_list`'s inputs."""
+    sk = torch.zeros((prep[2].shape[0],), dtype=torch.int32, device=cuda)
+    sp = torch.zeros_like(sk)
+    hk = mt_shade._walk_list_cuda(*prep, stats=sk)
+    hp = mt_shade._walk_list_plain(*prep, stats=sp)
+    torch.cuda.synchronize()
+    return hk, sk, hp, sp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_rays", WALK_WIDTHS)
+@pytest.mark.parametrize("kind", ["soup", "mesh"])
+@pytest.mark.parametrize("sub", [8, 32, 128])
+def test_list_walk_matches_plain(cuda, kind, sub, tile_rays, monkeypatch):
+    """The Hopper list walk (csrc/nf_walk.cu, no bound) at every tile width
+    the wrappers give and widths that split unevenly over its CTAs: hits
+    bit-equal to `_walk_list_plain`, every listed sub walked (walk counts
+    equal to the list lengths), and equal to its first design
+    (`tpt_mt_list_v1`, tiles up to 4,096 rays)."""
+    _any_tile(monkeypatch)
+    tri, phi_t, _ = _walk_inputs(cuda, kind, stream=False)
+    prep = mt_shade._prepare_list(tri, phi_t, tile_rays, sub)
+    assert prep[-1] == tile_rays
+    hk, sk, hp, sp = _list_walks(cuda, prep)
+    assert all(torch.equal(a, b) for a, b in zip(hk, hp))
+    assert torch.equal(sk, sp) and torch.equal(sk, prep[2])
+    assert int((hp[1] >= 0).sum()) > 0
+    if tile_rays <= 4096:
+        hv = mt_shade._walk_list_cuda_v1(*prep)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(hv, hp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub", [16, 64])
+def test_list_walk_matches_plain_on_bounce_rays(cuda, sub):
+    """The list walk on the default scene's first-bounce rays at 512 x 512
+    (parked lanes start at t = INF and never hit), launched 100 times:
+    the plain walk's hits and walk counts every time."""
+    tri, phi_t = _bounce_rays(cuda, size=512)
+    prep = mt_shade._prepare_list(tri, phi_t, None, sub)
+    _, _, hp, sp = _list_walks(cuda, prep)
+    table = mt_shade._pack_walk_table(prep[1], sub)
+    differ = torch.zeros((), dtype=torch.int64, device=cuda)
+    for _ in range(100):
+        sk = torch.zeros_like(sp)
+        hk = mt_shade._list_launch("mt_list", prep[0], table, *prep[2:4], None, prep[-1], sk)
+        differ += sum((a != b).sum() for a, b in zip(hk, hp)) + (sk != sp).sum()
+    torch.cuda.synchronize()
+    assert int(differ) == 0 and int(sp.sum()) > 0
+
+
+MXU_WIDTHS = [128, 200, 333, 512, 1024, 4096, 8192]
+
+
+def _mxu_walk(cuda, cull, tri, phi_t, tile_rays, sub):
+    """The MXU walk of `cull` and its plain version on the same prepared
+    inputs at any tile width: (kernel hits, plain hits, kernel walk counts,
+    plain walk counts or None for list, the tile width)."""
+    prepare = {"nf": mt_shade._prepare, "list": mt_shade._prepare_list,
+               "cond": lambda tri, phi, tile, sub: _cond_prep(tri, phi, tile, sub)}[cull]
+    prep = prepare(tri, phi_t, tile_rays, sub)
+    table = mt_shade._pack_mxu_table(prep[1], sub)
+    _, walk_p, walk_k = mt_shade._MXU_WALKS[cull]
+    n_tiles = prep[0].shape[1] // prep[-1]
+    shape = (n_tiles, 2) if cull == "cond" else (n_tiles,)
+    sk = torch.zeros(shape, dtype=torch.int32, device=cuda)
+    sp = torch.zeros_like(sk)
+    hk = walk_k(prep[0], table, *prep[2:], mxu=True, stats=sk)
+    with mt_shade._full_fp32():
+        hp = walk_p(*prep, mxu=True, stats=sp)
+    torch.cuda.synchronize()
+    return hk, hp, sk, sp, prep[-1]
+
+
+def _as_hit(walk_out, r):
+    t, idx, u, v = (x[:r] for x in walk_out)
+    return mt_shade.Hit(idx >= 0, t, idx, u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_rays", MXU_WIDTHS)
+@pytest.mark.parametrize("cull", ["nf", "list", "cond"])
+@pytest.mark.parametrize("kind", ["soup", "mesh"])
+def test_mxu_walk_agrees_at_every_tile_width(cuda, kind, cull, tile_rays, monkeypatch):
+    """Each MXU walk of csrc/mxu_walk.cu (sub 64) at every tile width it
+    places, widths that split unevenly over its CTAs and m-tiles included
+    (cond's 8,192 over a cluster of 16): it agrees with its
+    plain version by `hit_agreement`'s rule, parked lanes never hit,
+    nothing is NaN, and its walk counts are within 1% of the plain walk's
+    (list: equal)."""
+    _any_tile(monkeypatch)
+    tri, phi_t, park = _walk_inputs(cuda, kind, stream=False)
+    hk, hp, sk, sp, tile = _mxu_walk(cuda, cull, tri, phi_t, tile_rays, 64)
+    assert tile == tile_rays
+    r = phi_t.shape[1]
+    for x in (hk[0], hk[2], hk[3]):
+        assert not torch.isnan(x).any()
+    _assert_mxu_agrees(tri, phi_t, _as_hit(hk, r), _as_hit(hp, r), f"{cull} {tile_rays}")
+    if park is not None:
+        assert (hk[1][:r][park] == -1).all()
+    if cull == "cond":
+        _assert_walk_counts_close(sk, sp)
+    elif cull == "nf":
+        _assert_walk_counts_close(sk[:, None].expand(-1, 2), sp[:, None].expand(-1, 2))
+    else:
+        assert torch.equal(sk, sp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("rays", ["primary", "bounce"])
+@pytest.mark.parametrize("cull", ["nf", "list", "cond"])
+def test_mxu_walk_agrees_with_plain_and_fp32(cuda, cull, rays, sub):
+    """Each MXU walk on the default scene's camera and first-bounce rays at
+    every sub: `hit_agreement` against its plain version and against the
+    FP32 Hopper walk, floor lanes at most 0.3%; nf's and cond's walk
+    counts within 1% of the plain walk's."""
+    tri, phi_t = _cond_rays(cuda, rays)
+    hk, hp, sk, sp, _ = _mxu_walk(cuda, cull, tri, phi_t, 512, sub)
+    r = phi_t.shape[1]
+    hf = mt_shade._ROUTES[cull, False][0](tri, phi_t, sub=sub)
+    _assert_mxu_agrees(tri, phi_t, _as_hit(hk, r), _as_hit(hp, r), "plain")
+    _assert_mxu_agrees(tri, phi_t, _as_hit(hk, r), hf, "fp32")
+    if cull == "list":
+        assert torch.equal(sk, sp)
+    else:
+        pairs = (sk, sp) if cull == "cond" else (sk[:, None].expand(-1, 2),
+                                                 sp[:, None].expand(-1, 2))
+        _assert_walk_counts_close(*pairs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cull", ["nf", "cond"])
+def test_mxu_walk_stats_entry_points(cuda, cull):
+    """`nf_walk_stats(mxu=True)` and `cond_walk_stats(mxu=True)` launch the
+    MXU walks and come within 1% of tiles of their plain versions' counts
+    on the default scene's camera rays."""
+    tri, phi_t = _cond_rays(cuda, "primary")
+    fn = mt_shade.nf_walk_stats if cull == "nf" else mt_shade.cond_walk_stats
+    sk = fn(tri, phi_t, mxu=True)
+    sp = fn(tri, phi_t, mxu=True, plain=True)
+    if cull == "nf":
+        sk, sp = sk[:, None].expand(-1, 2), sp[:, None].expand(-1, 2)
+    _assert_walk_counts_close(sk, sp)
+    assert int(sk[:, -1].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cull", ["nf", "list", "cond"])
+def test_mxu_walk_repeats_on_bounce_rays(cuda, cull):
+    """Each MXU walk, launched 100 times on first-bounce rays of the
+    default scene at 512 x 512, returns the same hits and walk counts
+    every time (its staging reuses each buffer hundreds of times a
+    launch)."""
+    tri, phi_t = _bounce_rays(cuda, size=512)
+    prepare, _, walk = mt_shade._MXU_WALKS[cull]
+    prep = mt_shade._mma_prepare(prepare)(tri, phi_t, None, 64)
+    n_tiles = prep[0].shape[1] // prep[-1]
+    shape = (n_tiles, 2) if cull == "cond" else (n_tiles,)
+    s0 = torch.zeros(shape, dtype=torch.int32, device=cuda)
+    h0 = walk(*prep, mxu=True, stats=s0)
+    differ = torch.zeros((), dtype=torch.int64, device=cuda)
+    for _ in range(100):
+        sk = torch.zeros_like(s0)
+        hk = walk(*prep, mxu=True, stats=sk)
+        differ += sum((a != b).sum() for a, b in zip(hk, h0)) + (sk != s0).sum()
+    torch.cuda.synchronize()
+    assert int(differ) == 0 and int(s0.sum()) > 0

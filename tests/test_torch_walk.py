@@ -1,7 +1,8 @@
 """The Hopper walks' inputs and walk counts on the CPU: the packed walk
 table (`mt_shade._pack_walk_table`, read by csrc/nf_walk.cu,
-csrc/cond_walk.cu and csrc/stream_walk.cu) and the near-to-far walk's
-per-tile counts (`mt_shade.nf_walk_stats`).
+csrc/cond_walk.cu and csrc/stream_walk.cu) and the near-to-far and list
+walks' per-tile counts (`mt_shade.nf_walk_stats`, `_walk_list_plain`'s
+`stats`, and with `mxu=True` those of the MXU nf walk).
 
 The table is read back here by a plain evaluation in torch, which must
 give the determinants of `determinants` on the sub-block-major rows bit
@@ -154,3 +155,44 @@ def test_nf_walk_with_stats_matches_jax():
     assert hit.sum() > 50
     np.testing.assert_allclose(t[:r].numpy()[hit], np.asarray(ha.t)[hit], rtol=5e-5)
     assert int(stats.sum()) > 0
+
+
+@pytest.mark.parametrize("sub", [8, 32, 128])
+def test_list_walk_with_stats_matches_jax(sub):
+    """The plain list walk that counts (the reference of the list kernel's
+    walk counts) evaluates every listed sub of each tile, and still finds
+    JAX's `_kernel_list` hits in interpret mode."""
+    tri = tpt.default_scene().compile(device="cpu").packed.tri_pos
+    phi = _camera_phi(16)
+    prep = mt_shade._prepare_list(tri, phi, 128, sub)
+    stats = torch.zeros_like(prep[2])
+    t, idx, u, v = mt_shade._walk_list_plain(*prep, stats=stats)
+    assert torch.equal(stats, prep[2]) and int(stats.sum()) > 0
+    assert all(torch.equal(a, b) for a, b in zip((t, idx, u, v),
+                                                   mt_shade._walk_list_plain(*prep)))
+    ha = j_pallas2_phi(jnp.asarray(tri.numpy()), jnp.asarray(phi.numpy()), tile_rays=128,
+                       cull="list", sub=sub, interpret=True)
+    r = phi.shape[1]
+    np.testing.assert_array_equal(idx[:r].numpy(), np.asarray(ha.tri))
+    hit = np.asarray(ha.hit)
+    assert hit.sum() > 50
+    np.testing.assert_allclose(t[:r].numpy()[hit], np.asarray(ha.t)[hit], rtol=5e-5)
+
+
+@pytest.mark.parametrize("sub", [32, 64])
+def test_mxu_nf_walk_stats_on_a_mesh(sub):
+    """`nf_walk_stats(mxu=True)` on the CPU counts the MXU plain walk's
+    subs (its decisions read the matrix-product t): one count a tile, none
+    above the tile's list length, within 1% of tiles of the FP32 walk's on
+    camera rays (the same t up to rounding)."""
+    tri = tpt.default_scene().compile(device="cpu").packed.tri_pos
+    phi = _camera_phi()
+    sm = mt_shade.nf_walk_stats(tri, phi, tile_rays=128, sub=sub, mxu=True)
+    sf = mt_shade.nf_walk_stats(tri, phi, tile_rays=128, sub=sub)
+    counts = mt_shade._prepare(tri, phi, 128, sub)[2]
+    assert sm.shape == sf.shape and (sm <= counts).all() and int(sm.sum()) > 0
+    assert int((sm != sf).sum()) <= max(1, sm.shape[0] // 100)
+    prep = mt_shade._prepare(tri, phi, 128, sub)
+    direct = torch.zeros_like(sm)
+    mt_shade._walk_plain(*prep, stats=direct, mxu=True)
+    assert torch.equal(sm, direct)

@@ -96,13 +96,21 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "tpt_mt_nf": ([_P] * 10 + [_I] * 5 + [_P], _I),
     "tpt_mt_nf_shape": ([_I, _I, ctypes.POINTER(_I)], _I),
+    "tpt_mt_list": ([_P] * 9 + [_I] * 5 + [_P], _I),
+    "tpt_mt_list_shape": ([_I, _I, ctypes.POINTER(_I)], _I),
+    "tpt_mt_list_v1": ([_P] * 8 + [_I] * 5 + [_P], _I),
     "tpt_mt_cond": ([_P] * 9 + [_I] * 5 + [_P], _I),
     "tpt_mt_cond_shape": ([_I, _I, ctypes.POINTER(_I)], _I),
     "tpt_mt_cond_v1": ([_P] * 9 + [_I] * 5 + [_P], _I),
-    "tpt_mt_list": ([_P] * 8 + [_I] * 5 + [_P], _I),
-    "tpt_mt_nf_mxu": ([_P] * 9 + [_I] * 5 + [_P], _I),
-    "tpt_mt_list_mxu": ([_P] * 8 + [_I] * 5 + [_P], _I),
+    "tpt_mt_nf_mxu": ([_P] * 10 + [_I] * 5 + [_P], _I),
+    "tpt_mt_list_mxu": ([_P] * 9 + [_I] * 5 + [_P], _I),
     "tpt_mt_cond_mxu": ([_P] * 9 + [_I] * 5 + [_P], _I),
+    "tpt_mt_nf_mxu_shape": ([_I, _I, ctypes.POINTER(_I)], _I),
+    "tpt_mt_list_mxu_shape": ([_I, _I, ctypes.POINTER(_I)], _I),
+    "tpt_mt_cond_mxu_shape": ([_I, _I, ctypes.POINTER(_I)], _I),
+    "tpt_mt_nf_mxu_v1": ([_P] * 9 + [_I] * 5 + [_P], _I),
+    "tpt_mt_list_mxu_v1": ([_P] * 8 + [_I] * 5 + [_P], _I),
+    "tpt_mt_cond_mxu_v1": ([_P] * 9 + [_I] * 5 + [_P], _I),
     "tpt_mxu_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "tpt_mxu_smem_limit": ([_I, ctypes.POINTER(ctypes.c_size_t)], _I),
     "tpt_mt_stream": ([_P] * 12 + [_I] * 6 + [_P], _I),

@@ -278,7 +278,7 @@ extern "C" int tpt_mt_cond(const float* phi_t, const float* table, const float* 
     const Kernel<SUB> kernel = kept<SUB>(a.tile_rays, shape);
     const int threads = threads_for(a.tile_rays, shape);
     if (kernel == nullptr || threads == 0) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_cluster(kernel, a.n_tiles, shape.c, threads,
+    return launch_cluster(kernel, a.n_tiles, shape.c, shape.c, threads,
                           entry_bytes<SUB>(threads, shape.rpt), a.stream, a.phi_t, a.table,
                           a.chunk_boxes, a.sub_boxes, a.t, a.idx, a.u, a.v, a.walk_stats,
                           a.r_pad, a.tile_rays, a.n_chunks);

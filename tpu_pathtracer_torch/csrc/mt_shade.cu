@@ -16,10 +16,12 @@
 // the lists or boxes; this file only walks them.  Every kernel is templated
 // on the sub-treelet size SUB (8, 16, 32, 64 or 128 triangles).
 //
-// The FP32 walks here are list (`tpt_mt_list`) and the first design of
-// cond, kept as `tpt_mt_cond_v1` for comparison only: the nf and cond walks
-// the wrappers launch are their Hopper redesigns in nf_walk.cu and
-// cond_walk.cu.  The MXU variants of all three follow below.
+// Everything here is a first design kept for comparison only, launched by
+// chip_smoke.py and the card tests beside its Hopper redesign and by no
+// render path: the FP32 list walk (`tpt_mt_list_v1`; redesigned in
+// nf_walk.cu), the FP32 cond walk (`tpt_mt_cond_v1`; cond_walk.cu), and
+// the MXU variants of all three below (`tpt_mt_{nf,list,cond}_mxu_v1`;
+// mxu_walk.cu).
 //
 // Design: one block per ray tile, each thread owning RPT rays of the tile
 // (RPT = 1 at the default 512-ray tile), each ray's best (t, idx, u, v) in
@@ -609,18 +611,15 @@ int smem_limit(int device, size_t* limit) {
 
 }  // namespace
 
-extern "C" int tpt_mt_list(const float* phi_t, const float* cols_rows,
-                           const int* counts, const int* lists, float* t,
-                           int* idx, float* u, float* v, int r_pad,
-                           int tile_rays, int n_tiles, int ms, int sub,
-                           cudaStream_t stream) {
+extern "C" int tpt_mt_list_v1(const float* phi_t, const float* cols_rows,
+                              const int* counts, const int* lists, float* t,
+                              int* idx, float* u, float* v, int r_pad,
+                              int tile_rays, int n_tiles, int ms, int sub,
+                              cudaStream_t stream) {
   return launch_list(phi_t, cols_rows, counts, lists, t, idx, u, v, r_pad,
                      tile_rays, n_tiles, ms, sub, stream);
 }
 
-// The first design of the cond walk, kept only for comparison with its
-// Hopper redesign (cond_walk.cu) in chip_smoke.py and the card tests; no
-// render path calls it.
 extern "C" int tpt_mt_cond_v1(const float* phi_t, const float* cols_rows,
                            const float* chunk_boxes, const float* sub_boxes,
                            float* t, int* idx, float* u, float* v,
@@ -640,31 +639,31 @@ extern "C" int tpt_mt_cond_v1(const float* phi_t, const float* cols_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int tpt_mt_nf_mxu(const float* phi_t, const float* table,
-                             const int* counts, const int* lists,
-                             const float* emins, float* t, int* idx, float* u,
-                             float* v, int r_pad, int tile_rays, int n_tiles,
-                             int ms, int sub, cudaStream_t stream) {
+extern "C" int tpt_mt_nf_mxu_v1(const float* phi_t, const float* table,
+                                const int* counts, const int* lists,
+                                const float* emins, float* t, int* idx, float* u,
+                                float* v, int r_pad, int tile_rays, int n_tiles,
+                                int ms, int sub, cudaStream_t stream) {
   return mxu::launch_list<true>(phi_t, table, counts, lists, emins, t, idx, u,
                                 v, r_pad, tile_rays, n_tiles, ms, sub, stream);
 }
 
-extern "C" int tpt_mt_list_mxu(const float* phi_t, const float* table,
-                               const int* counts, const int* lists, float* t,
-                               int* idx, float* u, float* v, int r_pad,
-                               int tile_rays, int n_tiles, int ms, int sub,
-                               cudaStream_t stream) {
+extern "C" int tpt_mt_list_mxu_v1(const float* phi_t, const float* table,
+                                  const int* counts, const int* lists, float* t,
+                                  int* idx, float* u, float* v, int r_pad,
+                                  int tile_rays, int n_tiles, int ms, int sub,
+                                  cudaStream_t stream) {
   return mxu::launch_list<false>(phi_t, table, counts, lists, nullptr, t, idx,
                                  u, v, r_pad, tile_rays, n_tiles, ms, sub,
                                  stream);
 }
 
-extern "C" int tpt_mt_cond_mxu(const float* phi_t, const float* table,
-                               const float* chunk_boxes, const float* sub_boxes,
-                               float* t, int* idx, float* u, float* v,
-                               int* walk_stats, int r_pad, int tile_rays,
-                               int n_tiles, int n_chunks, int sub,
-                               cudaStream_t stream) {
+extern "C" int tpt_mt_cond_mxu_v1(const float* phi_t, const float* table,
+                                  const float* chunk_boxes, const float* sub_boxes,
+                                  float* t, int* idx, float* u, float* v,
+                                  int* walk_stats, int r_pad, int tile_rays,
+                                  int n_tiles, int n_chunks, int sub,
+                                  cudaStream_t stream) {
   if (tile_rays <= 0 || tile_rays % 8 || n_tiles <= 0 || n_chunks <= 0 ||
       r_pad != n_tiles * tile_rays)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -678,8 +677,8 @@ extern "C" int tpt_mt_cond_mxu(const float* phi_t, const float* table,
   return err;
 }
 
-// Dynamic shared memory of one MXU block at this shape, and the most the
-// card allows (the wrappers check the one against the other).
+// Dynamic shared memory of one first-design MXU block at this shape, and
+// the most the card allows (the wrappers check the one against the other).
 extern "C" size_t tpt_mxu_smem_bytes(int sub, int tile_rays) {
   return mxu::smem_bytes(sub, tile_rays);
 }

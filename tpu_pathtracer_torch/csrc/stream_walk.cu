@@ -247,7 +247,7 @@ size_t entry_bytes(int threads, int rpt) { return sizeof(float) * kEntryRows * t
 int launch(Kernel kernel, const Shape& shape, const Args& a) {
   const int threads = threads_for(a.tile_rays, shape);
   if (kernel == nullptr || threads == 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_cluster(kernel, a.n_tiles, shape.c, threads,
+  return launch_cluster(kernel, a.n_tiles, shape.c, shape.c, threads,
                         entry_bytes(threads, shape.rpt), a.stream, a.phi_t, a.table,
                         a.chunk_boxes, a.sub_boxes, a.counts, a.lists, a.emins, a.t, a.idx, a.u,
                         a.v, a.walk_stats, a.r_pad, a.tile_rays, a.ms);

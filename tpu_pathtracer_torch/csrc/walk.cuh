@@ -1,11 +1,12 @@
-// Device code shared by the Hopper walks of the near-to-far (nf_walk.cu),
-// streamed (stream_walk.cu) and in-kernel culling (cond_walk.cu)
-// Möller–Trumbore kernels: the packed coefficient table, the tile-wide
-// decisions across a thread block cluster, and the bulk-copy staging.
+// Device code shared by the Hopper walks of the near-to-far and list
+// (nf_walk.cu), streamed (stream_walk.cu), in-kernel culling (cond_walk.cu)
+// and MXU-determinant (mxu_walk.cu) Möller–Trumbore kernels: the packed
+// coefficient table, the tile-wide decisions across a thread block
+// cluster, and the bulk-copy staging.
 //
-// The arithmetic is mt_common.cuh's: one rounding per operation, sums in
-// `_FEATS` order, `take_pair`'s epilogue, so the walks stay bit-equal to
-// their plain PyTorch versions.
+// The FP32 walks' arithmetic is mt_common.cuh's: one rounding per
+// operation, sums in `_FEATS` order, `take_pair`'s epilogue, so they stay
+// bit-equal to their plain PyTorch versions.
 
 #pragma once
 
@@ -33,6 +34,7 @@ constexpr int kTableVecs = kTableFloats / 4;
 constexpr int kThreads = 512;    // most threads of one CTA
 constexpr int kMaxCluster = 8;   // the portable cluster size
 constexpr int kMaxSlots = kMaxCluster * kThreads / 32;
+constexpr int kWideCluster = 16;  // the largest cluster, non-portable (Hopper)
 
 // Evaluate the staged block `tris` (SUB triangles of the walk table, in
 // shared memory; the first is triangle s0) against a thread's RPT rays and
@@ -108,7 +110,8 @@ __device__ __forceinline__ void eval_table(const float4* __restrict__ tris,
 // cluster (distributed shared memory), and one cluster barrier (C = 1: the
 // block barrier) publishes all slots; every warp then reduces the slots
 // itself.  Two slot sets alternate, so a CTA that runs ahead to the next
-// decision never overwrites slots still being read.
+// decision never overwrites slots still being read.  A set holds N slots,
+// at least one a warp of the cluster.
 
 struct Vote {
   uint32_t bits;
@@ -130,10 +133,10 @@ struct Decision {
   float tmax;     // max over the tile
 };
 
-template <int C>
-__device__ __forceinline__ Decision decide(Vote (&slots)[2][kMaxSlots],
-                                           int& parity, uint32_t bits,
+template <int C, int N>
+__device__ __forceinline__ Decision decide(Vote (&slots)[2][N], int& parity, uint32_t bits,
                                            float m) {
+  static_assert(N >= C * kThreads / 32, "a slot for each warp of the cluster");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n_warps = blockDim.x >> 5;
   const Vote v{__reduce_or_sync(0xffffffffu, bits),
@@ -328,14 +331,25 @@ inline bool fit_shape(int tile_rays, Shape& s) {
   return false;
 }
 
-// Launch `kernel` on n_tiles clusters of c CTAs (grid n_tiles * c), with
-// `smem` bytes of dynamic shared memory; the CUDA error code.
+// A cluster above the portable size must be allowed for each kernel.
+inline cudaError_t allow_cluster(const void* kernel, int cluster) {
+  if (cluster <= kMaxCluster) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+// Launch `kernel` on n_tiles tiles of c CTAs (grid n_tiles * c) in
+// clusters of `cluster` CTAs (c, or 1 for none), with `smem` bytes of
+// dynamic shared memory; the CUDA error code.
 template <typename... P, typename... A>
-int launch_cluster(void (*kernel)(P...), int n_tiles, int c, int threads, size_t smem,
-                   cudaStream_t stream, A... args) {
+int launch_cluster(void (*kernel)(P...), int n_tiles, int c, int cluster, int threads,
+                   size_t smem, cudaStream_t stream, A... args) {
   if (smem > 0) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  {
+    const cudaError_t err = allow_cluster(reinterpret_cast<const void*>(kernel), cluster);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   cudaLaunchConfig_t cfg = {};
@@ -345,11 +359,11 @@ int launch_cluster(void (*kernel)(P...), int n_tiles, int c, int threads, size_t
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = c;
+  attr[0].val.clusterDim.x = cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = c > 1 ? 1 : 0;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -363,6 +377,7 @@ inline int describe(const void* kernel, const Shape& shape, int threads, size_t 
   const int c = shape.c;
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) err = allow_cluster(kernel, c);
   if (err == cudaSuccess && smem > 0)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));

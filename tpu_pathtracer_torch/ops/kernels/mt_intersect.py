@@ -132,10 +132,12 @@ def _stream(device):
 
 
 def _counted(wrapper, walk):
-    """`walk`, counting each call in `wrapper.launches`."""
+    """`walk`, counting each call that launched (returned) in
+    `wrapper.launches`."""
     def launch(*args, **kw):
+        out = walk(*args, **kw)
         wrapper.launches += 1
-        return walk(*args, **kw)
+        return out
 
     return launch
 

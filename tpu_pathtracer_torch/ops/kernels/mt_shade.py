@@ -39,22 +39,26 @@ kernel for a CUDA tensor, counting the launch in its `.launches`, and runs
 its plain version for a CPU tensor.  The plain versions walk the same
 lists, chunks and subs in the same order, vectorised over tiles, with the
 same elementwise arithmetic, so kernel and plain version agree bit for bit.
-The 'nf' and 'cond' kernels are the Hopper walks of csrc/nf_walk.cu and
-csrc/cond_walk.cu, which read their own coefficient table
+The kernels are the Hopper walks of csrc/nf_walk.cu ('nf' and 'list')
+and csrc/cond_walk.cu ('cond'), which read their own coefficient table
 (`_pack_walk_table`: 20 floats a triangle) and write per-tile walk counts
-on request (`nf_walk_stats`, `cond_walk_stats`); the first design of
-'cond' stays in csrc/mt_shade.cu as `tpt_mt_cond_v1`, launched only by
-`_walk_cond_cuda_v1`, for comparison.  'list' is csrc/mt_shade.cu.
+on request (`nf_walk_stats`, `cond_walk_stats`).  The first designs of
+'list' and 'cond' stay in csrc/mt_shade.cu as `tpt_mt_list_v1` and
+`tpt_mt_cond_v1`, launched only by `_walk_list_cuda_v1` and
+`_walk_cond_cuda_v1`, for comparison.
 
 The MXU variants (`mt_intersect_{nf,list,cond}_mxu_phi`, kernel #5) walk
 the same way.  Their plain versions take each sub-treelet's determinants
 as one float32 `torch.matmul` of its (4*sub, 10) coefficient rows against
-phi (10, TR), TF32 off; their kernels as 3xTF32 tensor-core products of a
-table the wrapper repacks into the `mma.sync` fragment order
-(`_pack_mma`).  The two sum in different orders, so they agree to float32
-rounding, not bit for bit: `hit_agreement` counts the lanes that differ
-and checks that each is a near-tie, lies on a triangle's edge or is
-decided by the EPSILON test's rounding.
+phi (10, TR), TF32 off; their kernels (csrc/mxu_walk.cu) as 3xTF32
+tensor-core products against a table the wrapper splits into TF32 hi and
+lo halves in the `mma.sync` fragment order (`_pack_mxu_table`).  The two
+sum in different orders, so they agree to float32 rounding, not bit for
+bit: `hit_agreement` counts the lanes that differ and checks that each is
+a near-tie, lies on a triangle's edge or is decided by the EPSILON test's
+rounding.  Their first designs stay in csrc/mt_shade.cu as
+`tpt_mt_{nf,list,cond}_mxu_v1` on the `_pack_mma` table, launched only by
+`_walk_mxu_cuda_v1`, for comparison.
 """
 
 from __future__ import annotations
@@ -239,6 +243,74 @@ def _pack_walk_table(cols_rows, sub: int):
     return table
 
 
+def _tf32(x):
+    """x rounded to TF32 as `cvt.rna.tf32.f32` rounds it: to nearest, ties
+    away from zero, keeping 10 mantissa bits; the low 13 bits zero.  The
+    sign-magnitude bit pattern plus half a TF32 unit, truncated, is that
+    rounding, subnormals and overflow to inf included.  NaN stays NaN."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    rounded = (bits + 0x1000) & 0xFFFFE000
+    rounded = torch.where(torch.isnan(x), bits, rounded)
+    return (rounded - ((rounded >> 31) << 32)).to(torch.int32).view(torch.float32)
+
+
+def _tf32_split(x):
+    """(hi, lo) = (tf32(x), tf32(x - hi)): the 3xTF32 halves of float32 x,
+    hi + lo within 2^-22 of x (relative; normal numbers)."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+# The MXU walks' table (csrc/mxu_walk.cu): per 8-triangle group, five float4
+# of `mma.sync` B fragments for each of 32 lanes, 80 floats a triangle.  K
+# position p of the product holds feature MXU_K[p] (zero past 9), so a, ua
+# and va fall in k-step 0 (positions 0-7) and ta in both.
+MXU_K = (4, 5, 6, 7, 8, 9, 0, 1, 2, 3)
+MXU_TABLE_FLOATS = 80
+# The widest tile the MXU walks place (csrc/mxu_walk.cu `kept_list`,
+# `kept_cond`): a cluster of 8 CTAs of 16 warps of 4 m-tiles of 16 rays
+# (cond: 16 CTAs of 2 m-tiles).
+MXU_MAX_TILE_RAYS = 8 * 16 * 4 * 16
+
+
+@functools.lru_cache(maxsize=16)
+def _mxu_table_index(n: int, sub: int, device: torch.device):
+    """Where each float of the MXU table of Np = n triangles at `sub` comes
+    from, as (flat indices into the (4*Np, 11) sub-block-major rows with a
+    zero column 10 appended, whether it takes the lo half); built once per
+    shape and device.  Float w of float4 v of lane l = 4g + tig of group G
+    is a B register of triangle 8G + g: for v < 4, quantity
+    (4*(v % 2) + w) // 2, register w % 2 (K position tig + 4*(w % 2)), the
+    hi half for v < 2 and the lo half for v = 2, 3; float4 4 holds hi and
+    lo of ta's k-step-1 register (K position 8 + tig), then two zeros."""
+    v = torch.arange(5)[:, None, None]
+    lane = torch.arange(32)[None, :, None]
+    w = torch.arange(4)[None, None, :]
+    g, tig = lane // 4, lane % 4
+    q = torch.where(v < 4, (4 * (v % 2) + w) // 2, 3)
+    pos = torch.where(v < 4, tig + 4 * (w % 2), torch.where(w < 2, 8 + tig, 16))
+    k_of = torch.tensor(MXU_K + (10,) * 7)  # K position -> feature (10: the zero column)
+    k = k_of[pos]
+    lo = torch.where(v < 4, v >= 2, w == 1).expand(5, 32, 4)
+    tri = torch.arange(0, n, 8)[:, None, None, None] + g  # (Np/8, 1, 32, 1)
+    row = tri // sub * 4 * sub + q * sub + tri % sub  # (Np/8, 5, 32, 4)
+    index = (row * 11 + k).reshape(-1)
+    return index.to(device), lo.expand(n // 8, 5, 32, 4).reshape(-1).to(device)
+
+
+def _pack_mxu_table(cols_rows, sub: int):
+    """(4*Np, 10) sub-block-major rows -> the MXU walks' (Np, 80) table:
+    per 8-triangle group, in triangle order, the TF32 hi and lo halves of
+    each lane's `mma.sync` B fragments (`_mxu_table_index`), so that a
+    sub-treelet or a chunk is one contiguous block the walks copy as it
+    is."""
+    n = cols_rows.shape[0] // 4
+    index, lo = _mxu_table_index(n, sub, cols_rows.device)
+    x = torch.nn.functional.pad(cols_rows, (0, 1)).reshape(-1)[index]
+    hi, low = _tf32_split(x)
+    return torch.where(lo, low, hi).reshape(n, MXU_TABLE_FLOATS)
+
+
 @contextlib.contextmanager
 def _full_fp32():
     """Float32 matrix products without TF32 on the card."""
@@ -381,10 +453,12 @@ def _walk_plain(phi_pad, cols_rows, counts, lists, emins, tile_rays: int, stats=
     return tuple(x.reshape(-1) for x in best)
 
 
-def _walk_list_plain(phi_pad, cols_rows, counts, lists, tile_rays: int, mxu: bool = False):
+def _walk_list_plain(phi_pad, cols_rows, counts, lists, tile_rays: int, mxu: bool = False,
+                     stats=None):
     """The 'list' kernel's walk in torch ops: step j evaluates entry j of
     every tile whose list is longer than j; no bound, no break, every lane
-    from t = INF."""
+    from t = INF.  `stats`, a zeroed (T,) int32 tensor, receives each
+    tile's count of evaluated subs."""
     n_tiles, ms = lists.shape
     phi, best = _walk_start(phi_pad, n_tiles, tile_rays, park=False)
     coef = cols_rows.reshape(ms, 4, -1, 10)
@@ -393,6 +467,8 @@ def _walk_list_plain(phi_pad, cols_rows, counts, lists, tile_rays: int, mxu: boo
         if tiles.numel() == 0:
             break
         _fold_subs(phi, coef, tiles, lists[tiles, j], best, mxu)
+        if stats is not None:
+            stats[tiles] += 1
     return tuple(x.reshape(-1) for x in best)
 
 
@@ -439,7 +515,8 @@ def _walk_cond_plain(phi_pad, cols_rows, chunk_boxes, sub_boxes, tile_rays: int,
 
 @functools.cache
 def _mxu_smem_limit(lib, device_index: int) -> int:
-    """The most dynamic shared memory one MXU block may take on this card."""
+    """The most dynamic shared memory one first-design MXU block may take on
+    this card."""
     limit = ctypes.c_size_t()
     err = lib.tpt_mxu_smem_limit(device_index, ctypes.byref(limit))
     if err:
@@ -448,8 +525,8 @@ def _mxu_smem_limit(lib, device_index: int) -> int:
 
 
 def _check_mxu_shape(what: str, lib, table, tile_rays: int, sub: int) -> None:
-    """The MXU kernels' table layout, and their shared memory (the tile's
-    best state and one staged sub-treelet's fragments, sized by
+    """The first-design MXU kernels' table layout, and their shared memory
+    (the tile's best state and one staged sub-treelet's fragments, sized by
     csrc/mt_shade.cu) within the card's limit."""
     if table.shape[1] != 16 or table.data_ptr() % 16:
         raise ValueError(f"{what} kernel: the table must be `_pack_mma`'s (4*Np, 16) rows")
@@ -460,75 +537,75 @@ def _check_mxu_shape(what: str, lib, table, tile_rays: int, sub: int) -> None:
                          f"of shared memory, above the card's {limit}")
 
 
+# Floats a triangle of each Hopper walk's table: `_pack_walk_table`'s or
+# `_pack_mxu_table`'s.
+_TABLE_FLOATS = {**{f"mt_{cull}": WALK_TABLE_FLOATS for cull in CULL_MODES},
+                 **{f"mt_{cull}_mxu": MXU_TABLE_FLOATS for cull in CULL_MODES}}
+
+
+def _check_table(what: str, table, tile_rays: int) -> None:
+    """A Hopper walk's table: (Np, floats a triangle), 16-byte aligned; the
+    MXU walks also refuse a tile wider than they place."""
+    if table.shape[1:] != (_TABLE_FLOATS[what],) or table.data_ptr() % 16:
+        pack = "_pack_mxu_table" if what.endswith("_mxu") else "_pack_walk_table"
+        raise ValueError(f"{what} kernel: the table must be `{pack}`'s "
+                         f"(Np, {_TABLE_FLOATS[what]}) rows")
+    if what.endswith("_mxu") and tile_rays > MXU_MAX_TILE_RAYS:
+        raise ValueError(f"{what} kernel: no launch shape places a {tile_rays}-ray tile (at most "
+                         f"{MXU_MAX_TILE_RAYS})")
+
+
 def _walk_cuda(phi_pad, cols_rows, counts, lists, emins, tile_rays: int, mxu: bool = False,
                stats=None):
     """Launch the 'nf' kernel (csrc/nf_walk.cu, on the table
-    `_pack_walk_table` repacks; with `mxu`, the MXU variant of
-    csrc/mt_shade.cu on the `_pack_mma` table) on the current stream;
-    outputs (R_pad,) x4.  `stats`, if given, a (T,) int32 tensor, receives
-    each tile's count of evaluated subs (not with `mxu`)."""
-    if not mxu:
-        sub = cols_rows.shape[0] // (4 * lists.shape[1])
-        return _walk_table_cuda(phi_pad, _pack_walk_table(cols_rows, sub), counts, lists, emins,
-                                tile_rays, stats=stats)
-    if stats is not None:
-        raise ValueError("mt_nf_mxu kernel: no walk counts")
-    return _walk_rows_cuda("mt_nf_mxu", phi_pad, cols_rows, counts, lists, emins, tile_rays)
+    `_pack_walk_table` repacks; with `mxu`, the MXU walk of
+    csrc/mxu_walk.cu, `cols_rows` then being `_pack_mxu_table`'s table) on
+    the current stream; outputs (R_pad,) x4.  `stats`, if given, a (T,)
+    int32 tensor, receives each tile's count of evaluated subs."""
+    if mxu:
+        return _list_launch("mt_nf_mxu", phi_pad, cols_rows, counts, lists, emins, tile_rays,
+                            stats)
+    sub = cols_rows.shape[0] // (4 * lists.shape[1])
+    return _list_launch("mt_nf", phi_pad, _pack_walk_table(cols_rows, sub), counts, lists, emins,
+                        tile_rays, stats)
 
 
-def _walk_rows_cuda(what, phi_pad, rows, counts, lists, emins, tile_rays: int):
-    """Launch `tpt_<what>` of csrc/mt_shade.cu, the MXU nf walk over the
-    `_pack_mma` table; outputs (R_pad,) x4."""
+def _list_launch(what, phi_pad, table, counts, lists, emins, tile_rays: int, stats=None):
+    """Launch `tpt_<what>`, a Hopper walk over the per-tile lists ('nf',
+    which reads `emins`, or 'list', given None), on its table; outputs
+    (R_pad,) x4.  `stats`, if given, a (T,) int32 tensor, receives each
+    tile's count of evaluated subs."""
     from ... import _build
 
     lib = _build.load()
     dev = phi_pad.device
     n_tiles, ms = lists.shape
-    _check_inputs(what, (phi_pad, torch.float32), (rows, torch.float32),
-                  (counts, torch.int32), (lists, torch.int32), (emins, torch.float32), device=dev)
-    sub = rows.shape[0] // (4 * ms)
-    _check_mxu_shape(what, lib, rows, tile_rays, sub)
+    bounded = (emins,) if emins is not None else ()
+    _check_inputs(what, (phi_pad, torch.float32), (table, torch.float32), (counts, torch.int32),
+                  (lists, torch.int32), *((x, torch.float32) for x in bounded), device=dev)
+    _check_table(what, table, tile_rays)
+    if table.shape[0] % ms:
+        raise ValueError(f"{what} kernel: table and lists do not match")
+    if stats is not None:
+        _check_inputs(what, (stats, torch.int32), device=dev)
+        if stats.shape != (n_tiles,):
+            raise ValueError(f"{what} kernel: walk stats must be a (T,) int32 tensor")
     out = _outputs(phi_pad.shape[1], dev)
     err = getattr(lib, f"tpt_{what}")(
-        *map(_ptr, (phi_pad, rows, counts, lists, emins, *out)),
-        phi_pad.shape[1], tile_rays, n_tiles, ms, sub, _stream(dev))
+        *map(_ptr, (phi_pad, table, counts, lists, *bounded, *out, stats)), phi_pad.shape[1],
+        tile_rays, n_tiles, ms, table.shape[0] // ms, _stream(dev))
     if err:
         raise RuntimeError(f"{what} kernel launch failed: {_build.error_string(err)}")
     return out
 
 
-def _walk_table_cuda(phi_pad, table, counts, lists, emins, tile_rays: int, stats=None):
-    """Launch the Hopper 'nf' walk of csrc/nf_walk.cu on the walk table;
-    outputs (R_pad,) x4.  `stats`, if given, a (T,) int32 tensor, receives
-    each tile's count of evaluated subs."""
-    from ... import _build
-
-    lib = _build.load()
-    dev = phi_pad.device
-    n_tiles, ms = lists.shape
-    _check_inputs("mt_nf", (phi_pad, torch.float32), (table, torch.float32),
-                  (counts, torch.int32), (lists, torch.int32), (emins, torch.float32), device=dev)
-    if table.shape[1] != WALK_TABLE_FLOATS or table.shape[0] % ms or table.data_ptr() % 16:
-        raise ValueError("mt_nf kernel: the table must be `_pack_walk_table`'s (Np, 20) rows")
-    if stats is not None:
-        _check_inputs("mt_nf", (stats, torch.int32), device=dev)
-        if stats.shape != (n_tiles,):
-            raise ValueError("mt_nf kernel: walk stats must be a (T,) int32 tensor")
-    out = _outputs(phi_pad.shape[1], dev)
-    err = lib.tpt_mt_nf(*map(_ptr, (phi_pad, table, counts, lists, emins, *out, stats)),
-                        phi_pad.shape[1], tile_rays, n_tiles, ms, table.shape[0] // ms,
-                        _stream(dev))
-    if err:
-        raise RuntimeError(f"mt_nf kernel launch failed: {_build.error_string(err)}")
-    return out
-
-
 def walk_shape(fn, *args) -> dict:
-    """What `tpt_mt_nf_shape`, `tpt_mt_cond_shape` or `tpt_mt_stream_shape`
-    (`fn`, by name) say of the kept Hopper walk at this shape: rays a
-    thread, cluster size, threads and registers a thread, static and
-    dynamic shared bytes, CTAs resident per SM, clusters resident on the
-    card, lanes a ray."""
+    """What `tpt_mt_nf_shape`, `tpt_mt_list_shape`, `tpt_mt_cond_shape`,
+    `tpt_mt_stream_shape` or `tpt_mt_{nf,list,cond}_mxu_shape` (`fn`, by
+    name) say of the kept Hopper walk at this shape: rays a thread (the MXU
+    walks: twice the m-tiles a warp), cluster size, threads and registers a
+    thread, static and dynamic shared bytes, CTAs resident per SM, clusters
+    resident on the card, lanes a ray."""
     from ... import _build
 
     out = (ctypes.c_int * 9)()
@@ -540,23 +617,48 @@ def walk_shape(fn, *args) -> dict:
     return dict(zip(keys, out))
 
 
-def _walk_list_cuda(phi_pad, cols_rows, counts, lists, tile_rays: int, mxu: bool = False):
-    """Launch the 'list' kernel of csrc/mt_shade.cu (with `mxu`, its MXU
-    variant); outputs (R_pad,) x4."""
+def _walk_list_cuda(phi_pad, cols_rows, counts, lists, tile_rays: int, mxu: bool = False,
+                    stats=None):
+    """Launch the 'list' kernel (the list walk of csrc/nf_walk.cu, on the
+    table `_pack_walk_table` repacks; with `mxu`, the MXU walk of
+    csrc/mxu_walk.cu, `cols_rows` then being `_pack_mxu_table`'s table);
+    outputs (R_pad,) x4.  `stats`, if given, a (T,) int32 tensor, receives
+    each tile's count of evaluated subs."""
+    if mxu:
+        return _list_launch("mt_list_mxu", phi_pad, cols_rows, counts, lists, None, tile_rays,
+                            stats)
+    sub = cols_rows.shape[0] // (4 * lists.shape[1])
+    return _list_launch("mt_list", phi_pad, _pack_walk_table(cols_rows, sub), counts, lists, None,
+                        tile_rays, stats)
+
+
+def _walk_list_cuda_v1(phi_pad, cols_rows, counts, lists, tile_rays: int):
+    """Launch the first design of the 'list' walk (csrc/mt_shade.cu
+    `tpt_mt_list_v1`, on the sub-block-major rows), kept only to compare
+    its redesign with; outputs (R_pad,) x4."""
+    if cols_rows.shape[1:] != (10,):
+        raise ValueError("mt_list_v1 kernel: the table must be `_pad_scene`'s (4*Np, 10) rows")
+    return _rows_launch("mt_list_v1", phi_pad, cols_rows, counts, lists, None, tile_rays)
+
+
+def _rows_launch(what, phi_pad, rows, counts, lists, emins, tile_rays: int):
+    """Launch `tpt_<what>`, a first-design walk of csrc/mt_shade.cu over
+    the per-tile lists ('nf' reads `emins`; 'list' is given None);
+    outputs (R_pad,) x4."""
     from ... import _build
 
     lib = _build.load()
     dev = phi_pad.device
     n_tiles, ms = lists.shape
-    what = "mt_list_mxu" if mxu else "mt_list"
-    _check_inputs(what, (phi_pad, torch.float32), (cols_rows, torch.float32),
-                  (counts, torch.int32), (lists, torch.int32), device=dev)
-    sub = cols_rows.shape[0] // (4 * ms)
-    if mxu:
-        _check_mxu_shape(what, lib, cols_rows, tile_rays, sub)
+    bounded = (emins,) if emins is not None else ()
+    _check_inputs(what, (phi_pad, torch.float32), (rows, torch.float32), (counts, torch.int32),
+                  (lists, torch.int32), *((x, torch.float32) for x in bounded), device=dev)
+    sub = rows.shape[0] // (4 * ms)
+    if what.endswith("_mxu_v1"):
+        _check_mxu_shape(what, lib, rows, tile_rays, sub)
     out = _outputs(phi_pad.shape[1], dev)
-    err = (lib.tpt_mt_list_mxu if mxu else lib.tpt_mt_list)(
-        *map(_ptr, (phi_pad, cols_rows, counts, lists, *out)),
+    err = getattr(lib, f"tpt_{what}")(
+        *map(_ptr, (phi_pad, rows, counts, lists, *bounded, *out)),
         phi_pad.shape[1], tile_rays, n_tiles, ms, sub, _stream(dev))
     if err:
         raise RuntimeError(f"{what} kernel launch failed: {_build.error_string(err)}")
@@ -566,27 +668,24 @@ def _walk_list_cuda(phi_pad, cols_rows, counts, lists, tile_rays: int, mxu: bool
 def _walk_cond_cuda(phi_pad, cols_rows, chunk_boxes, sub_boxes, tile_rays: int, stats=None,
                     mxu: bool = False):
     """Launch the 'cond' kernel (csrc/cond_walk.cu, on the table
-    `_pack_walk_table` repacks; with `mxu`, the MXU variant of
-    csrc/mt_shade.cu on the `_pack_mma` table) on the current stream;
-    outputs (R_pad,) x4.  `stats`, if given, a (T, 2) int32 tensor,
-    receives the walk counts."""
+    `_pack_walk_table` repacks; with `mxu`, the MXU walk of
+    csrc/mxu_walk.cu, `cols_rows` then being `_pack_mxu_table`'s table) on
+    the current stream; outputs (R_pad,) x4.  `stats`, if given, a (T, 2)
+    int32 tensor, receives the walk counts."""
+    if mxu:
+        _check_table("mt_cond_mxu", cols_rows, tile_rays)
+        return _cond_launch("mt_cond_mxu", 1, phi_pad, cols_rows, chunk_boxes, sub_boxes,
+                            tile_rays, stats)
     sub = CHUNK_TRIS * chunk_boxes.shape[0] // sub_boxes.shape[0]
-    if not mxu:
-        return _walk_cond_table_cuda(phi_pad, _pack_walk_table(cols_rows, sub), chunk_boxes,
-                                     sub_boxes, tile_rays, stats)
-    from ... import _build
-
-    _check_mxu_shape("mt_cond_mxu", _build.load(), cols_rows, tile_rays, sub)
-    return _cond_launch("mt_cond_mxu", 4, phi_pad, cols_rows, chunk_boxes, sub_boxes, tile_rays,
-                        stats)
+    return _walk_cond_table_cuda(phi_pad, _pack_walk_table(cols_rows, sub), chunk_boxes,
+                                 sub_boxes, tile_rays, stats)
 
 
 def _walk_cond_table_cuda(phi_pad, table, chunk_boxes, sub_boxes, tile_rays: int, stats=None):
     """Launch the Hopper 'cond' walk of csrc/cond_walk.cu on the walk
     table; outputs (R_pad,) x4.  `stats`, if given, a (T, 2) int32 tensor,
     receives the walk counts."""
-    if table.shape[1:] != (WALK_TABLE_FLOATS,):
-        raise ValueError("mt_cond kernel: the table must be `_pack_walk_table`'s (Np, 20) rows")
+    _check_table("mt_cond", table, tile_rays)
     return _cond_launch("mt_cond", 1, phi_pad, table, chunk_boxes, sub_boxes, tile_rays, stats)
 
 
@@ -630,11 +729,34 @@ def _cond_launch(what, rows_a_tri: int, phi_pad, table, chunk_boxes, sub_boxes, 
     return out
 
 
-def _mma_prepare(prepare):
-    """`prepare` with the coefficient table repacked for the MXU kernels."""
+def _walk_mxu_cuda_v1(cull: str, phi_pad, table, *rest, stats=None):
+    """Launch the first design of the MXU `cull` walk (csrc/mt_shade.cu
+    `tpt_mt_<cull>_mxu_v1`) on `_pack_mma`'s table, kept only to compare
+    its redesign with.  `rest` is what follows the table in the prepared
+    inputs of `cull` (`_prepare`, `_prepare_list`, `_prepare_cond`), the
+    tile width last; outputs (R_pad,) x4.  `stats` (a (T, 2) int32 tensor)
+    only for cond."""
+    *rest, tile_rays = rest
+    what = f"mt_{cull}_mxu_v1"
+    if cull == "cond":
+        from ... import _build
+
+        sub = CHUNK_TRIS * rest[0].shape[0] // rest[1].shape[0]
+        _check_mxu_shape(what, _build.load(), table, tile_rays, sub)
+        return _cond_launch(what, 4, phi_pad, table, *rest, tile_rays, stats)
+    if stats is not None:
+        raise ValueError(f"{what} kernel: no walk counts")
+    counts, lists, *emins = rest
+    return _rows_launch(what, phi_pad, table, counts, lists, emins[0] if emins else None,
+                        tile_rays)
+
+
+def _mma_prepare(prepare, pack=None):
+    """`prepare` with the coefficient table repacked for the MXU kernels
+    (`_pack_mxu_table`; `pack`, e.g. `_pack_mma` for the first designs)."""
     def prep(tri_pos, phi_t, tile_rays, sub: int = SUB_TRIS):
         phi_pad, cols_rows, *rest = prepare(tri_pos, phi_t, tile_rays, sub)
-        return (phi_pad, _pack_mma(cols_rows, sub), *rest)
+        return (phi_pad, (pack or _pack_mxu_table)(cols_rows, sub), *rest)
 
     return prep
 
@@ -795,15 +917,19 @@ def cond_walk_stats(tri_pos, phi_t, *, tile_rays=None, sub=None, plain: bool = F
     return stats
 
 
-def nf_walk_stats(tri_pos, phi_t, *, tile_rays=None, sub=None, plain: bool = False):
-    """Per-tile walk counts of the 'nf' kernel (or, with `plain=True` or a
-    CPU tensor, of its plain version) on these inputs: (T,) int32, the subs
-    each tile evaluated.  Kernel and plain version agree on them exactly.
-    Launches made here are not counted."""
-    prep = _prepare(tri_pos, phi_t, tile_rays, _sub_tris(sub))
+def nf_walk_stats(tri_pos, phi_t, *, tile_rays=None, sub=None, plain: bool = False,
+                  mxu: bool = False):
+    """Per-tile walk counts of the 'nf' kernel, or with `mxu` of its MXU
+    variant (or, with `plain=True` or a CPU tensor, of its plain version)
+    on these inputs: (T,) int32, the subs each tile evaluated.  The FP32
+    kernel and its plain version agree on them exactly.  Launches made here
+    are not counted."""
+    plain = plain or phi_t.device.type == "cpu"
+    prepare = _mma_prepare(_prepare) if mxu and not plain else _prepare
+    prep = prepare(tri_pos, phi_t, tile_rays, _sub_tris(sub))
     stats = torch.zeros((prep[3].shape[0],), dtype=torch.int32, device=phi_t.device)
-    walk = _walk_plain if plain or phi_t.device.type == "cpu" else _walk_cuda
-    walk(*prep, stats=stats)
+    walk = _walk_plain if plain else _walk_cuda
+    walk(*prep, stats=stats, mxu=mxu)
     return stats
 
 
