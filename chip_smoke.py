@@ -25,9 +25,13 @@ public entry points:
   * cond end to end: the headline frame and the training step under
     TPT_CULL=nf and =cond, in turns, with cond's wrapper split into its
     parts (padding and packing, boxes, table repack, walk);
-  * round-2 MT: `mt_intersect_pallas` and `mt_intersect_stream`
-    (csrc/mt_intersect.cu) on the headline camera's 262,144 primary rays,
-    and the streamed one on the stress scene's;
+  * round-2 MT: `mt_intersect_pallas` and `mt_intersect_stream` (both
+    launch the Hopper walk of csrc/r2_walk.cu) on the headline camera's
+    262,144 primary rays, and the streamed one on the stress scene's; each
+    held to its plain version and to the first design (`tpt_mt_r2_v1`,
+    csrc/mt_intersect.cu) bit for bit, walk counts included, and timed in
+    turns with it (v1, new, new, v1), beside its bound and critical-path
+    bound;
   * intersectors: `render_frame(intersector='mt' | 'bvh' | 'bvh8')` on the
     headline scene at 512x512, 1 sample per pixel, 4 bounces (the plain
     loop, no MT kernel), each against the near-to-far kernel's frame;
@@ -834,9 +838,12 @@ def _mt_launched(launches, allowed=()):
 
 
 def _r2_check(mt_intersect, name, tri_pos, ro, rd, hk, results, key):
-    """Hold one round-2 kernel's hits `hk` to its plain version (0 hit/tri
-    mismatches, t/u/v within MT_TOL) and its per-tile walk counts to the
-    plain walk's.  Returns (largest t/u/v difference, walk counts)."""
+    """Hold one round-2 entry's hits `hk` (the Hopper walk, csrc/r2_walk.cu)
+    to its plain version (0 hit/tri mismatches, t/u/v within MT_TOL) and
+    to the first design's (`tpt_mt_r2_v1`, bit for bit), and the per-tile
+    walk counts of each to the plain walk's under that design's copy rule;
+    the chunks evaluated must be the same under both.  Returns (largest
+    t/u/v difference, the Hopper walk's counts)."""
     import torch
 
     stream = name == "mt_stream_r2"
@@ -844,62 +851,105 @@ def _r2_check(mt_intersect, name, tri_pos, ro, rd, hk, results, key):
              else mt_intersect.mt_intersect_pallas_plain)
     t0 = time.perf_counter()
     hp = plain(tri_pos, ro, rd)
-    sp = mt_intersect.walk_stats(tri_pos, ro, rd, stream=stream, plain=True)
+    sp = {d: mt_intersect.walk_stats(tri_pos, ro, rd, stream=stream, plain=True, design=d)
+          for d in mt_intersect.R2_DESIGNS}
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     bad, err = _hit_diff(hk, hp)
-    sk = mt_intersect.walk_stats(tri_pos, ro, rd, stream=stream)
+    sk = {d: mt_intersect.walk_stats(tri_pos, ro, rd, stream=stream, design=d)
+          for d in mt_intersect.R2_DESIGNS}
+    prep = (*mt_intersect._prepare(tri_pos, ro, rd, stream), stream)
+    hv = mt_intersect._walk_cuda_v1(*prep)
+    v1_equal = all(torch.equal(a[:ro.shape[0]], b) for a, b in zip(hv, (hk.t, hk.tri, hk.u, hk.v)))
     hits = int(hk.hit.sum())
-    evaluated, copied = (int(x) for x in sk.sum(dim=0))
+    counts = {d: [int(x) for x in s.sum(dim=0)] for d, s in sk.items()}
     print(f"{name} {key}: rays {ro.shape[0]}, hits {hits}, hit/tri mismatches {bad}, max |t,u,v| "
-          f"diff {err:.3g} (tolerance {MT_TOL}); walk counts equal to the plain walk's over "
-          f"{sk.shape[0]} tiles: {evaluated} chunks evaluated, {copied} copied (plain version and "
-          f"its walk counts took {plain_s:.1f} s)")
+          f"diff {err:.3g} (tolerance {MT_TOL}); bit-equal to tpt_mt_r2_v1: {v1_equal}; walk "
+          f"counts equal to the plain walk's over {sk['r2_walk'].shape[0]} tiles, [chunks "
+          f"evaluated, chunks copied] {counts} (plain version and its walk counts took "
+          f"{plain_s:.1f} s)")
     _check(bad == 0, f"{name} {key}: {bad} rays differ in hit or triangle")
     _check(err <= MT_TOL, f"{name} {key}: t/u/v differ by {err}")
     _check(hits > 0, f"{name} {key}: no ray hit the scene")
-    _check(torch.equal(sk, sp), f"{name} {key}: walk counts differ from the plain walk's")
+    _check(v1_equal, f"{name} {key}: the Hopper walk and tpt_mt_r2_v1 differ")
+    for d in mt_intersect.R2_DESIGNS:
+        _check(torch.equal(sk[d], sp[d]), f"{name} {key}: {d} walk counts differ from the plain "
+               "walk's")
+    _check(torch.equal(sk["r2_walk"][:, 0], sk["v1"][:, 0]),
+           f"{name} {key}: the designs evaluate different chunks")
+    evaluated, copied = counts["r2_walk"]
     results[f"{name}_{key}"] = dict(hits=hits, mismatches=bad, max_abs_err=err,
                                     chunks_evaluated=evaluated, chunks_copied=copied,
+                                    v1_chunks_copied=counts["v1"][1],
+                                    chunks_per_tile=_tile_dist(sk["r2_walk"][:, 0]),
                                     plain_check_s=plain_s)
-    return err, sk
+    return err, sk["r2_walk"]
 
 
-def _r2_timing(mt_intersect, name, tri_pos, ro, rd, stats, results, key, tag, plain_reps=3):
-    """Wrapper, walk and plain times of one round-2 kernel on these rays,
-    and its bound: every ray slab-tests every chunk box; the pairs of the
-    evaluated chunks."""
+def _r2_timing(mt_intersect, mt_shade, name, tri_pos, ro, rd, stats, results, key, tag,
+               plain_reps=3):
+    """Wrapper, walk and plain times of one round-2 entry on these rays;
+    the Hopper walk's kernel (csrc/r2_walk.cu, on a table packed once)
+    against the first design's (`tpt_mt_r2_v1`) in turns (v1, new, new,
+    v1), by `_kernel_ms`; the bound (every ray slab-tests every chunk box,
+    the pairs of the evaluated chunks; FP32 operations against bytes) and
+    the critical-path bound (the heaviest tile's pairs and slab tests over
+    the FP32 share of the C SMs its cluster runs on), beside the kernel on
+    the heaviest tile's rays alone (its walk's own time, one cluster)."""
     stream = name == "mt_stream_r2"
     kernel = mt_intersect.mt_intersect_stream if stream else mt_intersect.mt_intersect_pallas
     plain = (mt_intersect.mt_intersect_stream_plain if stream
              else mt_intersect.mt_intersect_pallas_plain)
     prep = (*mt_intersect._prepare(tri_pos, ro, rd, stream), stream)
-    phi_pad, _, boxes, chunk, _ = prep
+    phi_pad, rows, boxes, chunk, _ = prep
+    table = mt_intersect._r2_table(rows, chunk, stream)
     ms = _time_ms(lambda: kernel(tri_pos, ro, rd), 3, 20)
     walk_ms = _time_ms(lambda: mt_intersect._walk_cuda(*prep), 3, 20)
-    kernel_ms = _kernel_ms(lambda: mt_intersect._walk_cuda(*prep), "mt_r2_kernel")
+    fns = {"kept": (lambda: mt_intersect._walk_table_cuda(phi_pad, table, boxes, chunk, stream),
+                    "r2_walk_kernel"),
+           "v1": (lambda: mt_intersect._walk_cuda_v1(*prep), "mt_r2_kernel")}
+    times = {"v1": [], "kept": []}
+    for which in ("v1", "kept", "kept", "v1"):
+        times[which].append(_kernel_ms(*fns[which]))
+    heavy, tile = int(stats[:, 0].argmax()), mt_intersect.TILE_RAYS
+    phi_one = phi_pad[:, heavy * tile:(heavy + 1) * tile].contiguous()
+    alone_ms = _kernel_ms(lambda: mt_intersect._walk_table_cuda(phi_one, table, boxes, chunk,
+                                                                stream), "r2_walk_kernel")
+    repack_ms = _time_ms(lambda: mt_intersect._r2_table(rows, chunk, stream), 3, 20)
     plain_ms = _time_ms(lambda: plain(tri_pos, ro, rd), 1, plain_reps)
     walk_plain_ms = _time_ms(lambda: mt_intersect._walk_plain(*prep), 1, plain_reps)
     evaluated = int(stats[:, 0].sum())
-    ops = evaluated * chunk * mt_intersect.TILE_RAYS * PAIR_OPS_R2 \
-        + phi_pad.shape[1] * boxes.shape[0] * SLAB_OPS
+    slabs = phi_pad.shape[1] * boxes.shape[0]
+    ops = evaluated * chunk * mt_intersect.TILE_RAYS * PAIR_OPS_R2 + slabs * SLAB_OPS
     bound_ms, bound_by = _bound(ops, _mt_bytes(tri_pos.shape[0], ro.shape[0]))
-    print(f"timing {tag}: {name} {key} wrapper {ms:.3f} ms (kernel {kernel_ms:.4f} ms by CUDA "
-          f"events, launches queued; walk call {walk_ms:.3f} ms), plain wrapper {plain_ms:.3f} ms "
-          f"(plain walk {walk_plain_ms:.3f} ms); bound {bound_ms:.4f} ms ({bound_by}: "
-          f"{ops / 1e9:.3f} GFLOP)")
-    results[f"{name}_{key}"].update(ms=ms, walk_ms=walk_ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+    cluster = mt_shade.walk_shape("tpt_mt_r2_walk_shape")["cluster"]
+    heaviest = int(stats[:, 0].max())
+    critical_ms = ((heaviest * chunk * PAIR_OPS_R2 + boxes.shape[0] * SLAB_OPS)
+                   * mt_intersect.TILE_RAYS / (H100_FP32 / H100_SMS * cluster) * 1e3)
+    kernel_ms, v1_ms = statistics.mean(times["kept"]), statistics.mean(times["v1"])
+    print(f"timing {tag}: {name} {key} kernel in turns (v1, new, new, v1): "
+          f"{_fmt_ms((times['v1'][0], *times['kept'], times['v1'][1]))} ms (CUDA events, "
+          f"launches queued); wrapper {ms:.3f} ms (table repack {repack_ms:.4f} ms; walk call "
+          f"{walk_ms:.3f} ms), plain wrapper {plain_ms:.3f} ms (plain walk {walk_plain_ms:.3f} "
+          f"ms); bound {bound_ms:.4f} ms ({bound_by}: {ops / 1e9:.3f} GFLOP), critical-path bound "
+          f"{critical_ms:.5f} ms (heaviest tile {heaviest} chunks over {cluster} SMs; that "
+          f"tile {heavy} alone {alone_ms:.4f} ms)")
+    results[f"{name}_{key}"].update(ms=ms, walk_ms=walk_ms, kernel_ms=kernel_ms, v1_kernel_ms=v1_ms,
+                                    times_ms=times, repack_ms=repack_ms, plain_ms=plain_ms,
                                     walk_plain_ms=walk_plain_ms, bound_ms=bound_ms,
-                                    bound_by=bound_by, gflop=ops / 1e9)
-    return dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                                    bound_by=bound_by, gflop=ops / 1e9,
+                                    critical_path_bound_ms=critical_ms, cluster=cluster,
+                                    heaviest_tile_alone_ms=alone_ms)
+    return dict(ms=ms, kernel_ms=kernel_ms, v1_kernel_ms=v1_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, critical_path_bound_ms=critical_ms)
 
 
-def _r2_phase(mt_intersect, counters, tri_pos, phi, nf_hit, results, tag):
+def _r2_phase(mt_intersect, mt_shade, counters, tri_pos, phi, nf_hit, results, tag):
     """The round-2 kernels' path: `mt_intersect_pallas` and
     `mt_intersect_stream` once each on these rays with every launch count
-    set to 0 just before and read just after; then each against its plain
-    version (hits and walk counts), the two against each other bit for bit,
+    set to 0 just before and read just after; each launches the Hopper walk
+    (csrc/r2_walk.cu).  Then each against its plain version and the first
+    design (hits and walk counts), the two against each other bit for bit,
     the hit/tri mismatches against the near-to-far kernel (information: the
     epilogues differ on borderline t), and their times and bounds."""
     import torch
@@ -907,7 +957,10 @@ def _r2_phase(mt_intersect, counters, tri_pos, phi, nf_hit, results, tag):
     ro, rd = phi[1:4].T.contiguous(), phi[4:7].T.contiguous()
     kernels = {"mt_pallas_r2": mt_intersect.mt_intersect_pallas,
                "mt_stream_r2": mt_intersect.mt_intersect_stream}
-    print("round-2 MT path: mt_intersect_pallas and mt_intersect_stream on the headline primary rays")
+    shape = mt_shade.walk_shape("tpt_mt_r2_walk_shape")
+    print(f"round-2 MT path: mt_intersect_pallas and mt_intersect_stream on the headline primary "
+          f"rays; the Hopper walk's kept design {shape}")
+    results["walk_r2_shape"] = shape
     for fn in counters.values():
         fn.launches = 0
     hits = {name: fn(tri_pos, ro, rd) for name, fn in kernels.items()}
@@ -924,8 +977,8 @@ def _r2_phase(mt_intersect, counters, tri_pos, phi, nf_hit, results, tag):
         results[f"{name}_headline"]["mismatches_vs_nf"] = vs_nf
         print(f"{name} headline: hit/tri mismatches against nf {vs_nf} (information)")
         out[name] = dict(launches=launches[name], max_abs_err=err,
-                         **_r2_timing(mt_intersect, name, tri_pos, ro, rd, stats, results,
-                                      "headline", tag))
+                         **_r2_timing(mt_intersect, mt_shade, name, tri_pos, ro, rd, stats,
+                                      results, "headline", tag))
     for a, b in zip(*hits.values()):
         _check(torch.equal(a, b), "mt_pallas_r2 and mt_stream_r2 differ")
     print("mt_pallas_r2 and mt_stream_r2 agree bit for bit on the headline primary rays")
@@ -1754,7 +1807,7 @@ def main(argv=None) -> int:
 
     # --- round-2 phase: mt_intersect_pallas / mt_intersect_stream vs plain ------
     phase("round-2")
-    r2 = _r2_phase(mt_intersect, counters, tri_pos, phi_primary,
+    r2 = _r2_phase(mt_intersect, mt_shade, counters, tri_pos, phi_primary,
                    mt_shade.mt_intersect_nf_phi(tri_pos, phi_primary), results, tag)
 
     # --- denoise phase: the tiled kernel vs plain and vs its first design --
@@ -1859,8 +1912,8 @@ def main(argv=None) -> int:
     s_ro, s_rd = s_primary[1:4].T.contiguous(), s_primary[4:7].T.contiguous()
     r2_stats = _r2_check(mt_intersect, "mt_stream_r2", s_tri, s_ro, s_rd,
                          mt_intersect.mt_intersect_stream(s_tri, s_ro, s_rd), results, "stress")[1]
-    _r2_timing(mt_intersect, "mt_stream_r2", s_tri, s_ro, s_rd, r2_stats, results, "stress", tag,
-               plain_reps=1)
+    r2_stress = _r2_timing(mt_intersect, mt_shade, "mt_stream_r2", s_tri, s_ro, s_rd, r2_stats,
+                           results, "stress", tag, plain_reps=1)
 
     # --- stress main path: Renderer.render_all() + display() -----------------
     phase("stress main path")
@@ -1962,10 +2015,13 @@ def main(argv=None) -> int:
         "nf_mxu_v1": "mt_list_kernelILi64ELb1EE",
         "nf_mxu": f"mxu_walk_kernelILi64E{mxu_tail('nf_mxu')}Lb1E",
         "list_mxu": f"mxu_walk_kernelILi64E{mxu_tail('list_mxu')}Lb0E",
-        "cond_mxu": f"mxu_cond_kernelILi64E{mxu_tail('cond_mxu')}E"},
+        "cond_mxu": f"mxu_cond_kernelILi64E{mxu_tail('cond_mxu')}E",
+        "r2_v1": "mt_r2_kernelILb1EE",
+        "r2": "r2_walk_kernelEPKf"},
         Path(opts.out) if opts.out else None)
     for label, got in sass.items():
-        print(f"sass {label} (at sub 64): pair loop {got}")
+        print(f"sass {label} ({'stream' if label.startswith('r2') else 'at sub 64'}): pair loop "
+              f"{got}")
     results["sass_inner_loop"] = sass
 
     def bound(b):
@@ -1980,7 +2036,7 @@ def main(argv=None) -> int:
 
     den512, den1080 = den[(512, 512)], den[(1080, 1920)]
 
-    r2_src = "tpu_pathtracer_torch/csrc/mt_intersect.cu"
+    r2_src = "tpu_pathtracer_torch/csrc/r2_walk.cu"
     kernels = [
         {"name": "mt_nf", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/nf_walk.cu",
          "replaces": "tpu_pathtracer/ops/pallas/mt_shade.py:308", "launches": launches["mt_nf"],
@@ -2012,7 +2068,10 @@ def main(argv=None) -> int:
            "replaces": f"tpu_pathtracer/ops/pallas/mt_intersect.py:{line}",
            "launches": r2[name]["launches"], "max_abs_err": r2[name]["max_abs_err"],
            "ms": r2[name]["ms"], "kernel_ms": r2[name]["kernel_ms"],
-           "plain_ms": r2[name]["plain_ms"], **bound((r2[name]["bound_ms"], r2[name]["bound_by"]))}
+           "v1_kernel_ms": r2[name]["v1_kernel_ms"], "plain_ms": r2[name]["plain_ms"],
+           **bound((r2[name]["bound_ms"], r2[name]["bound_by"])),
+           "critical_path_bound_ms": r2[name]["critical_path_bound_ms"],
+           **({f"stress_{k}": v for k, v in r2_stress.items()} if name == "mt_stream_r2" else {})}
           for name, line in (("mt_pallas_r2", 62), ("mt_stream_r2", 293))),
         *({"name": f"mt_{cull}_mxu", "route": "cuda",
            "source": "tpu_pathtracer_torch/csrc/mxu_walk.cu",

@@ -516,18 +516,46 @@ def _rays(phi_t):
     return phi_t[1:4].T.contiguous(), phi_t[4:7].T.contiguous()
 
 
+def _assert_r2_designs_agree(cuda, tri, ro, rd, stream):
+    """The Hopper round-2 walk (csrc/r2_walk.cu) against its first design
+    (`tpt_mt_r2_v1`) and the plain
+    walk on the same prepared inputs: hits and t/u/v bit-equal; walk
+    counts equal to the plain walk's under each design's copy rule, the
+    chunks evaluated equal across designs.  Returns the plain hits and
+    the Hopper walk's counts."""
+    prep = (*mt_intersect._prepare(tri, ro, rd, stream), stream)
+    table = mt_intersect._r2_table(*prep[1:2], prep[3], stream)
+    stats = {d: torch.zeros((prep[0].shape[1] // 1024, 2), dtype=torch.int32, device=cuda)
+             for d in mt_intersect.R2_DESIGNS}
+    hk = mt_intersect._walk_table_cuda(prep[0], table, *prep[2:], stats=stats["r2_walk"])
+    hv = mt_intersect._walk_cuda_v1(*prep, stats=stats["v1"])
+    for design, sk in stats.items():
+        sp = torch.zeros_like(sk)
+        hp = mt_intersect._walk_plain(*prep, stats=sp, design=design)
+        assert torch.equal(sk, sp), design
+    for a, b, c in zip(hk, hv, hp):
+        assert torch.equal(a, c) and torch.equal(b, c)
+    assert torch.equal(stats["r2_walk"][:, 0], stats["v1"][:, 0])
+    return hp, stats["r2_walk"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("stream", [False, True], ids=["pallas", "stream"])
 @pytest.mark.parametrize("n_tris,n_rays", [
     (2000, 40000),   # chunks of 128, a partial last tile
     (700, 1300),     # a partial last chunk of padding rows
     (61, 3000),      # chunks of 64 (the chunk rule for small scenes)
+    (7, 2500),       # chunks of 8
+    (3968, 5000),    # 31 chunks: one short group
+    (4096, 5000),    # 32 chunks: one whole group
+    (4224, 5000),    # 33 chunks: a group and one chunk
     (8192, 20480),   # the whole-scene cap, whole tiles
 ])
 def test_r2_kernels_match_plain_bit_for_bit(cuda, stream, n_tris, n_rays):
-    """The round-2 kernels (mt_intersect_pallas / mt_intersect_stream)
-    against their plain versions on soups with parked rays: one launch,
-    bit-equal hits and t/u/v, equal walk counts."""
+    """The round-2 kernels (mt_intersect_pallas / mt_intersect_stream, one
+    Hopper walk) against their plain versions on soups with parked rays:
+    one launch, bit-equal hits and t/u/v, equal walk counts; and the walk
+    against its first design (`tpt_mt_r2_v1`), bit for bit."""
     rng = np.random.default_rng(n_tris + n_rays)
     tri = torch.from_numpy(_soup(rng, n_tris)).to(cuda)
     phi_t, park = _parked_rays(rng, n_rays)
@@ -540,17 +568,57 @@ def test_r2_kernels_match_plain_bit_for_bit(cuda, stream, n_tris, n_rays):
     assert int(hk.hit.sum()) > 0 and not hk.hit[torch.from_numpy(park).to(cuda)].any()
     for a, b in zip(hk, hp):
         assert torch.equal(a, b)
-    stats = mt_intersect.walk_stats(tri, ro, rd, stream=stream)
-    assert torch.equal(stats, mt_intersect.walk_stats(tri, ro, rd, stream=stream, plain=True))
+    for design in mt_intersect.R2_DESIGNS:
+        stats = mt_intersect.walk_stats(tri, ro, rd, stream=stream, design=design)
+        assert torch.equal(stats, mt_intersect.walk_stats(tri, ro, rd, stream=stream, plain=True,
+                                                          design=design))
+    _assert_r2_designs_agree(cuda, tri, ro, rd, stream)
+
+
+@pytest.mark.cuda
+def test_r2_stream_walk_at_its_cap(cuda):
+    """`mt_intersect_stream` at 131,072 triangles (1,024 chunks, 32 groups)
+    on camera rays over copies of a BVH-ordered mesh, each below the last
+    (so chunks are culled), and a
+    ray count that is no multiple of 1,024: bit-equal to the plain walk
+    and to the first design, walk counts equal."""
+    mesh = _stream_mesh(cuda)  # 16,384 rows; eight copies, each 2 below the last
+    drop = torch.zeros(9, device=cuda)
+    drop[[1, 4, 7]] = -2.0
+    tri = torch.cat([mesh + j * drop for j in range(131072 // mesh.shape[0])])
+    ro, rd = (x[:9000].contiguous() for x in _rays(_camera_rays(cuda)))
+    before = mt_intersect.mt_intersect_stream.launches
+    hk = mt_intersect.mt_intersect_stream(tri, ro, rd)
+    assert mt_intersect.mt_intersect_stream.launches == before + 1
+    hp, stats = _assert_r2_designs_agree(cuda, tri, ro, rd, True)
+    for a, b in zip((hk.t, hk.tri, hk.u, hk.v), hp):
+        assert torch.equal(a, b[:9000])
+    assert int(hk.hit.sum()) > 1000 and 0 < int(stats[:, 0].max()) < 1024
+
+
+@pytest.mark.cuda
+def test_r2_walk_kept_shape_matches_plain(cuda):
+    """The walk at its one launch shape (a cluster of 8 CTAs a tile, 2
+    lanes a ray) is bit-equal to the plain walk, walk counts included, on
+    camera rays over the default scene and on a soup of 33 chunks."""
+    tri = tpt.default_scene().compile(device=cuda).packed.tri_pos
+    ro, rd = (x[:30000].contiguous() for x in _rays(_camera_rays(cuda)))
+    _assert_r2_designs_agree(cuda, tri, ro, rd, False)
+    rng = np.random.default_rng(33)
+    soup = torch.from_numpy(_soup(rng, 4224)).to(cuda)
+    ro, rd = (x.to(cuda) for x in _rays(_parked_rays(rng, 5000)[0]))
+    _assert_r2_designs_agree(cuda, soup, ro, rd, True)
+    shape_of = mt_shade.walk_shape("tpt_mt_r2_walk_shape")
+    assert (shape_of["cluster"], shape_of["tpr"], shape_of["threads"]) == (8, 2, 256)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("stream", [False, True], ids=["pallas", "stream"])
 def test_r2_kernels_cull_like_plain_on_a_mesh(cuda, stream):
     """Camera rays on the BVH-ordered default scene, where chunk culling
-    (and, for the streamed kernel, skipped copies) decide what is
-    evaluated: hits and walk counts must equal the plain version's, and
-    the culling must skip chunks."""
+    (and the copies) decide what is evaluated: hits and walk counts must
+    equal the plain version's under each design's copy rule, and the
+    culling must skip chunks."""
     tri = tpt.default_scene().compile(device=cuda).packed.tri_pos
     ro, rd = _rays(_camera_rays(cuda))
     kernel, plain = R2_WRAPPERS[stream]
@@ -558,11 +626,13 @@ def test_r2_kernels_cull_like_plain_on_a_mesh(cuda, stream):
     assert int(hk.hit.sum()) > 10000
     for a, b in zip(hk, hp):
         assert torch.equal(a, b)
-    stats = mt_intersect.walk_stats(tri, ro, rd, stream=stream)
-    assert torch.equal(stats, mt_intersect.walk_stats(tri, ro, rd, stream=stream, plain=True))
-    evaluated, copied = (int(x) for x in stats.sum(dim=0))
-    assert 0 < evaluated < stats.shape[0] * tri.shape[0] // mt_intersect.CHUNK_TRIS
-    assert copied >= evaluated and (copied == evaluated or stream)
+    for design in mt_intersect.R2_DESIGNS:
+        stats = mt_intersect.walk_stats(tri, ro, rd, stream=stream, design=design)
+        assert torch.equal(stats, mt_intersect.walk_stats(tri, ro, rd, stream=stream, plain=True,
+                                                          design=design))
+        evaluated, copied = (int(x) for x in stats.sum(dim=0))
+        assert 0 < evaluated < stats.shape[0] * tri.shape[0] // mt_intersect.CHUNK_TRIS
+        assert copied >= evaluated and (copied == evaluated or stream or design == "r2_walk")
 
 
 @pytest.mark.cuda
@@ -577,6 +647,79 @@ def test_r2_kernels_empty_and_oversized_scenes_launch_nothing(cuda):
         with pytest.raises(ValueError, match="bvh8"):
             kernel(torch.zeros((cap + 1, 9), device=cuda), ro, rd)
         assert kernel.launches == before
+
+
+@pytest.mark.cuda
+def test_r2_walk_refuses_bad_inputs_before_a_launch(cuda, monkeypatch):
+    """Rays that are not whole 1,024-ray tiles, the first design's 40-float
+    rows in place of the walk table, a misaligned table or box array and a
+    chunk off the 8-step rule raise ValueError before the launch, and
+    through the wrappers count none."""
+    rng = np.random.default_rng(3)
+    tri = torch.from_numpy(_soup(rng, 700)).to(cuda)
+    ro, rd = (x.to(cuda) for x in _rays(_parked_rays(rng, 3000)[0]))
+    phi_pad, rows, boxes, chunk = mt_intersect._prepare(tri, ro, rd, True)
+    table = mt_intersect._r2_table(rows, chunk, True)
+    walk = mt_intersect._walk_table_cuda
+    odd = torch.empty(table.numel() + 4, device=cuda)[1:table.numel() + 1].view_as(table)
+    odd.copy_(table)
+    for bad in (lambda: walk(phi_pad[:, :1536].contiguous(), table, boxes, chunk, True),
+                lambda: walk(phi_pad, rows.reshape(-1, 10), boxes, chunk, True),
+                lambda: walk(phi_pad, odd, boxes, chunk, True),
+                lambda: walk(phi_pad, table, odd.view(-1)[:boxes.numel()].view_as(boxes), chunk,
+                             True),
+                lambda: walk(phi_pad, table.reshape(-1, 20)[:-4], boxes[:-1], chunk - 4, True)):
+        with pytest.raises(ValueError):
+            bad()
+    kernel = mt_intersect.mt_intersect_stream
+    before = kernel.launches
+    monkeypatch.setattr(mt_intersect, "_r2_table", lambda rows, chunk, stream: rows)
+    with pytest.raises(ValueError):
+        kernel(tri, ro, rd)
+    assert kernel.launches == before
+
+
+@pytest.mark.cuda
+def test_walk_count_check_catches_a_dropped_r2_mask_reformation(cuda, tmp_path, monkeypatch):
+    """Mutation check of the round-2 walk's decisions by mask: a copy of
+    the kernels that keeps each group's first mask (chunks stay live under
+    the t they were first tested against) still finds the same hits, but
+    evaluates more chunks than the plain walk, and the walk-count check
+    sees it."""
+    tri = tpt.default_scene().compile(device=cuda).packed.tri_pos
+    ro, rd = _rays(_camera_rays(cuda))
+    rng = np.random.default_rng(8)
+    soup = torch.from_numpy(_soup(rng, 4224))
+    soup = soup[torch.argsort(soup[:, 2], descending=True)].to(cuda)  # chunks as z slabs
+    soup[0] = torch.tensor([-20, -20, -0.2, 20, -20, -0.2, 0, 20, -0.2], device=cuda)  # a floor
+    s_ro = torch.tensor([[0.0, 0.0, 3.0]], device=cuda).expand(3000, 3).contiguous()
+    s_rd = torch.nn.functional.normalize(
+        torch.from_numpy(rng.normal(size=(3000, 3)).astype(np.float32)).to(cuda)
+        * torch.tensor([0.1, 0.1, 1.0], device=cuda) - torch.tensor([0, 0, 2.0], device=cuda),
+        dim=1)
+    cases = ((tri, ro, rd), (soup, s_ro, s_rd))
+    sp = [mt_intersect.walk_stats(*c, stream=True, plain=True) for c in cases]
+    assert all(torch.equal(mt_intersect.walk_stats(*c, stream=True), s) for c, s in zip(cases, sp))
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, src)
+    walk = src / "r2_walk.cu"
+    text = walk.read_text()
+    reform = "chunks = decide<C>(slots, parity, live, kNone).bits;"
+    assert text.count(reform) == 1
+    walk.write_text(text.replace(reform, "chunks = decide<C>(slots, parity, chunks, kNone).bits;"))
+    monkeypatch.setattr(_build, "CSRC", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    _build.load.cache_clear()
+    try:
+        bad = [mt_intersect.walk_stats(*c, stream=True) for c in cases]
+        hits = [mt_intersect.mt_intersect_stream(*c) for c in cases]
+    finally:
+        _build.load.cache_clear()  # the next load() builds from the package's sources
+    print(f"plain walk counts {[s.sum(dim=0).tolist() for s in sp]}, mutant "
+          f"{[b.sum(dim=0).tolist() for b in bad]}")
+    for c, h in zip(cases, hits):
+        assert all(torch.equal(a, b) for a, b in zip(h, mt_intersect.mt_intersect_stream_plain(*c)))
+    assert any(int(b[:, 0].sum()) > int(s[:, 0].sum()) for b, s in zip(bad, sp))
 
 
 # --- the Hopper walks (csrc/nf_walk.cu, csrc/stream_walk.cu, csrc/cond_walk.cu)

@@ -115,7 +115,9 @@ _SIGNATURES = {
     "tpt_mxu_smem_limit": ([_I, ctypes.POINTER(ctypes.c_size_t)], _I),
     "tpt_mt_stream": ([_P] * 12 + [_I] * 6 + [_P], _I),
     "tpt_mt_stream_shape": ([_I, ctypes.POINTER(_I)], _I),
-    "tpt_mt_r2": ([_P] * 8 + [_I] * 4 + [_P], _I),
+    "tpt_mt_r2_walk": ([_P] * 8 + [_I] * 3 + [_P], _I),
+    "tpt_mt_r2_walk_shape": ([ctypes.POINTER(_I)], _I),
+    "tpt_mt_r2_v1": ([_P] * 8 + [_I] * 4 + [_P], _I),
     "tpt_denoise": ([_P] * 4 + [_I] * 4 + [_F, _P], _I),
     "tpt_denoise_v1": ([_P] * 3 + [_I] * 3 + [_F, _P], _I),
     "tpt_error_string": ([_I], ctypes.c_char_p),

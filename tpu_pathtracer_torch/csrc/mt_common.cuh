@@ -1,6 +1,6 @@
 // Device code shared by the port's Möller–Trumbore kernels (mt_shade.cu,
-// and through walk.cuh nf_walk.cu, stream_walk.cu and cond_walk.cu), so all
-// of them round identically.
+// mt_intersect.cu, and through walk.cuh nf_walk.cu, stream_walk.cu,
+// cond_walk.cu and r2_walk.cu), so all of them round identically.
 //
 // Everything here mirrors an elementwise step of the plain PyTorch versions
 // (ops/mt_matmul.py `determinants`, `epilogue`, `nearest`; ops/kernels/
@@ -47,6 +47,46 @@ __device__ __forceinline__ void take_pair(float a, float ua, float va,
     if (t < near.t) near = Best{t, tri, __fmul_rn(ua, f), __fmul_rn(va, f)};
   }
 }
+
+// The round-2 epilogue of one pair (ops/kernels/mt_intersect.py
+// `_epilogue_r2`): validity in the divided form, t = ta * (1/a) >
+// EPSILON, and the winner's u = ua * f + 0, v = va * f + 0 (the TPU kernel
+// sums the winner's u over the chunk's rows, all others 0.0, which turns a
+// -0.0 into +0.0).  f = 1/a reaches the result only for a pair that passes
+// |a| >= EPSILON and the four sign tests, so only such a pair takes the
+// reciprocal.  Callers visit triangles in ascending index order.
+__device__ __forceinline__ void take_pair_r2(float a, float ua, float va,
+                                             float ta, int tri, Best& near) {
+  const float abs_a = fabsf(a);
+  const float sa = a > 0.f ? 1.f : (a < 0.f ? -1.f : 0.f);
+  const float us = __fmul_rn(ua, sa);
+  const float vs = __fmul_rn(va, sa);
+  if (abs_a >= kEpsilon && us >= 0.f && us <= abs_a && vs >= 0.f &&
+      __fadd_rn(us, vs) <= abs_a) {
+    const float f = __frcp_rn(a);
+    const float t = __fmul_rn(ta, f);
+    if (t > kEpsilon && t < near.t)
+      near = Best{t, tri, __fadd_rn(__fmul_rn(ua, f), 0.f),
+                  __fadd_rn(__fmul_rn(va, f), 0.f)};
+  }
+}
+
+// The epilogue a walk applies to each pair, as a template argument:
+// `take_pair` (the near-to-far, list, cond and streamed walks) or
+// `take_pair_r2` (the round-2 walk).
+struct PairNf {
+  __device__ __forceinline__ static void take(float a, float ua, float va,
+                                              float ta, int tri, Best& near) {
+    take_pair(a, ua, va, ta, tri, near);
+  }
+};
+
+struct PairR2 {
+  __device__ __forceinline__ static void take(float a, float ua, float va,
+                                              float ta, int tri, Best& near) {
+    take_pair_r2(a, ua, va, ta, tri, near);
+  }
+};
 
 // Fold a sub-treelet's nearest hit `near` into a ray's `best`: nearer wins,
 // an exact-t tie goes to the lower triangle index.

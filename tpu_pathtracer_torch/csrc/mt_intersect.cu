@@ -1,7 +1,10 @@
 // Round-2 Möller–Trumbore intersection with one level of chunk culling, for
-// Hopper (sm_90a).
+// Hopper (sm_90a): the first design, `tpt_mt_r2_v1`, kept only to compare
+// its redesign (r2_walk.cu, which both wrappers launch) with; the
+// wrapper's `_walk_cuda_v1` alone launches it.
 //
-// Replaces the TPU kernels in tpu_pathtracer/ops/pallas/mt_intersect.py:
+// It computes what the TPU kernels in tpu_pathtracer/ops/pallas/
+// mt_intersect.py compute:
 //   * `_kernel` (behind `mt_intersect_pallas`, up to 8,192 triangles): per
 //     1,024-ray tile, slab-test every chunk box and evaluate a chunk only if
 //     some lane enters its box before its running best t; the coefficient
@@ -241,7 +244,7 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-extern "C" int tpt_mt_r2(const float* phi_t, const float* rows,
+extern "C" int tpt_mt_r2_v1(const float* phi_t, const float* rows,
                          const float* boxes, float* t, int* idx, float* u,
                          float* v, int* walk_stats, int r_pad, int n_chunks,
                          int chunk, int stream, cudaStream_t s) {

@@ -1,12 +1,13 @@
 // Device code shared by the Hopper walks of the near-to-far and list
-// (nf_walk.cu), streamed (stream_walk.cu), in-kernel culling (cond_walk.cu)
-// and MXU-determinant (mxu_walk.cu) Möller–Trumbore kernels: the packed
-// coefficient table, the tile-wide decisions across a thread block
-// cluster, and the bulk-copy staging.
+// (nf_walk.cu), streamed (stream_walk.cu), in-kernel culling (cond_walk.cu),
+// MXU-determinant (mxu_walk.cu) and round-2 (r2_walk.cu) Möller–Trumbore
+// kernels: the packed coefficient table, the tile-wide decisions across a
+// thread block cluster, and the bulk-copy staging.
 //
 // The FP32 walks' arithmetic is mt_common.cuh's: one rounding per
-// operation, sums in `_FEATS` order, `take_pair`'s epilogue, so they stay
-// bit-equal to their plain PyTorch versions.
+// operation, sums in `_FEATS` order, `take_pair`'s epilogue (round 2:
+// `take_pair_r2`'s), so they stay bit-equal to their plain PyTorch
+// versions.
 
 #pragma once
 
@@ -36,19 +37,20 @@ constexpr int kMaxCluster = 8;   // the portable cluster size
 constexpr int kMaxSlots = kMaxCluster * kThreads / 32;
 constexpr int kWideCluster = 16;  // the largest cluster, non-portable (Hopper)
 
-// Evaluate the staged block `tris` (SUB triangles of the walk table, in
-// shared memory; the first is triangle s0) against a thread's RPT rays and
-// fold each ray's nearest valid hit into its best.  One 128-bit broadcast
-// load of the table serves RPT pairs.  With TPR > 1, each ray is held by
-// TPR consecutive lanes, lane p taking triangles p, p + TPR, ...; the
-// lanes' nearest hits are then combined by (t, index), which is the
-// nearest hit with the lowest index on exact-t ties, as the sequential
-// walk finds it.  Lanes that start at -INF (parked, padding, past the
-// tile) never take a hit.
-template <int SUB, int RPT, int TPR = 1>
+// Evaluate the staged block `tris` (n triangles of the walk table, SUB
+// unless given, in shared memory; the first is triangle s0) against a
+// thread's RPT rays under the epilogue `Pair` (mt_common.cuh `PairNf` or
+// `PairR2`) and fold each ray's nearest valid hit into its best.  One
+// 128-bit broadcast load of the table serves RPT pairs.  With TPR > 1,
+// each ray is held by TPR consecutive lanes, lane p taking triangles p,
+// p + TPR, ... (n a multiple of TPR); the lanes' nearest hits are then
+// combined by (t, index), which is the nearest hit with the lowest index
+// on exact-t ties, as the sequential walk finds it.  Lanes that start at
+// -INF (parked, padding, past the tile) never take a hit.
+template <int SUB, int RPT, int TPR = 1, typename Pair = PairNf>
 __device__ __forceinline__ void eval_table(const float4* __restrict__ tris,
                                            const float (&phi)[RPT][10], int s0,
-                                           Best (&best)[RPT]) {
+                                           Best (&best)[RPT], int n = SUB) {
   static_assert(TPR >= 1 && TPR <= 32 && (TPR & (TPR - 1)) == 0 && SUB % TPR == 0,
                 "a ray's lanes are a power-of-two group of one warp");
   Best near[RPT];
@@ -56,7 +58,7 @@ __device__ __forceinline__ void eval_table(const float4* __restrict__ tris,
   for (int r = 0; r < RPT; ++r) near[r] = Best{kInf, 0x7fffffff, 0.f, 0.f};
   const int first = TPR > 1 ? static_cast<int>(threadIdx.x % TPR) : 0;
 #pragma unroll 2
-  for (int i = first; i < SUB; i += TPR) {
+  for (int i = first; i < n; i += TPR) {
     const float4 q0 = tris[kTableVecs * i + 0];
     const float4 q1 = tris[kTableVecs * i + 1];
     const float4 q2 = tris[kTableVecs * i + 2];
@@ -84,7 +86,7 @@ __device__ __forceinline__ void eval_table(const float4* __restrict__ tris,
       ta = __fadd_rn(ta, __fmul_rn(q4.x, p[1]));
       ta = __fadd_rn(ta, __fmul_rn(q4.y, p[2]));
       ta = __fadd_rn(ta, __fmul_rn(q4.z, p[3]));
-      take_pair(a, ua, va, ta, s0 + i, near[r]);
+      Pair::take(a, ua, va, ta, s0 + i, near[r]);
     }
   }
 #pragma unroll
@@ -183,14 +185,16 @@ __device__ __forceinline__ void cluster_sync() {
 }
 
 // ---------------------------------------------------------------------------
-// Staging: two shared-memory buffers of BYTES each.  Thread 0 fills a
-// buffer with the 1-D bulk copy of the Tensor Memory Accelerator
-// (`cp.async.bulk`, a contiguous block, so no tensor map), which completes
-// on the buffer's mbarrier; the walk prefetches its next candidate block
-// into the idle buffer while it evaluates the current one.  Every thread
-// tracks the same state (the walk's decisions are tile-uniform) and waits
-// on every copy that was issued, so a prefetch the walk drops is waited on
-// before its buffer is reused and the mbarrier phases stay in step.
+// Staging: two shared-memory buffers of BYTES each, a block `bytes` long
+// (BYTES unless `init` is given fewer).  Thread 0 fills a buffer with the
+// 1-D bulk copy of the Tensor Memory Accelerator (`cp.async.bulk`, a
+// contiguous block, so no tensor map), which completes on the buffer's
+// mbarrier; the walk prefetches its next candidate block into the idle
+// buffer while it evaluates the current one.  Every thread tracks the same
+// state (the walk's decisions are tile-uniform) and waits on every copy
+// that was issued, so a prefetch the walk drops is waited on before its
+// buffer is reused and the mbarrier phases stay in step.  `copies` counts
+// the copies issued.
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -208,17 +212,21 @@ struct Stager {
   uint32_t pending;  // bit b: a copy into buffer b not yet waited on
   uint32_t phase;    // bit b: parity of buffer b's next mbarrier phase
   int cur;           // the buffer of the block being evaluated
+  uint32_t bytes;    // bytes a block
+  int copies;        // copies issued so far
 
   __device__ float4* buffer(int b) const { return b ? buf1 : buf0; }
   __device__ int held(int b) const { return b ? id1 : id0; }
 
-  __device__ void init(float4* b0, float4* b1, uint64_t* bars) {
+  __device__ void init(float4* b0, float4* b1, uint64_t* bars, uint32_t block_bytes = BYTES) {
     buf0 = b0;
     buf1 = b1;
     bar = bars;
     id0 = id1 = -1;
     pending = phase = 0u;
     cur = 1;
+    bytes = block_bytes;
+    copies = 0;
     if (threadIdx.x == 0) {
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&bar[0])) : "memory");
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&bar[1])) : "memory");
@@ -254,20 +262,21 @@ struct Stager {
       __syncthreads();
     }
     if (threadIdx.x == 0) {
-      const float4* src = table + static_cast<size_t>(block) * (BYTES / 16);
+      const float4* src = table + static_cast<size_t>(block) * (bytes / 16);
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
                        smem_addr(&bar[b])),
-                   "r"(BYTES)
+                   "r"(bytes)
                    : "memory");
       asm volatile(
           "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
           "[%3];" ::"r"(smem_addr(buffer(b))),
-          "l"(src), "r"(BYTES), "r"(smem_addr(&bar[b]))
+          "l"(src), "r"(bytes), "r"(smem_addr(&bar[b]))
           : "memory");
     }
     if (b) id1 = block; else id0 = block;
     pending |= 1u << b;
+    ++copies;
   }
 
   // Make `block` the current block: take it from the idle buffer if it

@@ -7,8 +7,15 @@ Replaces the two TPU kernels of tpu_pathtracer/ops/pallas/mt_intersect.py:
   * `_kernel` behind `mt_intersect_pallas` (N <= 8,192): the coefficient
     table is read from device memory chunk by chunk;
   * `_kernel_stream` behind `mt_intersect_stream` (N <= 131,072): the same
-    walk over a chunk-major table, each chunk copied into shared memory
-    ahead of its use (csrc/mt_intersect.cu).
+    walk over a chunk-major table, each chunk copied ahead of its use.
+
+On the H100 both launch one Hopper walk (csrc/r2_walk.cu) on the table
+`_pack_walk_table` packs from either layout (20 floats a triangle, in
+triangle order): what split the TPU kernels was VMEM against HBM, and the
+whole 131,072-triangle table fits the H100's L2.  The entries keep their
+own caps, errors and launch counters.  The first design
+(csrc/mt_intersect.cu `tpt_mt_r2_v1`, one 512-thread block a tile on the
+40-float rows) is kept only to compare with, launched by `_walk_cuda_v1`.
 
 The contract is the JAX wrappers':
 
@@ -30,27 +37,34 @@ The contract is the JAX wrappers':
     exact-t ties;
   * an empty scene misses everywhere; past each cap, JAX's ValueError.
 
-`mt_intersect_pallas` and `mt_intersect_stream` launch the CUDA kernels for
+`mt_intersect_pallas` and `mt_intersect_stream` launch the CUDA kernel for
 CUDA tensors (counting launches in `.launches`) and run their plain
 versions for CPU tensors.  The plain versions make the same decisions in
 the same order with the same elementwise arithmetic, vectorised over
 tiles, so kernel and plain version agree bit for bit, and so do their
-per-tile walk counts (`walk_stats`).
+per-tile walk counts (`walk_stats`): chunks evaluated, and chunks copied
+under the rule of the design asked for (`design=`, R2_DESIGNS).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from ..mt_matmul import Hit, determinants, miss_hit, nearest, ray_features, triangle_columns
+from ..mt_matmul import (FEATS, Hit, determinants, miss_hit, nearest, ray_features,
+                         triangle_columns)
 from ..vecmath import EPSILON, INF
 
-TILE_RAYS = 1024  # rays per tile (one CUDA block)
+TILE_RAYS = 1024  # rays per tile (one cluster of CTAs)
 CHUNK_TRIS = 128  # the culling granule
 MT_PALLAS_MAX_TRIS = 8192
 MT_STREAM_MAX_TRIS = 131072
+R2_GROUP = 32  # chunks one decision of the Hopper walk covers (csrc/r2_walk.cu kGroup)
+# The kernels whose copy rule `walk_stats` reproduces: the Hopper walk
+# (csrc/r2_walk.cu), which both entries launch, and the first design.
+R2_DESIGNS = ("r2_walk", "v1")
 _TILES_PER_FOLD = 32  # tiles evaluated together by the plain walk (bounds its memory)
 
 
@@ -142,6 +156,33 @@ def _counted(wrapper, walk):
     return launch
 
 
+# (quantity, feature) coefficients a pair uses, in FEATS order (a: 4-6;
+# ua, va: 4-9; ta: 0-3), then one zero: 20 floats, five float4 loads.
+WALK_TABLE = tuple((q, k) for q, ks in enumerate(FEATS) for k in ks)
+WALK_TABLE_FLOATS = 20
+
+
+@functools.lru_cache(maxsize=16)
+def _walk_table_index(n: int, sub: int, device: torch.device):
+    """Flat indices into the (4*Np, 10) sub-block-major rows at `sub` of
+    the walk table's first 19 columns for Np = n triangles: (n, 19), built
+    once per shape and device."""
+    tri = torch.arange(n)[:, None]
+    q = torch.tensor([q for q, _ in WALK_TABLE])
+    k = torch.tensor([k for _, k in WALK_TABLE])
+    return ((tri // sub * 4 * sub + q * sub + tri % sub) * 10 + k).to(device)
+
+
+def _pack_walk_table(cols_rows, sub: int):
+    """(4*Np, 10) sub-block-major rows -> the Hopper walks' (Np, 20) table,
+    in triangle order (so a sub-treelet or a chunk stays one contiguous
+    block), the last column zero."""
+    n = cols_rows.shape[0] // 4
+    table = cols_rows.new_zeros((n, WALK_TABLE_FLOATS))
+    table[:, :len(WALK_TABLE)] = cols_rows.reshape(-1)[_walk_table_index(n, sub, cols_rows.device)]
+    return table
+
+
 def _launches_kernel(x) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
     (run the plain version); other devices raise."""
@@ -208,21 +249,31 @@ def _epilogue_r2(a, ua, va, ta):
     return torch.where(valid, t_raw, torch.full_like(a, float(INF))), ua * f, va * f
 
 
-def _walk_plain(phi_pad, rows, boxes, chunk: int, stream: bool, stats=None):
+def _walk_plain(phi_pad, rows, boxes, chunk: int, stream: bool, stats=None,
+                design: str = "r2_walk"):
     """The kernels' walk in torch ops, vectorised over tiles.  For chunk
     c = 0, 1, ...: every tile in which some lane enters box c before its
     current t evaluates the chunk and keeps its winner where strictly
     nearer.  `stats`, a zeroed (T, 2) int32 tensor, receives each tile's
-    walk counts: chunks evaluated, chunks copied into shared memory.  The
-    streamed kernel copies chunk c+1 while chunk c is evaluated, if some
-    lane enters box c+1 before its t as it stands before chunk c (t only
-    falls, so no chunk it skips could be evaluated); the other kernel
-    copies exactly the chunks it evaluates."""
+    walk counts: chunks evaluated, and chunks copied into shared memory by
+    the kernel of `design`:
+
+      * "r2_walk" (csrc/r2_walk.cu, both entries): an evaluated chunk is
+        copied unless it is the chunk prefetched after the tile's previous
+        one; after taking chunk c the walk prefetches the lowest chunk
+        after c in c's group of R2_GROUP that some lane enters before its t
+        as it stands before chunk c, if there is one;
+      * "v1", streamed: chunk c+1 is copied while chunk c is evaluated, if
+        some lane enters box c+1 before its t as it stands before chunk c
+        (t only falls, so no chunk it skips could be evaluated), and chunk
+        0 before the walk if some lane enters it;
+      * "v1", whole scene: exactly the chunks it evaluates."""
+    if design not in R2_DESIGNS:
+        raise ValueError(f"design must be one of {R2_DESIGNS}, not {design!r}")
     inf = float(INF)
     n_tiles = phi_pad.shape[1] // TILE_RAYS
     n_chunks = boxes.shape[0]
-    if stats is None:
-        stats = torch.zeros((n_tiles, 2), dtype=torch.int32, device=phi_pad.device)
+    counting = stats is not None
     coef = rows.reshape(n_chunks, 4, chunk, 10) if stream else rows.reshape(
         4, n_chunks, chunk, 10).permute(1, 0, 2, 3)
     phi = phi_pad.reshape(10, n_tiles, TILE_RAYS).permute(1, 0, 2)  # (T, 10, TR)
@@ -231,25 +282,46 @@ def _walk_plain(phi_pad, rows, boxes, chunk: int, stream: bool, stats=None):
     t = torch.full((n_tiles, TILE_RAYS), inf, device=phi.device)
     idx = torch.full_like(t, -1, dtype=torch.int32)
     u, v = torch.zeros_like(t), torch.zeros_like(t)
+    groups = {}  # (T, G, TR) entry distances of every lane into a group's boxes
 
-    def entries(c):  # (T, TR) entry distances of every lane into box c
-        return _slab_entries(boxes[c].expand(n_tiles, 1, 8), ro, rd, par, inv)[:, 0]
+    def group(g):
+        if g not in groups:
+            for old in [k for k in groups if k < g - 1]:
+                del groups[old]
+            gb = boxes[g * R2_GROUP:(g + 1) * R2_GROUP]
+            groups[g] = _slab_entries(gb.expand(n_tiles, *gb.shape), ro, rd, par, inv)
+        return groups[g]
 
-    def copied(entry):  # the streamed kernel's prefetch vote
-        if stream:
-            stats[:, 1] += (entry < t).any(dim=1).to(torch.int32)
+    def entries(c):  # (T, TR)
+        return group(c // R2_GROUP)[:, c % R2_GROUP]
 
-    e_next = entries(0)
-    copied(e_next)
+    v1_stream = counting and design == "v1" and stream
+
+    def copied(c):  # the first streamed design's prefetch vote on chunk c
+        stats[:, 1] += (entries(c) < t).any(dim=1).to(torch.int32)
+
+    prefetched = torch.full((n_tiles,), -1, dtype=torch.int64, device=phi.device)
+    if v1_stream:
+        copied(0)
     for c in range(n_chunks):
-        live = (e_next < t).any(dim=1)
-        if c + 1 < n_chunks:
-            e_next = entries(c + 1)
-            copied(e_next)
+        live = (entries(c) < t).any(dim=1)
+        if v1_stream and c + 1 < n_chunks:
+            copied(c + 1)
         tiles = live.nonzero().squeeze(1)
-        stats[tiles, 0] += 1
-        if not stream:
-            stats[tiles, 1] += 1
+        if counting:
+            stats[tiles, 0] += 1
+            if design == "v1" and not stream:
+                stats[tiles, 1] += 1
+            elif design == "r2_walk" and tiles.numel():
+                took = (prefetched[tiles] != c).to(torch.int32)
+                ahead = group(c // R2_GROUP)[tiles, c % R2_GROUP + 1:]  # (Tl, K, TR)
+                # a zero column first: argmax finds the lowest candidate, 0 none
+                cand = torch.cat([torch.zeros((tiles.numel(), 1), dtype=torch.bool,
+                                              device=t.device),
+                                  (ahead < t[tiles, None, :]).any(dim=2)], dim=1)
+                first = cand.to(torch.int32).argmax(dim=1)
+                prefetched[tiles] = torch.where(first > 0, first + c, -1)
+                stats[tiles, 1] += took + (first > 0).to(torch.int32)
         for g in range(0, tiles.numel(), _TILES_PER_FOLD):
             tg = tiles[g:g + _TILES_PER_FOLD]
             tt, uu, vv = _epilogue_r2(*determinants(phi[tg], coef[c]))  # (Tg, C, TR)
@@ -264,28 +336,76 @@ def _walk_plain(phi_pad, rows, boxes, chunk: int, stream: bool, stats=None):
     return tuple(x.reshape(-1) for x in (t, idx, u, v))
 
 
+def _r2_table(rows, chunk: int, stream: bool):
+    """The Hopper walk's table (`_pack_walk_table`, (Np, 20)) of `_prepare`'s
+    rows: the quantity-major rows of `mt_intersect_pallas` are one
+    sub-block of all Np triangles, the chunk-major rows of
+    `mt_intersect_stream` sub-blocks of `chunk`; both give the same table."""
+    flat = rows.reshape(-1, 10)
+    return _pack_walk_table(flat, chunk if stream else flat.shape[0] // 4)
+
+
+def _check_stats(what, stats, n_tiles: int, device) -> None:
+    if stats is not None:
+        _check_inputs(what, (stats, torch.int32), device=device)
+        if stats.shape != (n_tiles, 2):
+            raise ValueError(f"{what} kernel: walk stats must be a (T, 2) int32 tensor")
+
+
 def _walk_cuda(phi_pad, rows, boxes, chunk: int, stream: bool, stats=None):
-    """Launch csrc/mt_intersect.cu on the current stream; outputs (R_pad,)
-    x4.  `stats`, if given, a (T, 2) int32 tensor, receives the walk
-    counts."""
+    """Launch the Hopper walk (csrc/r2_walk.cu) on the table `_r2_table`
+    packs from `rows`, on the current stream; outputs (R_pad,) x4.
+    `stats`, if given, a (T, 2) int32 tensor, receives the walk counts."""
+    return _walk_table_cuda(phi_pad, _r2_table(rows, chunk, stream), boxes, chunk, stream, stats)
+
+
+def _walk_table_cuda(phi_pad, table, boxes, chunk: int, stream: bool, stats=None):
+    """Launch csrc/r2_walk.cu on its (Np, 20) table.  Raises before the
+    launch on inputs that do not match."""
     from ... import _build
 
     lib = _build.load()
     dev = phi_pad.device
     what = "mt_stream_r2" if stream else "mt_pallas_r2"
+    _check_inputs(what, (phi_pad, torch.float32), (table, torch.float32),
+                  (boxes, torch.float32), device=dev)
+    n_tiles, n_chunks = phi_pad.shape[1] // TILE_RAYS, boxes.shape[0]
+    if table.shape != (n_chunks * chunk, WALK_TABLE_FLOATS) or table.data_ptr() % 16 \
+            or boxes.shape != (n_chunks, 8) or boxes.data_ptr() % 16 \
+            or chunk % 8 or not 0 < chunk <= CHUNK_TRIS or n_tiles == 0 \
+            or phi_pad.shape != (10, n_tiles * TILE_RAYS):
+        raise ValueError(f"{what} kernel: the table must be `_pack_walk_table`'s (Np, 20) rows "
+                         f"of chunks of 8-{CHUNK_TRIS} (16-byte aligned, as the boxes), the rays "
+                         f"whole {TILE_RAYS}-ray tiles")
+    _check_stats(what, stats, n_tiles, dev)
+    out = _outputs(phi_pad.shape[1], dev)
+    err = lib.tpt_mt_r2_walk(*map(_ptr, (phi_pad, table, boxes, *out, stats)), phi_pad.shape[1],
+                             n_chunks, chunk, _stream(dev))
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: {_build.error_string(err)}")
+    return out
+
+
+def _walk_cuda_v1(phi_pad, rows, boxes, chunk: int, stream: bool, stats=None):
+    """Launch the first design (csrc/mt_intersect.cu `tpt_mt_r2_v1`) on
+    `_prepare`'s rows, kept only to compare the Hopper walk with; outputs
+    (R_pad,) x4.  `stats`, if given, a (T, 2) int32 tensor, receives the
+    walk counts."""
+    from ... import _build
+
+    lib = _build.load()
+    dev = phi_pad.device
+    what = "mt_stream_r2_v1" if stream else "mt_pallas_r2_v1"
     _check_inputs(what, (phi_pad, torch.float32), (rows, torch.float32),
                   (boxes, torch.float32), device=dev)
     n_tiles, n_chunks = phi_pad.shape[1] // TILE_RAYS, boxes.shape[0]
     if rows.numel() != 40 * n_chunks * chunk or rows.data_ptr() % 16 or chunk % 8 \
             or chunk > CHUNK_TRIS or phi_pad.shape != (10, n_tiles * TILE_RAYS):
         raise ValueError(f"{what} kernel: coefficient table, boxes or rays do not match")
-    if stats is not None:
-        _check_inputs(what, (stats, torch.int32), device=dev)
-        if stats.shape != (n_tiles, 2):
-            raise ValueError(f"{what} kernel: walk stats must be a (T, 2) int32 tensor")
+    _check_stats(what, stats, n_tiles, dev)
     out = _outputs(phi_pad.shape[1], dev)
-    err = lib.tpt_mt_r2(*map(_ptr, (phi_pad, rows, boxes, *out, stats)),
-                        phi_pad.shape[1], n_chunks, chunk, int(stream), _stream(dev))
+    err = lib.tpt_mt_r2_v1(*map(_ptr, (phi_pad, rows, boxes, *out, stats)),
+                           phi_pad.shape[1], n_chunks, chunk, int(stream), _stream(dev))
     if err:
         raise RuntimeError(f"{what} kernel launch failed: {_build.error_string(err)}")
     return out
@@ -338,16 +458,25 @@ def mt_intersect_stream(tri_pos, ro, rd) -> Hit:
 mt_intersect_stream.launches = 0
 
 
-def walk_stats(tri_pos, ro, rd, *, stream: bool, plain: bool = False):
-    """Per-tile walk counts of the round-2 kernel (`stream` picks which; with
-    `plain=True` or a CPU tensor, of its plain version) on these inputs:
-    (T, 2) int32, [chunks evaluated, chunks copied].  Kernel and plain
-    version must agree on them exactly.  Tiles are independent, so the rays
-    of whole tiles (a multiple of TILE_RAYS from a tile boundary) give those
-    tiles' counts.  Launches made here are not counted."""
+def walk_stats(tri_pos, ro, rd, *, stream: bool, plain: bool = False,
+               design: str = "r2_walk"):
+    """Per-tile walk counts of a round-2 kernel on these inputs: (T, 2)
+    int32, [chunks evaluated, chunks copied].  `design` picks the kernel
+    (R2_DESIGNS: the Hopper walk both entries launch, or the first design),
+    `stream` the entry (the first design copies by its own rule for each);
+    with `plain=True` or a CPU tensor, the plain walk under that kernel's
+    copy rule.  Kernel and plain walk must agree on them exactly; chunks
+    evaluated are the same under every design.  Tiles are independent, so
+    the rays of whole tiles (a multiple of TILE_RAYS from a tile boundary)
+    give those tiles' counts.  Launches made here are not counted."""
+    if design not in R2_DESIGNS:
+        raise ValueError(f"design must be one of {R2_DESIGNS}, not {design!r}")
     phi_pad, rows, boxes, chunk = _prepare(tri_pos, ro, rd, stream)
     stats = torch.zeros((phi_pad.shape[1] // TILE_RAYS, 2), dtype=torch.int32,
                         device=ro.device)
-    walk = _walk_plain if plain or not _launches_kernel(ro) else _walk_cuda
-    walk(phi_pad, rows, boxes, chunk, stream, stats=stats)
+    if plain or not _launches_kernel(ro):
+        _walk_plain(phi_pad, rows, boxes, chunk, stream, stats=stats, design=design)
+    else:
+        walk = _walk_cuda if design == "r2_walk" else _walk_cuda_v1
+        walk(phi_pad, rows, boxes, chunk, stream, stats=stats)
     return stats

@@ -70,19 +70,23 @@ import os
 
 import torch
 
-from ..mt_matmul import (FEATS, Hit, determinants, epilogue, miss_hit, nearest, ray_features,
+from ..mt_matmul import (Hit, determinants, epilogue, miss_hit, nearest, ray_features,
                          triangle_columns)
 from ..vecmath import EPSILON, INF
 from .mt_intersect import (
+    WALK_TABLE,
+    WALK_TABLE_FLOATS,
     _check_inputs,
     _counted,
     _launches_kernel,
     _outputs,
+    _pack_walk_table,
     _pad_to,
     _ptr,
     _slab_entries,
     _slab_setup,
     _stream,
+    _walk_table_index,
     treelet_boxes,
 )
 
@@ -217,32 +221,6 @@ def _pack_mma(cols_rows, sub: int):
 
 
 # The Hopper walks' coefficient table (csrc/walk.cuh): per triangle, the
-# (quantity, feature) coefficients a pair uses, in FEATS order (a: 4-6;
-# ua, va: 4-9; ta: 0-3), then one zero: 20 floats, five float4 loads.
-WALK_TABLE = tuple((q, k) for q, ks in enumerate(FEATS) for k in ks)
-WALK_TABLE_FLOATS = 20
-
-@functools.lru_cache(maxsize=16)
-def _walk_table_index(n: int, sub: int, device: torch.device):
-    """Flat indices into the (4*Np, 10) sub-block-major rows at `sub` of
-    the walk table's first 19 columns for Np = n triangles: (n, 19), built
-    once per shape and device."""
-    tri = torch.arange(n)[:, None]
-    q = torch.tensor([q for q, _ in WALK_TABLE])
-    k = torch.tensor([k for _, k in WALK_TABLE])
-    return ((tri // sub * 4 * sub + q * sub + tri % sub) * 10 + k).to(device)
-
-
-def _pack_walk_table(cols_rows, sub: int):
-    """(4*Np, 10) sub-block-major rows -> the Hopper walks' (Np, 20) table,
-    in triangle order (so a sub-treelet or a chunk stays one contiguous
-    block), the last column zero."""
-    n = cols_rows.shape[0] // 4
-    table = cols_rows.new_zeros((n, WALK_TABLE_FLOATS))
-    table[:, :len(WALK_TABLE)] = cols_rows.reshape(-1)[_walk_table_index(n, sub, cols_rows.device)]
-    return table
-
-
 def _tf32(x):
     """x rounded to TF32 as `cvt.rna.tf32.f32` rounds it: to nearest, ties
     away from zero, keeping 10 mantissa bits; the low 13 bits zero.  The
