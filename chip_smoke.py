@@ -53,7 +53,20 @@ public entry points:
     launches;
   * CLI: `tpu_pathtracer_torch.cli` in this process: `benchmark` at the
     headline shape, `render` with --timing, --checkpoint and --resume
-    (equal to a fresh render bit for bit), and `render --env sky:...`.
+    (equal to a fresh render bit for bit), and `render --env sky:...`;
+  * render options, at the headline shape: one `Renderer` frame with
+    `env_importance=True` on the default scene under the sun-sky
+    environment (elevation 30, azimuth 90, turbidity 3) and one with
+    `RenderConfig(blue_noise=True)` on the headline scene, each with
+    `display()`, through the nf and denoise kernels, held to the same
+    frame through the plain versions (bit-equal, else the outlier rule)
+    and timed in turns with the option off (off, on, on, off); the
+    headline frame with sort windows 0 and 32,768 (bit-equal images, frame
+    times in turns, the sort alone by CUDA events and the profiler's sort
+    kernels of one frame); the native BVH builder against numpy's on the
+    stress scene's triangles (byte-equal, both host times) and the large
+    scene's compile with it; `cli render --env sky --env-importance
+    --blue-noise`.
 
 The near-to-far, list, cond, streamed and MXU walks are Hopper redesigns
 (csrc/nf_walk.cu, csrc/cond_walk.cu, csrc/stream_walk.cu,
@@ -212,6 +225,22 @@ def _time_ms(fn, warmup: int, reps: int) -> float:
     return statistics.median(times)
 
 
+def _device_time(fn, match: str = "", tries: int = 3) -> dict:
+    """`utils.devtime.device_time` of one call of `fn`, profiled again (up
+    to `tries` calls in all) while the profiler records no device activity
+    at all: now and then it returns an empty trace.  A trace that holds any
+    activity is returned as it is, so the checks on its kernels still
+    apply."""
+    from tpu_pathtracer_torch.utils.devtime import device_time
+
+    for _ in range(tries):
+        got = device_time(fn, match=match)
+        if got["programs"]:
+            break
+        print(f"the profiler recorded no device activity (match {match!r}); profiling again")
+    return got
+
+
 def _kernel_ms(fn, match: str, n: int = 50, rounds: int = 3) -> float:
     """Milliseconds a call of `fn()`, which launches one kernel whose name
     contains `match` and no other work, by CUDA events.  Each round queues
@@ -225,13 +254,11 @@ def _kernel_ms(fn, match: str, n: int = 50, rounds: int = 3) -> float:
     kernel durations do not sum to the events' interval (PERF.md)."""
     import torch
 
-    from tpu_pathtracer_torch.utils.devtime import device_time
-
     def batch():
         for _ in range(n):
             fn()
 
-    got = device_time(batch, match=match)
+    got = _device_time(batch, match=match)
     _check(0 < got["count"] <= n, f"the profiler recorded {got['count']} {match} kernels for "
            f"{n} launches: {got}")
     times = []
@@ -1527,7 +1554,6 @@ def _sweep_phase(pt, data, cam, counters, results, tag):
     import torch
 
     from tpu_pathtracer_torch.render.benchmark import make_budget
-    from tpu_pathtracer_torch.utils.devtime import device_time
 
     budget = make_budget(WIDTH, HEIGHT, 1, BOUNCES)
     params = pt.RenderParams.create(cam, frame=1)
@@ -1551,15 +1577,21 @@ def _sweep_phase(pt, data, cam, counters, results, tag):
             # the profiled call: its device time, and the walk kernel's records beside the
             # wrapper's launches in the same call
             wrapper, walk = walks[flag]
-            before = counters[wrapper].launches
-            dt = device_time(lambda: budget(data, params, SWEEP_FRAMES), match=walk)
+            called = []
+
+            def profiled():
+                before = counters[wrapper].launches
+                budget(data, params, SWEEP_FRAMES)
+                called.append(counters[wrapper].launches - before)
+
+            dt = _device_time(profiled, match=walk)
             total = sum(dt["programs"].values())
             _check(dt["ok"] and total > 0, f"no device time from the profiler: {dt}")
             _check(not any(old in name for name in dt["programs"]
                            for old in ("mt_list_kernel", "mt_cond_kernel")),
                    f"TPT_MXU_DETS={flag}: a first-design kernel ran: {list(dt['programs'])}")
             dev[flag].append(total * 1e3 / SWEEP_FRAMES)
-            records[flag].append((dt["count"], counters[wrapper].launches - before))
+            records[flag].append((dt["count"], called[-1]))
 
         _with_env({"TPT_MXU_DETS": flag}, timed)
     for flag, kernel in (("0", "mt_nf"), ("1", "mt_nf_mxu")):
@@ -1726,6 +1758,208 @@ def _cli_phase(results, tag):
     results.update(cli_render_timings_us=timings, cli_resume_equal=same)
 
 
+SKY_SPEC = "sky:elevation=30,azimuth=90,turbidity=3"  # the CLI's sun-sky example
+SORT_WINDOW = 32768  # the binning sort's default window, the JAX package's
+PRIOR_LARGE_COMPILE_S = "20.09-25.13"  # the large scene's compile with the numpy builder (PERF.md)
+
+
+def _in_turns(fns: dict, order, warmup: int = 2, reps: int = 10) -> dict:
+    """CUDA-event median ms of each fns[k]() (see `_time_ms`), in the turns
+    `order` (e.g. off, on, on, off); {k: [ms, ...]}."""
+    times = {k: [] for k in fns}
+    for k in order:
+        times[k].append(_time_ms(fns[k], warmup, reps))
+    return times
+
+
+def _device_ms_in_turns(fns: dict, order) -> dict:
+    """The profiler's device time (every kernel, copy and fill) of one call
+    of each fns[k](), after one unprofiled call, in the turns `order`;
+    {k: [ms, ...]}."""
+    times = {k: [] for k in fns}
+    for k in order:
+        fns[k]()
+        got = _device_time(fns[k])
+        _check(got["ok"], f"no device time for {k}: {got}")
+        times[k].append(got["total_s"] * 1e3)
+    return times
+
+
+def _turns(times: dict, a, b) -> str:
+    """Four readings in the turns (a, b, b, a), as ms."""
+    return _fmt_ms([times[a][0], *times[b], times[a][1]])
+
+
+def _equal_or_outliers(a, b) -> str:
+    """'bit-equal' if the two images are, else the outlier rule's verdict
+    (which must hold)."""
+    import torch
+
+    if torch.equal(a, b):
+        return "bit-equal"
+    frac, agree = _outlier_rule(a, b)
+    return f"outlier rule: outlier fraction {frac:.2e}, non-outlier mean diff {agree:.2e}"
+
+
+def _option_renderer(pt, scene, counters, what: str, env_importance=False, blue_noise=False):
+    """One frame of the headline shape through `Renderer(...).render_all()`
+    and `display()` with an option on, every launch count set to 0 just
+    before and read just after: the nf kernel on every bounce and the
+    denoise kernel, no other MT kernel.  Returns (the renderer, launches)."""
+    import torch
+
+    config = pt.RenderConfig(width=WIDTH, height=HEIGHT, frames=1, samples_per_frame=1,
+                             max_bounces=BOUNCES, blue_noise=blue_noise)
+    renderer = pt.Renderer(scene, pt.Camera.create(**CAMERA), config, pt.PostConfig(),
+                           device="cuda", env_importance=env_importance)
+    renderer.scene_data  # compiled before the counts are set to 0
+    for fn in counters.values():
+        fn.launches = 0
+    renderer.render_all()
+    image = renderer.display()
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    _check(1 <= launches["mt_nf"] <= BOUNCES and not _mt_launched(launches, ("mt_nf",))
+           and launches["denoise"] == 1, f"{what} Renderer frame: launches {launches}")
+    _check(bool(torch.isfinite(image).all()) and float(image.mean()) > 0.05,
+           f"{what} display image not finite or black")
+    print(f"{what}: Renderer frame + display(): launches {launches}, display mean "
+          f"{float(image.mean()):.4f}")
+    return renderer, launches
+
+
+def _render_options_phase(pt, trace, scene, data, cam, counters, results, tag):
+    """The render options: env importance sampling on the sun-sky scene,
+    the blue-noise AA jitter, the windowed binning sort and the native BVH
+    builder, each at the headline shape (512x512, 1 sample per pixel, 4
+    bounces).  Each option's frame
+    goes through the Renderer (nf and denoise kernels launched) and is held
+    to the same frame through the plain versions on the card (bit-equal
+    expected, else the outlier rule), then timed in turns against the
+    option off; windows 0 and 32,768 give bit-equal images; the native
+    builder's arrays are byte-equal to numpy's on the stress scene; and the
+    CLI renders --env sky --env-importance --blue-noise on the card."""
+    import os
+
+    import torch
+
+    from tpu_pathtracer_torch.accel import bvh, native
+    from tpu_pathtracer_torch.scene.sky import parse_sky_spec, sun_sky
+    from tpu_pathtracer_torch.utils.bluenoise import blue_noise_table
+
+    kw = dict(width=WIDTH, height=HEIGHT, aspect=WIDTH / HEIGHT, max_bounces=BOUNCES)
+    params = pt.RenderParams.create(cam, frame=1)
+    out = {}
+
+    # env importance on the sun-sky scene
+    sky_scene = pt.default_scene(sun_sky(512, 1024, **parse_sky_spec(SKY_SPEC)))
+    renderer, launches = _option_renderer(pt, sky_scene, counters, "env importance",
+                                          env_importance=True)
+    sky = renderer.scene_data
+    plain = trace.render_frame(sky, params, env_importance=True, plain=True, **kw)
+    verdict = _equal_or_outliers(renderer.accumulation, plain)
+    frames = {"off": lambda: trace.render_frame(sky, params, **kw),
+              "on": lambda: trace.render_frame(sky, params, env_importance=True, **kw)}
+    times = _in_turns(frames, ("off", "on", "on", "off"))
+    device = _device_ms_in_turns(frames, ("off", "on", "on", "off"))
+    print(f"env importance ({SKY_SPEC}): the Renderer's frame vs the same frame through the "
+          f"plain versions: {verdict}")
+    print(f"timing {tag}: sun-sky frame in turns (off, on, on, off): "
+          f"{_turns(times, 'off', 'on')} ms; device time {_turns(device, 'off', 'on')} ms")
+    out["env_importance"] = dict(launches=launches, check=verdict, frame_ms=times,
+                                 device_ms=device)
+    del renderer, plain
+
+    # blue-noise AA jitter on the headline scene
+    renderer, launches = _option_renderer(pt, scene, counters, "blue noise", blue_noise=True)
+    table = torch.from_numpy(blue_noise_table(64)).cuda()
+    plain = trace.render_frame(data, params, blue_noise=table, plain=True, **kw)
+    verdict = _equal_or_outliers(renderer.accumulation, plain)
+    _check(not torch.equal(plain, trace.render_frame(data, params, plain=True, **kw)),
+           "the blue-noise jitter changed nothing")
+    frames = {"off": lambda: trace.render_frame(data, params, **kw),
+              "on": lambda: trace.render_frame(data, params, blue_noise=table, **kw)}
+    times = _in_turns(frames, ("off", "on", "on", "off"))
+    device = _device_ms_in_turns(frames, ("off", "on", "on", "off"))
+    print(f"blue noise: the Renderer's frame vs the same frame through the plain versions: "
+          f"{verdict}")
+    print(f"timing {tag}: headline frame blue noise in turns (off, on, on, off): "
+          f"{_turns(times, 'off', 'on')} ms; device time {_turns(device, 'off', 'on')} ms")
+    out["blue_noise"] = dict(launches=launches, check=verdict, frame_ms=times, device_ms=device)
+    del renderer, plain
+
+    # the windowed binning sort: one global sort against 8 windows of 32,768
+    images = {w: trace.render_frame(data, params, sort_window=w, **kw) for w in (0, SORT_WINDOW)}
+    _check(torch.equal(images[0], images[SORT_WINDOW]), "sort windows 0 and 32768 differ")
+    frames = {w: (lambda w=w: trace.render_frame(data, params, sort_window=w, **kw))
+              for w in (0, SORT_WINDOW)}
+    times = _in_turns(frames, (0, SORT_WINDOW, SORT_WINDOW, 0))
+    device = _device_ms_in_turns(frames, (0, SORT_WINDOW, SORT_WINDOW, 0))
+    ro, rd, _ = _primary_rays(cam, data.packed.tri_pos.device)
+    key = trace._coherence_key(ro, rd, torch.ones_like(ro[0], dtype=torch.bool),
+                               trace._key_boxes(data.packed.tri_pos))
+    sort_ms = _in_turns({w: (lambda w=w: trace._windowed_sort(key, w)) for w in (0, SORT_WINDOW)},
+                        (0, SORT_WINDOW, SORT_WINDOW, 0), 3, 30)
+    profiled = {}
+    for w in (0, SORT_WINDOW):
+        got = _device_time(lambda w=w: trace.render_frame(data, params, sort_window=w, **kw))
+        profiled[w] = {name: sec * 1e3 for name, sec in got["programs"].items()
+                       if "sort" in name.lower()}
+    print(f"sort window: frames with windows 0 and {SORT_WINDOW} bit-equal")
+    print(f"timing {tag}: headline frame in turns (window 0, {SORT_WINDOW}, {SORT_WINDOW}, 0): "
+          f"{_turns(times, 0, SORT_WINDOW)} ms; device time {_turns(device, 0, SORT_WINDOW)} "
+          f"ms; the sort of the primary rays' 262,144 keys alone: "
+          f"{_turns(sort_ms, 0, SORT_WINDOW)} ms")
+    for w, got in profiled.items():
+        print(f"profiler {tag}: window {w}: sort kernels of one frame (device ms, "
+              f"{sum(got.values()):.4f} in all): "
+              + "; ".join(f"{name[:90]} {ms:.4f}" for name, ms in got.items()))
+    out["sort_window"] = dict(frame_ms=times, device_ms=device, sort_ms=sort_ms,
+                              profiled_sort_ms=profiled)
+    del images
+
+    # the native BVH builder on the stress scene, then the large scene's compile
+    _check(not os.environ.get("TPU_PT_NO_NATIVE") and native.get_lib() is not None,
+           "the native BVH builder did not load")
+    p0, p1, p2 = _mesh_scene(pt, STRESS_SEGMENTS).gather_triangles()[:3]
+    built, host_s = {}, {}
+    for label, use in (("native", True), ("numpy", False)):
+        t0 = time.perf_counter()
+        flat = bvh.build_bvh_flat(p0, p1, p2, native=use)
+        links = bvh.flat_to_links(flat, end=2 * flat["left"].shape[0], native=use)
+        host_s[label] = time.perf_counter() - t0
+        built[label] = {**flat, **{f"links_{k}": v for k, v in links.items()}}
+    same = all(built["native"][k].dtype == v.dtype and built["native"][k].tobytes() == v.tobytes()
+               for k, v in built["numpy"].items())
+    _check(same, "the native BVH differs from numpy's")
+    large = _mesh_scene(pt, LARGE_SEGMENTS)
+    t0 = time.perf_counter()
+    large = large.compile(device="cuda")
+    torch.cuda.synchronize()
+    large_s = time.perf_counter() - t0
+    print(f"native BVH ({native.library_path().name}): stress scene {p0.shape[0]} triangles, "
+          f"build_bvh_flat + flat_to_links byte-equal to numpy's; host {host_s['native']:.3f} s "
+          f"native, {host_s['numpy']:.3f} s numpy")
+    print(f"timing {tag}: large scene ({large.packed.tri_pos.shape[0]} padded triangles) "
+          f"compile with the native builder {large_s:.2f} s (numpy builder, earlier runs: "
+          f"{PRIOR_LARGE_COMPILE_S} s)")
+    out["native_bvh"] = dict(host_s=host_s, byte_equal=same, large_compile_s=large_s)
+    del large, built
+
+    # the CLI with both options on the card
+    from tpu_pathtracer_torch.cli import main as cli
+
+    png = ROOT / "build" / "chip_smoke_cli_options.png"
+    t0 = time.perf_counter()
+    rc = cli(["render", "--env", "sky", "--env-importance", "--blue-noise", "--frames", "16",
+              "-o", str(png)])
+    _check(rc == 0 and png.exists() and png.stat().st_size > 1000,
+           f"cli render --env sky --env-importance --blue-noise: exit {rc}")
+    print(f"cli render --env sky --env-importance --blue-noise ({time.perf_counter() - t0:.1f} s)"
+          f" -> {png.relative_to(ROOT)}")
+    results["render_options"] = out
+
+
 def main(argv=None) -> int:
     args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     args.add_argument("--profile", action="store_true")
@@ -1876,6 +2110,10 @@ def main(argv=None) -> int:
     # --- CLI phase: benchmark, render with checkpoint/resume and timing, sky --
     phase("cli")
     _cli_phase(results, tag)
+
+    # --- render options: env importance, blue noise, sort window, native BVH -
+    phase("render options")
+    _render_options_phase(pt, trace, scene, data, cam, counters, results, tag)
 
     # --- stress: streamed MT kernel vs plain on the stress scene's rays ------
     phase("stress")

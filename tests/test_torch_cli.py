@@ -93,7 +93,17 @@ def test_cli_invert(capsys):
     ["render", "--blue-noise"],
     ["render", "--shard-tiles", "2"],
 ], ids=["view", "export", "gltf", "env_importance", "blue_noise", "shard"])
-def test_cli_unported_options_raise(argv):
+def test_cli_unported_options_raise(argv, tmp_path):
+    """`view`, `export`, glTF and sharding are not ported and raise; the
+    env-importance and blue-noise options (which raised until they were
+    ported) render a 16x16 image."""
+    if argv[1:] in (["--env-importance"], ["--blue-noise"]):
+        png = tmp_path / "r.png"
+        assert main(argv + ["--width", "16", "--height", "16", "--frames", "2", "--bounces", "2",
+                            "--env", "sky", "-o", str(png), *CPU]) == 0
+        img = read_png(str(png))
+        assert img.shape[:2] == (16, 16) and img.max() > 0
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(argv + CPU if argv[0] == "render" else argv)
 

@@ -149,7 +149,7 @@ RESOLUTION_CASES = [
     ("mxu_dets", False, None, False),
     ("mxu_dets", None, "0", False),
     ("mxu_dets", None, "false", False),
-    # the port's default is 0 (no windowed sort yet), JAX's 32768: not compared
+    ("sort_window", None, None, 32768),
     ("sort_window", None, "4096", 4096),
     ("sort_window", 256, "4096", 256),
     ("sort_window", 0, "4096", 0),

@@ -140,10 +140,19 @@ def test_set_option_and_env_importance():
     with pytest.raises(AttributeError):
         r.set_option(nonsense=1)
     r.set_env_importance(False)
-    with pytest.raises(NotImplementedError, match="importance"):
-        r.set_env_importance(True)
-    with pytest.raises(NotImplementedError, match="importance"):
-        tpt.Renderer(tpt.default_scene(), tpt.Camera.create(), device="cpu", env_importance=True)
+    assert not r.env_importance
+    # env importance sampling (which raised until it was ported): the
+    # setter rebuilds the passes and clears the accumulation, and renders
+    # what a Renderer built with it renders
+    r.set_option(frames=1, env_intensity=1.0)
+    r.set_env_importance(True)
+    assert r.env_importance and float(r.accumulation.abs().sum()) == 0.0
+    r.render_all()
+    fresh = _renderer(frames=1)
+    fresh = tpt.Renderer(fresh.scene, fresh.camera, fresh.config, fresh.post, device="cpu",
+                         env_importance=True)
+    assert torch.equal(r.accumulation, fresh.render_all())
+    assert not torch.equal(r.accumulation, _renderer(frames=1).render_all())
 
 
 def test_checkpoint_from_jax_loads_in_the_port(tmp_path):

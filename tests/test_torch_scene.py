@@ -121,7 +121,7 @@ def test_traversal_tables_keep_their_int_columns(scenes):
 
 def test_scene_from_numpy_roundtrip(scenes):
     jsd, tsd = scenes
-    carried = scene_from_numpy(jax_leaves(jsd))
+    carried = scene_from_numpy(jax_leaves(jsd), device="cpu")
     for group, fields in GROUPS.items():
         for field in fields:
             _assert_same_bytes(getattr(getattr(carried, group), field).numpy(),
@@ -135,7 +135,7 @@ def test_scene_from_numpy_carries_a_large_scene():
     js.add(jpt.Mesh(*jprim.sphere(1.0, 80, 60), jpt.Material(color=(0.8, 0.7, 0.6))))
     ts = tpt.Scene()
     ts.add(tpt.Mesh(*tprim.sphere(1.0, 80, 60), tpt.Material(color=(0.8, 0.7, 0.6))))
-    carried = scene_from_numpy(jax_leaves(js.compile()))
+    carried = scene_from_numpy(jax_leaves(js.compile()), device="cpu")
     tsd = ts.compile(device="cpu")
     assert carried.packed.tri_pos.shape == (16384, 9)
     for group, fields in GROUPS.items():
@@ -151,7 +151,7 @@ def test_params_from_numpy_roundtrip():
               for f in dataclasses.fields(cam)}
     arrays.update(frame=np.asarray(jp.frame), env_intensity=np.asarray(jp.env_intensity),
                   env_rotation=np.asarray(jp.env_rotation))
-    tp = params_from_numpy(arrays)
+    tp = params_from_numpy(arrays, device="cpu")
     native = tpt.RenderParams.create(
         tpt.Camera.create(position=(0, 1, 4), look_at=(0, 0.5, 0), fov=45, aperture=0.05),
         frame=7, env_intensity=1.5, env_rotation=0.25)

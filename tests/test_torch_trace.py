@@ -157,56 +157,182 @@ def test_blocked_grid_direction_bin_and_key_match_jax():
                                          jnp.asarray(boxes))))
 
 
+# Options that raised NotImplementedError until they were ported; each now
+# renders, and matches the JAX package's frame with the same option (the
+# test keeps its name and case ids).
 UNPORTED = [
     ("env_importance", dict(env_importance=True)),
-    ("blue_noise", dict(blue_noise=np.zeros((4, 4, 2), np.float32))),
-    ("sort_window", dict(sort_window=256)),
+    ("blue_noise", dict(blue_noise=np.random.default_rng(2).random((4, 4, 2)).astype(np.float32))),
+    ("sort_window", dict(sort_window=32)),
 ]
 
 
 @pytest.mark.parametrize("name,kw", UNPORTED, ids=[u[0] for u in UNPORTED])
 def test_unported_render_options_raise(scenes, name, kw):
-    _, tsd = scenes
-    params = tpt.RenderParams.create(tpt.Camera.create(), frame=1)
-    with pytest.raises(NotImplementedError):
-        ttrace.render_frame(tsd, params, width=8, height=8, aspect=1.0, **kw)
+    """Each option renders on the fused path at 16x16, 2 bounces, and
+    matches JAX's frame by the outlier rule; the 8 windows of 32 rays give
+    the image of one global sort bit for bit."""
+    jsd, tsd = scenes
+    kw = dict(width=16, height=16, aspect=1.0, max_bounces=2, **kw)
+    a = jtrace.render_frame(jsd, jpt.RenderParams.create(jpt.Camera.create(**CAM), frame=2),
+                            intersector="mt_pallas", **kw)
+    params = tpt.RenderParams.create(tpt.Camera.create(**CAM), frame=2)
+    b = ttrace.render_frame(tsd, params, **kw)
+    assert b.shape == (16, 16, 3) and torch.isfinite(b).all() and float(b.max()) > 0
+    assert_images_close(np.asarray(a), b.numpy())
+    if name == "sort_window":
+        assert torch.equal(b, ttrace.render_frame(tsd, params, **{**kw, "sort_window": 0}))
 
 
-@pytest.mark.parametrize("env", [None, "0", "4096"], ids=["unset", "zero", "nonzero"])
+@pytest.mark.parametrize("env", [None, "0", "32"], ids=["unset", "zero", "nonzero"])
 @pytest.mark.parametrize("entry", ["render_frame", "Renderer"])
 def test_sort_window_variable_raises_when_nonzero(scenes, entry, env, monkeypatch):
     """TPT_SORT_WINDOW is read as JAX reads it (the override first, then the
-    variable): a nonzero window raises as `sort_window=W` does, since the
-    windowed sort is not ported; unset or 0 renders the global sort, and an
-    explicit 0 overrides the variable."""
+    variable, then 32768), and the image does not depend on it: each
+    resolution renders the image of one global sort (`sort_window=0`) bit
+    for bit, at 16x16 (8 windows of 32)."""
     if env is None:
         monkeypatch.delenv("TPT_SORT_WINDOW", raising=False)
     else:
         monkeypatch.setenv("TPT_SORT_WINDOW", env)
-    cfg = dict(width=8, height=8, max_bounces=1)
+    assert ttrace._sort_window() == jtrace._sort_window() == (32768 if env is None else int(env))
+    assert ttrace._sort_window(0) == jtrace._sort_window(0) == 0
+    cfg = dict(width=16, height=16, max_bounces=2)
 
     def run(window=None):
         if entry == "render_frame":
-            params = tpt.RenderParams.create(tpt.Camera.create(), frame=1)
+            params = tpt.RenderParams.create(tpt.Camera.create(**CAM), frame=1)
             return ttrace.render_frame(scenes[1], params, aspect=1.0, sort_window=window, **cfg)
-        r = tpt.Renderer(tpt.default_scene(gradient_sky(8, 16)), tpt.Camera.create(),
+        r = tpt.Renderer(tpt.default_scene(gradient_sky(8, 16)), tpt.Camera.create(**CAM),
                          tpt.RenderConfig(frames=1, sort_window=window, **cfg), device="cpu")
         return r.render_all()
 
-    if env == "4096":
-        with pytest.raises(NotImplementedError, match="windowed"):
-            run()
-    else:
-        img = run()
-        assert img.shape == (8, 8, 3) and torch.isfinite(img).all()
-    assert run(window=0).shape == (8, 8, 3)
+    img = run()
+    assert img.shape == (16, 16, 3) and torch.isfinite(img).all()
+    assert torch.equal(img, run(window=0))
 
 
 @pytest.mark.parametrize("kw", [dict(shard=object()), dict(env_importance=True)],
                          ids=["shard", "env_importance"])
 def test_unported_renderer_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        tpt.Renderer(tpt.default_scene(), tpt.Camera.create(), device="cpu", **kw)
+    """Sharding is not ported and raises; env importance (ported) renders
+    what `render_frame(env_importance=True)` renders."""
+    if "shard" in kw:
+        with pytest.raises(NotImplementedError):
+            tpt.Renderer(tpt.default_scene(), tpt.Camera.create(), device="cpu", **kw)
+        return
+    r = tpt.Renderer(tpt.default_scene(gradient_sky(8, 16)), tpt.Camera.create(**CAM),
+                     tpt.RenderConfig(width=8, height=8, frames=1, max_bounces=2),
+                     device="cpu", **kw)
+    acc = r.render_all()
+    want = ttrace.render_frame(r.scene_data, tpt.RenderParams.create(r.camera, frame=1),
+                               width=8, height=8, aspect=1.0, max_bounces=2, env_importance=True)
+    assert r.env_importance and torch.equal(acc, want)
+
+
+# --- env importance sampling in the loops -----------------------------------
+
+
+def _random_rays(n=512, seed=3):
+    rs = np.random.default_rng(seed)
+    ro = rs.uniform(-2, 2, (n, 3)).astype(np.float32)
+    rd = rs.normal(size=(n, 3))
+    rd = (rd / np.linalg.norm(rd, axis=1, keepdims=True)).astype(np.float32)
+    return ro, rd, rs.integers(0, 2**31, n).astype(np.uint32)
+
+
+def test_env_importance_fused_matches_plain(scenes):
+    """The deferred env term of the fused loop draws what the plain loop
+    draws in the bounce where a ray missed: seeds bit-equal, radiance to
+    rtol 1e-5 / atol 1e-6 (the reference's fused-vs-plain bound), under a
+    windowed sort too (8 windows of 64 rays)."""
+    _, tsd = scenes
+    ro, rd, seed = (torch.from_numpy(x) for x in _random_rays())
+    seed = seed.to(torch.int64)
+    params = tpt.RenderParams.create(tpt.Camera.create(**CAM), frame=2)
+    inc_p, seed_p = ttrace.trace_rays(tsd, params, ro, rd, seed, max_bounces=3,
+                                      env_importance=True)
+    for window in (0, 64):
+        inc_f, seed_f = ttrace.trace_rays_fused(
+            tsd, params, ro, rd, seed, max_bounces=3, env_importance=True, sort_window=window,
+            intersector_phi_fn=lambda phi: mt_shade.mt_intersect_nf_phi(tsd.packed.tri_pos, phi))
+        assert torch.equal(seed_f, seed_p)
+        np.testing.assert_allclose(inc_f.numpy(), inc_p.numpy(), rtol=1e-5, atol=1e-6)
+    assert not torch.equal(seed_p, ttrace.trace_rays(tsd, params, ro, rd, seed,
+                                                     max_bounces=3)[1])  # 2 more draws a miss
+
+
+@pytest.mark.parametrize("differentiable", [False, True], ids=["fused", "plain"])
+def test_env_importance_frame_matches_jax(scenes, differentiable):
+    """8x8, 2 bounces: the port's frame against JAX's (its fused path
+    through the Pallas kernel in interpret mode), rtol 1e-5 / atol 1e-6."""
+    jsd, tsd = scenes
+    kw = dict(width=8, height=8, aspect=1.0, max_bounces=2, env_importance=True,
+              differentiable=differentiable)
+    a = jtrace.render_frame(jsd, jpt.RenderParams.create(jpt.Camera.create(**CAM), frame=2),
+                            intersector="mt_pallas", **kw)
+    b = ttrace.render_frame(tsd, tpt.RenderParams.create(tpt.Camera.create(**CAM), frame=2), **kw)
+    np.testing.assert_allclose(b.detach().numpy(), np.asarray(a), rtol=1e-5, atol=1e-6)
+
+
+def test_env_importance_on_a_black_env_is_finite():
+    """No light: the tables are uniform, the pdf floored; the frame is the
+    emitters' alone, finite, on both loops."""
+    data = tpt.default_scene(np.zeros((8, 16, 3), np.float32)).compile(device="cpu")
+    params = tpt.RenderParams.create(tpt.Camera.create(**CAM), frame=1)
+    kw = dict(width=8, height=8, aspect=1.0, max_bounces=2, env_importance=True)
+    for differentiable in (False, True):
+        img = ttrace.render_frame(data, params, differentiable=differentiable, **kw)
+        assert torch.isfinite(img).all()
+
+
+# --- the windowed binning sort ----------------------------------------------
+
+
+WINDOW_KW = dict(width=256, height=128, aspect=2.0, max_bounces=2)
+
+
+@pytest.fixture(scope="module")
+def window_base():
+    """A red box on a white plane (14 triangles, so that 32,768 rays stay
+    cheap on the CPU) and its 256x128 frame of one global sort."""
+    scene = tpt.Scene()
+    scene.add(tpt.Mesh(*tpt.scene.primitives.plane(4, 4), tpt.Material(),
+                       transform=tpt.scene.host.rotation_x(-np.pi / 2)))
+    scene.add(tpt.Mesh(*tpt.scene.primitives.box(0.8, 0.8, 0.8),
+                       tpt.Material(color=(0.8, 0.2, 0.2), metalness=0.5, roughness=0.3),
+                       transform=tpt.scene.host.translation(0, 0.4, 0)))
+    scene.set_environment(gradient_sky(8, 16))
+    data = scene.compile(device="cpu")
+    params = tpt.RenderParams.create(tpt.Camera.create(**CAM), frame=1)
+    return data, params, ttrace.render_frame(data, params, sort_window=0, **WINDOW_KW)
+
+
+@pytest.mark.parametrize("window", [0, 256, 4096, None])
+def test_sort_window_images_are_bit_identical(window_base, window):
+    """256x128 (32,768 rays): 128 windows of 256, 8 of 4,096 (the windowed
+    branch), and the default 32,768 (one window: the global sort) render the
+    image of window 0 bit for bit (tests/test_mt_shade.py:316-340)."""
+    data, params, base = window_base
+    img = ttrace.render_frame(data, params, sort_window=window, **WINDOW_KW)
+    assert torch.equal(img, base) and float(img.max()) > 0 and float(img.std()) > 0
+
+
+@pytest.mark.parametrize("r,window", [(4096, 256), (4096, 512), (4096, 1024), (4096, 0),
+                                      (1000, 100), (4096, 3000)])
+def test_windowed_sort_matches_jax(r, window):
+    """Each window sorted on its own (no key leaves its window), and the
+    global fallback exactly where JAX falls back (fewer than 8 windows, a
+    window that does not divide R, W <= 0): the sorted keys equal JAX's."""
+    key = np.random.default_rng(r + window).integers(0, 50, r).astype(np.int64)
+    order = ttrace._windowed_sort(torch.from_numpy(key), window)
+    (want,) = jtrace._windowed_sort((jnp.asarray(key.astype(np.int32)),), window)
+    np.testing.assert_array_equal(key[order.numpy()], np.asarray(want))
+    assert sorted(order.tolist()) == list(range(r))
+    windowed = window > 0 and r % window == 0 and r // window >= 8
+    if windowed:
+        w = np.arange(r) // window
+        np.testing.assert_array_equal(w[order.numpy()], w)
 
 
 @pytest.fixture(scope="module")

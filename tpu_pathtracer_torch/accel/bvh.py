@@ -1,14 +1,17 @@
-"""Top-down sweep-SAH BVH builder with breadth-first flattening (numpy).
+"""Top-down sweep-SAH BVH builder with breadth-first flattening.
 
-The numpy path of `tpu_pathtracer.accel.bvh` (`build_bvh_flat`,
-`flat_to_links`, `links_to_fat`), which produces exactly the tree the
-reference builder produces (reference: src/passes/raytrace.ts:540-694):
-one leaf per triangle, longest-axis split with the reference's tie-breaking, stable centroid sort,
-full-sweep SAH with the first minimum, BFS flattening.  The JAX package's
-native C++ builder gives bit-identical output (tests/test_native_bvh.py), so
-the packed layout the port derives from this tree matches the reference's.
-The scene compile derives from it the DFS leaf order of the triangle rows
-and the skip-link (`nodes`) and fat-leaf (`fat_nodes`) traversal layouts.
+The port of `tpu_pathtracer.accel.bvh` (`build_bvh_flat`, `flat_to_links`,
+`links_to_fat`), which produces exactly the tree the reference builder
+produces (reference: src/passes/raytrace.ts:540-694): one leaf per
+triangle, longest-axis split with the reference's tie-breaking, stable
+centroid sort, full-sweep SAH with the first minimum, BFS flattening.
+`build_bvh_flat` and `flat_to_links` run the native C++ builder
+(`accel.native`, csrc/bvh_builder.cpp) by default, whose arrays are
+byte-equal to this numpy version's (tests/test_torch_native_bvh.py);
+`native=False`, or TPU_PT_NO_NATIVE, runs the numpy version, the oracle.
+The scene compile derives from the tree the DFS leaf order of the triangle
+rows and the skip-link (`nodes`) and fat-leaf (`fat_nodes`) traversal
+layouts.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from typing import Dict
 
 import numpy as np
 
+from . import native as _native
+
 
 def _surface_area(size: np.ndarray) -> np.ndarray:
     """2*(xy+xz+yz); `size` is (..., 3)."""
@@ -25,14 +30,18 @@ def _surface_area(size: np.ndarray) -> np.ndarray:
     return 2.0 * (x * y + x * z + y * z)
 
 
-def build_bvh_flat(p0: np.ndarray, p1: np.ndarray,
-                   p2: np.ndarray) -> Dict[str, np.ndarray]:
+def build_bvh_flat(p0: np.ndarray, p1: np.ndarray, p2: np.ndarray,
+                   native: bool = True) -> Dict[str, np.ndarray]:
     """Build and flatten the BVH for a triangle soup.
 
     Returns dict of arrays: min/max (K,3) f32, left/right/tri/is_leaf (K,) i32.
     K = 2*N-1 for N triangles (K=0 for an empty scene, matching the
-    empty-buffer early-out in raytrace.wgsl:205-211).
+    empty-buffer early-out in raytrace.wgsl:205-211).  `native=False`
+    forces the numpy builder.
     """
+    lib = _native.get_lib() if native else None
+    if lib is not None:
+        return _native.build_bvh_flat_native(lib, p0, p1, p2)
     n = int(p0.shape[0])
     if n == 0:
         return {
@@ -154,8 +163,8 @@ def build_bvh_flat(p0: np.ndarray, p1: np.ndarray,
     }
 
 
-def flat_to_links(flat: Dict[str, np.ndarray],
-                  end: int | None = None) -> Dict[str, np.ndarray]:
+def flat_to_links(flat: Dict[str, np.ndarray], end: int | None = None,
+                  native: bool = True) -> Dict[str, np.ndarray]:
     """Re-lay the flat BFS BVH in DFS preorder with skip links.
 
     This is the skip-link traversal layout: a ray walks nodes with a single
@@ -168,7 +177,11 @@ def flat_to_links(flat: Dict[str, np.ndarray],
     and no 64-deep overflow failure mode.
 
     Returns {"min","max","tri","miss"} with tri = -1 for internal nodes.
+    `native=False` forces the numpy version.
     """
+    lib = _native.get_lib() if native else None
+    if lib is not None:
+        return _native.flat_to_links_native(lib, flat, end)
     k = flat["left"].shape[0]
     end = k if end is None else end
     if k == 0:

@@ -12,9 +12,11 @@ PyTorch version):
              rendered target.
   info       torch, CUDA and device diagnostic.
 
-Not ported yet (ROADMAP.md), and raising NotImplementedError: `view`,
-`export`, a glTF `--scene`, `--env-importance`, `--blue-noise` and
-`--shard-tiles` / `--shard-samples` above 1.
+`render` takes `--env-importance` (CDF importance sampling of the
+environment) and `--blue-noise` (blue-noise AA jitter), as the JAX CLI's
+does.  Not ported yet (ROADMAP.md), and raising NotImplementedError:
+`view`, `export`, a glTF `--scene` and `--shard-tiles` /
+`--shard-samples` above 1.
 """
 
 from __future__ import annotations
@@ -53,13 +55,13 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--focal-distance", type=float, default=1.0)
     p.add_argument("--aperture", type=float, default=0.0)
     p.add_argument("--env-importance", action="store_true",
-                   help="CDF importance sampling of the environment (not ported yet)")
+                   help="CDF importance sampling of the environment")
     p.add_argument("--intersector", choices=["auto", "mt", "mt_pallas", "mt_stream", "bvh", "bvh8"],
                    default="auto",
                    help="intersection backend: Möller–Trumbore (mt / the MT kernels mt_pallas "
                         "and mt_stream) or BVH traversal; auto picks by scene size")
     p.add_argument("--blue-noise", action="store_true",
-                   help="blue-noise AA jitter (not ported yet)")
+                   help="blue-noise low-discrepancy AA jitter")
     p.add_argument("--shard-tiles", type=int, default=1,
                    help="shard image rows over this many devices (not ported yet)")
     p.add_argument("--shard-samples", type=int, default=1,
@@ -97,10 +99,6 @@ def _build_renderer(args):
     from . import PostConfig, RenderConfig, Renderer, Tonemap
     from .scene.types import Camera
 
-    if args.env_importance:
-        raise _not_ported("env importance sampling (--env-importance)")
-    if args.blue_noise:
-        raise _not_ported("blue-noise AA jitter (--blue-noise)")
     if args.shard_tiles * args.shard_samples > 1:
         raise _not_ported("sharded rendering (--shard-tiles, --shard-samples)")
     scene = _build_scene(args)
@@ -114,10 +112,10 @@ def _build_renderer(args):
     cfg = RenderConfig(
         width=args.width, height=args.height, scaling_factor=args.scale,
         frames=args.frames, samples_per_frame=args.spp, max_bounces=args.bounces,
-        intersector=args.intersector,
+        intersector=args.intersector, blue_noise=args.blue_noise,
     )
     post = PostConfig(denoise=args.denoise, tonemap=Tonemap[args.tonemap.upper()])
-    r = Renderer(scene, cam, cfg, post, device=args.device,
+    r = Renderer(scene, cam, cfg, post, device=args.device, env_importance=args.env_importance,
                  enable_timing=getattr(args, "timing", False))
     r.env_intensity = args.env_intensity
     r.env_rotation = math.radians(args.env_rotation)

@@ -28,11 +28,13 @@ class RenderConfig:
     near-to-far MT kernel up to 8,192 padded triangles, the streamed one up
     to 262,144, the fat-leaf BVH walk above), 'mt_pallas', 'mt_stream',
     'mt' (the all-pairs MT oracle), 'bvh' and 'bvh8'
-    (`ops.trace.resolve_intersector`); `blue_noise` and a non-zero
-    `sort_window` are not ported yet and raise NotImplementedError.
-    `tile_rays` is the MT kernels' ray-tile width (positive multiple of
-    128, default 512); `sort_bounces` is how many leading bounces re-bin
-    the ray state (default 2).
+    (`ops.trace.resolve_intersector`).  `blue_noise` jitters AA by a
+    64x64 blue-noise table (`ops.trace.render_frame`); `sort_window` is
+    the binning sort's window (None: TPT_SORT_WINDOW, then 32768; 0: one
+    global sort; `ops.trace._sort_window`).  `tile_rays` is the MT
+    kernels' ray-tile width (positive multiple of 128, default 512);
+    `sort_bounces` is how many leading bounces re-bin the ray state
+    (default 2).
     """
 
     width: int = 256

@@ -42,13 +42,18 @@ def camera_rays(camera, uv, aspect: float):
     return origin, direction
 
 
-def apply_dof(seed, origin, direction, camera, resolution):
+def apply_dof(seed, origin, direction, camera, resolution, aa_uniforms=None):
     """Per-sample AA + thin-lens jitter (raytrace.wgsl:444-449).
 
     resolution: (2,) f32 (render resolution, like uniforms.resolution).
-    Returns (seed, new_origin, new_direction).  The blue-noise AA variant of
-    the JAX package is not ported yet (ROADMAP.md)."""
-    seed, disk1 = rng.rand_point_in_circle(seed)
+    `aa_uniforms`: optional (R, 2) uniforms that place the AA disk point in
+    place of the two hash draws (the blue-noise jitter of
+    `ops.trace.render_frame`); the seed stream then skips those draws.
+    Returns (seed, new_origin, new_direction)."""
+    if aa_uniforms is None:
+        seed, disk1 = rng.rand_point_in_circle(seed)
+    else:
+        disk1 = rng.disk_from_uniforms(aa_uniforms[..., 0], aa_uniforms[..., 1])
     seed, disk2 = rng.rand_point_in_circle(seed)
     zeros = torch.zeros(disk1.shape[:-1] + (1,), dtype=torch.float32, device=disk1.device)
     jitter = torch.cat([disk1 / resolution, zeros], dim=-1)

@@ -1,15 +1,25 @@
-"""Environment-map lookup: equirect UV mapping and bilinear filtering.
+"""Environment-map sampling: equirect UV mapping, texture filtering and CDF
+importance sampling.
 
-The port of the uniform-direction half of `tpu_pathtracer.ops.envsample`
-(reference: src/passes/shaders/raytrace.wgsl:289-313, 369-371; linear
-sampler with clamp-to-edge).  CDF importance sampling is not ported yet
-(ROADMAP.md); the renderer raises NotImplementedError for it.
+The port of `tpu_pathtracer.ops.envsample` (reference:
+src/passes/shaders/raytrace.wgsl:289-371; linear sampler with
+clamp-to-edge for the radiance, nearest for the CDF tables).  The
+importance sampler inverts the exclusive per-texel CDFs of
+`scene.envmap.build_cdf_tables` exactly (integer binary search, then a
+uniform place inside the texel), so its density is `env.sample_pdf` and
+the L/pdf estimator is unbiased; the operations and their order are the
+JAX package's, so seeds and texel indices come out bit-equal.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+
+from . import rng
+from .vecmath import EPSILON
 
 INVPI = np.float32(0.31830988618)  # raytrace.wgsl:4
 INVTWOPI = np.float32(0.15915494309)  # raytrace.wgsl:5
@@ -82,3 +92,53 @@ def env_radiance_packed(patches, shape, uv):
     top = row[..., 0:3] + (row[..., 3:6] - row[..., 0:3]) * fx
     bot = row[..., 6:9] + (row[..., 9:12] - row[..., 6:9]) * fx
     return top + (bot - top) * fy
+
+
+def sample_nearest(img, uv):
+    """Nearest texture fetch with clamp-to-edge; img (H, W) or (H, W, C),
+    uv (..., 2)."""
+    h, w = img.shape[0], img.shape[1]
+    x = torch.floor(uv[..., 0] * w).to(torch.int64).clamp(0, w - 1)
+    y = torch.floor(uv[..., 1] * h).to(torch.int64).clamp(0, h - 1)
+    return img[y, x]
+
+
+def _invert_exclusive_cdf(cdf_at, target, size: int):
+    """Exact inversion of an exclusive per-texel CDF: `cdf_at(i)` gives
+    cdf[i] = P(texels < i) for int64 i in [0, size).  A binary search of
+    ceil(log2(size)) steps finds the texel x with cdf[x] <= target <
+    cdf[x+1]; the sample then lies in it at the piecewise-linear fraction.
+    Returns (x int64, coordinate f32 in [0, 1)).  Every index stays in
+    [0, size): on the card an index out of range is a device assert."""
+    lo = torch.zeros(target.shape, dtype=torch.int64, device=target.device)  # cdf[lo] <= target
+    hi = torch.full_like(lo, size)  # target < cdf[hi] (cdf[size] = 1)
+    for _ in range(max(1, math.ceil(math.log2(max(size, 2))))):
+        mid = (lo + hi) // 2
+        go_right = cdf_at(mid) <= target
+        lo = torch.where(go_right, mid, lo)
+        hi = torch.where(go_right, hi, mid)
+    c_lo = cdf_at(lo)
+    c_hi = torch.where(lo + 1 < size, cdf_at((lo + 1).clamp(max=size - 1)), 1.0)
+    width = torch.clamp(c_hi - c_lo, min=float(EPSILON))
+    frac = torch.clamp((target - c_lo) / width, 0.0, 1.0)
+    return lo, (lo.to(torch.float32) + frac) / float(np.float32(size))
+
+
+def env_importance_sample(env, seed):
+    """CDF inversion sampling of the environment map: the row from the
+    marginal CDF, then the column from that row's conditional CDF.
+    Consumes 2 uniforms.  Returns (seed, uv (..., 2)); the sample's density
+    is `env.sample_pdf` at its texel."""
+    seed, r1 = rng.rand(seed)
+    seed, r2 = rng.rand(seed)
+    marginal = env.marginal_cdf[:, 0]
+    y, v = _invert_exclusive_cdf(lambda i: marginal[i], r1, env.height)
+    _, u = _invert_exclusive_cdf(lambda i: env.conditional_cdf[y, i], r2, env.width)
+    return seed, torch.stack([u, v], dim=-1)
+
+
+def env_pdf(env, uv):
+    """Density of `env_importance_sample` at uv (nearest texel of
+    `env.sample_pdf`), floored at EPSILON so that an environment with no
+    light (every density 0) still gives finite L/pdf."""
+    return torch.clamp(sample_nearest(env.sample_pdf, uv), min=float(EPSILON))

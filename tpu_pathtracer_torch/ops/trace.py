@@ -18,13 +18,16 @@ src/passes/shaders/raytrace.wgsl:373-478):
   * fused loop: vector state is component-major, (3, R); after each of the
     first `sort_bounces` bounces the ray state is re-binned by a coherence
     key (nearest live treelet, live count, direction bin), so rays sharing a
-    kernel tile share work; one global sort (the JAX package's windowed
-    sort is a TPU tuning not ported); the environment term of rays that
-    missed is added once after the loop (a miss is always a ray's last
-    event), and the caller's ray order is restored by scattering on the
-    carried pixel index;
+    kernel tile share work, by one global sort or by independent sorts of
+    consecutive windows (`_sort_window`, `_windowed_sort`); the environment
+    term of rays that missed is added once after the loop (a miss is always
+    a ray's last event, and its carried seed is the miss-time seed, so the
+    importance sampler's draws replay the plain loop's exactly), and the
+    caller's ray order is restored by scattering on the carried pixel index;
   * plain loop: row-major state, the environment looked up per bounce
-    (`bounce_shade`).  With `differentiable=True` the intersector picks the
+    (`bounce_shade`), by the ray's direction or, with `env_importance`, by
+    CDF importance sampling with the pdf correction (two uniforms on a
+    miss).  With `differentiable=True` the intersector picks the
     triangles on detached inputs and `replay_hit` recomputes (t, u, v) for
     them, so torch autograd differentiates the frame with respect to
     materials, environment radiance, camera and vertex positions.
@@ -60,6 +63,7 @@ from .mt_matmul import mt_intersect, ray_features
 from .vecmath import INF, mix, normalize, reflect
 
 _SORT_BOUNCES = 2  # default count of leading bounces that re-bin the ray state
+_SORT_WINDOW = 32768  # default window of the binning sort, the JAX package's
 _DIR_BINS = 96  # 6 dominant-axis half-spaces x 4x4 quantized minor axes
 _KEY_SENTINEL = 2**31 - 1  # coherence key of inactive rays: sorts last
 
@@ -94,19 +98,26 @@ def _sort_bounces(override=None) -> int:
 
 def _sort_window(override=None) -> int:
     """Window of the per-bounce binning sort: `override`
-    (RenderConfig.sort_window), then TPT_SORT_WINDOW, as the JAX package
-    resolves it (`tpu_pathtracer/ops/trace.py:366-387`).  The windowed sort
-    is not ported, so the default is 0 (one global sort) where JAX's is
-    32768, and a nonzero window raises (`_check_sort_window`).  The image
-    does not depend on the window."""
+    (RenderConfig.sort_window), then TPT_SORT_WINDOW, then 32768, as the
+    JAX package resolves it (`tpu_pathtracer/ops/trace.py:366-387`).  0 is
+    one global sort.  The image does not depend on the window: per-ray math
+    is order-free and the final scatter keys on the unique pixel index."""
     if override is not None:
         return int(override)
-    return int(os.environ.get("TPT_SORT_WINDOW", "0"))
+    return int(os.environ.get("TPT_SORT_WINDOW", str(_SORT_WINDOW)))
 
 
-def _check_sort_window(override=None) -> None:
-    if _sort_window(override):
-        raise NotImplementedError("windowed binning sort is not ported yet (ROADMAP.md)")
+def _windowed_sort(key, window: int):
+    """The permutation that sorts int64 `key` (R,) within each consecutive
+    `window`-ray window (an unstable sort along dim 1 of an (R/W, W) view,
+    indices offset to their window), so no ray leaves its window.  One
+    global sort where the JAX package takes one: W <= 0, R not a multiple
+    of W, or fewer than 8 windows."""
+    r = key.shape[0]
+    if window <= 0 or r % window or r // window < 8:
+        return torch.sort(key).indices
+    idx = torch.sort(key.view(r // window, window), dim=1).indices
+    return (idx + torch.arange(0, r, window, device=key.device)[:, None]).reshape(r)
 
 
 def _intersector_phi(kind: str, plain: bool):
@@ -215,11 +226,24 @@ def bounce_shade_t(scene, params, hit, carry, *, shade_mat):
     return ro, rd, incoming, color, seed, hit_mask
 
 
-def bounce_shade(scene, params, hit, carry, *, shade_mat, env_patches):
+def _env_importance_term(scene, params, seed, env_patches):
+    """CDF importance sampling of the environment with the pdf correction
+    (raytrace.wgsl:315-349, 398-404): (seed after the two uniform draws,
+    radiance * intensity / pdf (R, 3)), in the JAX package's order."""
+    seed, uv = envsample.env_importance_sample(scene.env, seed)
+    pdf = envsample.env_pdf(scene.env, uv)
+    radiance = envsample.env_radiance_packed(env_patches, (scene.env.height, scene.env.width), uv)
+    return seed, radiance * params.env_intensity / pdf[:, None]
+
+
+def bounce_shade(scene, params, hit, carry, *, shade_mat, env_patches,
+                 env_importance: bool = False):
     """One bounce of the plain loop given a Hit, row-major, with the
     environment looked up on misses (the JAX `bounce_shade` with
-    `defer_env=False`).  carry = (ro, rd, incoming, color (R, 3) f32,
-    seed (R,) i64, active (R,) bool)."""
+    `defer_env=False`): by the ray's direction, or with `env_importance`
+    by CDF importance sampling with the pdf correction, which draws two
+    uniforms on a miss (raytrace.wgsl:398-404).  carry = (ro, rd,
+    incoming, color (R, 3) f32, seed (R,) i64, active (R,) bool)."""
     ro, rd, incoming, color, seed, active = carry
     hit_mask = active & hit.hit
 
@@ -242,10 +266,15 @@ def bounce_shade(scene, params, hit, carry, *, shade_mat, env_patches):
     emitted = shade[:, 15:18] * shade[:, 20][:, None]
     hm = hit_mask[:, None]
     incoming = incoming + torch.where(hm, emitted * color, 0.0)
-    env_uv = envsample.env_uv_from_ray(rd, params.env_rotation)
-    env_contrib = envsample.env_radiance_packed(
-        env_patches, (scene.env.height, scene.env.width), env_uv) * params.env_intensity
-    incoming = incoming + torch.where((active & ~hit.hit)[:, None], env_contrib * color, 0.0)
+    miss_mask = active & ~hit.hit
+    if env_importance:
+        seed_m, env_contrib = _env_importance_term(scene, params, seed, env_patches)
+        seed = torch.where(miss_mask, seed_m, seed)
+    else:
+        env_uv = envsample.env_uv_from_ray(rd, params.env_rotation)
+        env_contrib = envsample.env_radiance_packed(
+            env_patches, (scene.env.height, scene.env.width), env_uv) * params.env_intensity
+    incoming = incoming + torch.where(miss_mask[:, None], env_contrib * color, 0.0)
 
     color = torch.where(hm, color * mix(shade[:, 9:12], shade[:, 12:15], is_specular[:, None]),
                         color)
@@ -268,9 +297,8 @@ def trace_rays(scene, params, ro, rd, seed, *, max_bounces: int, env_importance:
     the chosen triangles are replayed by `replay_hit` on the live tensors,
     so autograd reaches ray origins, directions and vertex positions
     through them.  `plain=True` intersects through the MT kernels' plain
-    versions (the other intersectors have no kernel)."""
-    if env_importance:
-        raise NotImplementedError("env importance sampling is not ported yet (ROADMAP.md)")
+    versions (the other intersectors have no kernel).  `env_importance`
+    samples the environment by its CDFs on a miss (`bounce_shade`)."""
     tri_pos = scene.packed.tri_pos
     kind = resolve_intersector(intersector, tri_pos.shape[0])
     tri_fixed = tri_pos.detach()
@@ -306,7 +334,7 @@ def trace_rays(scene, params, ro, rd, seed, *, max_bounces: int, env_importance:
         hit = intersect(torch.where(am, ro, 1e30), torch.where(am, rd, 0.0))
         ro, rd, incoming, color, seed, active = bounce_shade(
             scene, params, hit, (ro, rd, incoming, color, seed, active),
-            shade_mat=shade_mat, env_patches=env_patches)
+            shade_mat=shade_mat, env_patches=env_patches, env_importance=env_importance)
     return incoming, seed
 
 
@@ -354,10 +382,11 @@ def _key_boxes(tri_pos):
 
 def trace_rays_fused(scene, params, ro, rd, seed, *, max_bounces: int,
                      intersector_phi_fn, shade_mat=None, env_patches=None,
-                     sort_bounces=None):
+                     sort_bounces=None, sort_window=None, env_importance: bool = False):
     """Trace rays (R, 3) with seeds (R,) int64 to completion through
     `intersector_phi_fn` ((10, R) ray features -> Hit).  Returns
-    (incoming (R, 3) f32, seed (R,) int64) in the input ray order."""
+    (incoming (R, 3) f32, seed (R,) int64) in the input ray order, equal
+    to `trace_rays`' (seeds bit for bit) for any `sort_window`."""
     r = ro.shape[0]
     device = ro.device
     if shade_mat is None:
@@ -366,6 +395,7 @@ def trace_rays_fused(scene, params, ro, rd, seed, *, max_bounces: int,
         env_patches = envsample.pack_env_patches(scene.env.radiance)
     key_boxes = _key_boxes(scene.packed.tri_pos)
     n_sort = min(_sort_bounces(sort_bounces), max_bounces)
+    window = _sort_window(sort_window)
 
     pix = torch.arange(r, device=device)
     ro = ro.T.contiguous()
@@ -384,16 +414,23 @@ def trace_rays_fused(scene, params, ro, rd, seed, *, max_bounces: int,
         if bounce < n_sort:
             # Unstable sort: any ray order gives the same per-ray results,
             # and the final scatter keys on the unique pixel index.
-            order = torch.sort(_coherence_key(ro, rd, active, key_boxes)).indices
+            order = _windowed_sort(_coherence_key(ro, rd, active, key_boxes), window)
             ro, rd, incoming, color = (x[:, order] for x in (ro, rd, incoming, color))
             seed, active, pix = seed[order], active[order], pix[order]
 
     # Deferred environment term for the rays that ended on a miss; rays
     # still active after max_bounces get nothing (raytrace.wgsl:378-408).
+    # rd, color and seed still hold their miss-time values (the updates are
+    # hit-gated), so the importance sampler draws what the plain loop draws.
     missed = ~active
-    env_uv = envsample.env_uv_from_ray(rd.T, params.env_rotation)
-    env_term = envsample.env_radiance_packed(
-        env_patches, (scene.env.height, scene.env.width), env_uv).T * params.env_intensity
+    if env_importance:
+        seed_m, env_term = _env_importance_term(scene, params, seed, env_patches)
+        env_term = env_term.T
+        seed = torch.where(missed, seed_m, seed)
+    else:
+        env_uv = envsample.env_uv_from_ray(rd.T, params.env_rotation)
+        env_term = envsample.env_radiance_packed(
+            env_patches, (scene.env.height, scene.env.width), env_uv).T * params.env_intensity
     incoming = incoming + torch.where(missed[None, :], env_term * color, 0.0)
 
     out_incoming = torch.empty((r, 3), dtype=torch.float32, device=device)
@@ -430,6 +467,16 @@ def unblock_image(flat, height: int, width: int):
     return img.permute(0, 2, 1, 3, 4).reshape(height, width, c)
 
 
+_R2 = np.array([0.7548776662466927, 0.5698402909980532], np.float32)  # Roberts' R2 steps
+
+
+def _r2_point(frame: int, samples_per_frame: int, s: int, device):
+    """Point n = (frame - 1) * spp + s of the R2 sequence, (2,) f32, in the
+    JAX package's float32 operations: frac(n * a) per axis."""
+    n = (np.float32(frame) - np.float32(1.0)) * np.float32(samples_per_frame) + np.float32(s)
+    return torch.from_numpy(np.mod(n * _R2, np.float32(1.0))).to(device)
+
+
 def render_frame(scene, params, *, width: int, height: int, aspect: float,
                  samples_per_frame: int = 1, max_bounces: int = 4,
                  env_importance: bool = False, differentiable: bool = False,
@@ -443,22 +490,23 @@ def render_frame(scene, params, *, width: int, height: int, aspect: float,
     order.  `differentiable=True`, and the intersectors 'mt', 'bvh' and
     'bvh8' ('auto' above 262,144), take the plain loop (`trace_rays`) over a
     row-major pixel grid, as the JAX package does; a differentiable frame is
-    differentiable by torch autograd.  `sort_bounces`, `sort_window` and
-    `tile_rays` are options of the fused loop only; a nonzero window
-    (`sort_window`, then TPT_SORT_WINDOW) raises NotImplementedError.
+    differentiable by torch autograd.  `sort_bounces`, `sort_window` (see
+    `_sort_window`) and `tile_rays` are options of the fused loop only.
+    `env_importance` samples the environment by its CDFs on a miss.
+
+    `blue_noise`: optional (Hb, Wb, 2) toroidal rank table
+    (`utils.bluenoise.blue_noise_table`, numpy or tensor).  The AA jitter
+    then takes point n = (frame - 1) * spp + s of the R2 sequence, the same
+    for every pixel, offset per pixel by the table (Cranley–Patterson
+    rotation) in place of the two hash draws, so the error across pixels is
+    high-frequency; every other draw keeps the per-pixel PCG stream.
 
     `plain=True` intersects through the kernels' plain PyTorch versions on
     any device (a reference for the kernel path); the default launches the
     kernels for CUDA tensors and runs the plain versions for CPU tensors."""
-    if env_importance:
-        raise NotImplementedError("env importance sampling is not ported yet (ROADMAP.md)")
-    if blue_noise is not None:
-        raise NotImplementedError("blue-noise AA jitter is not ported yet (ROADMAP.md)")
     tri_pos = scene.packed.tri_pos
     kind = resolve_intersector(intersector, tri_pos.shape[0])
     fused = kind in ("mt_pallas", "mt_stream") and not differentiable
-    if fused:
-        _check_sort_window(sort_window)
     device = tri_pos.device
 
     if not fused:
@@ -472,11 +520,15 @@ def render_frame(scene, params, *, width: int, height: int, aspect: float,
     seed = rng.pixel_seed(xs + ys * width, params.frame)
     base_o, base_d = camera_ops.camera_rays(params.camera, uv, aspect)
     resolution = torch.tensor([width, height], dtype=torch.float32, device=device)
+    if blue_noise is not None:
+        bn = torch.as_tensor(blue_noise, dtype=torch.float32, device=device)
+        bn_pix = bn[ys % bn.shape[0], xs % bn.shape[1]]  # per-pixel CP offsets (R, 2)
 
     if not fused:
         def trace(o, d, seed):
             return trace_rays(scene, params, o, d, seed, max_bounces=max_bounces,
-                              differentiable=differentiable, intersector=kind, plain=plain)
+                              env_importance=env_importance, differentiable=differentiable,
+                              intersector=kind, plain=plain)
     else:
         intersect = _intersector_phi(kind, plain)
         shade_mat = pack_shade_material_rows(scene)
@@ -487,11 +539,17 @@ def render_frame(scene, params, *, width: int, height: int, aspect: float,
                 scene, params, o, d, seed, max_bounces=max_bounces,
                 intersector_phi_fn=lambda phi: intersect(tri_pos, phi, tile_rays=tile_rays),
                 shade_mat=shade_mat, env_patches=env_patches, sort_bounces=sort_bounces,
+                sort_window=sort_window, env_importance=env_importance,
             )
 
     acc = torch.zeros((height * width, 3), dtype=torch.float32, device=device)
-    for _ in range(samples_per_frame):
-        seed, o, d = camera_ops.apply_dof(seed, base_o, base_d, params.camera, resolution)
+    for s in range(samples_per_frame):
+        aa = None
+        if blue_noise is not None:
+            aa = torch.remainder(_r2_point(params.frame, samples_per_frame, s, device) + bn_pix,
+                                 1.0)
+        seed, o, d = camera_ops.apply_dof(seed, base_o, base_d, params.camera, resolution,
+                                          aa_uniforms=aa)
         light, seed = trace(o, d, seed)
         acc = acc + light
     color = acc / float(np.float32(samples_per_frame))

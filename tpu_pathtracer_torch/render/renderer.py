@@ -22,8 +22,10 @@ Everything lives on the `device` the constructor is given, the card unless
 the caller asks for the CPU.  `RenderConfig.intersector` chooses the
 intersector as `ops.trace.resolve_intersector` does: 'auto' takes the MT
 kernels up to 262,144 padded triangles and the fat-leaf BVH walk ('bvh8')
-above.  Not ported yet (ROADMAP.md): sharding (`shard`) and env importance
-sampling.
+above.  `env_importance` (or `set_env_importance`) samples the environment
+by its CDFs, and `RenderConfig.blue_noise` jitters AA by a 64x64
+blue-noise table; either rebuilds the passes.  Not ported yet
+(ROADMAP.md): sharding (`shard`).
 """
 
 from __future__ import annotations
@@ -35,10 +37,11 @@ import numpy as np
 import torch
 
 from ..config import PostConfig, RenderConfig
-from ..ops.trace import _check_sort_window, accumulate, render_frame, resolve_intersector
+from ..ops.trace import accumulate, render_frame, resolve_intersector
 from ..post.pipeline import postprocess
 from ..scene.host import Scene
 from ..scene.types import Camera, RenderParams, SceneData
+from ..utils.bluenoise import blue_noise_table
 from .timing import PassTimer
 
 Event = str  # 'reset' | 'start' | 'pause' | 'progress' | 'complete'
@@ -46,7 +49,8 @@ Event = str  # 'reset' | 'start' | 'pause' | 'progress' | 'complete'
 
 def make_passes(width: int, height: int, aspect: float, samples_per_frame: int,
                 max_bounces: int, accumulate_frames: bool, intersector: str = "auto",
-                sort_bounces=None, tile_rays=None, sort_window=None):
+                sort_bounces=None, tile_rays=None, sort_window=None,
+                env_importance: bool = False, blue_noise=None):
     """The progressive frame's two passes: raytrace (scene, params) -> frame
     image, and accumulate (acc, image, frame) -> acc, folding the image into
     `acc` in place (the JAX step donates its accumulator, so nothing else
@@ -56,8 +60,8 @@ def make_passes(width: int, height: int, aspect: float, samples_per_frame: int,
         return render_frame(
             scene, params, width=width, height=height, aspect=aspect,
             samples_per_frame=samples_per_frame, max_bounces=max_bounces,
-            intersector=intersector, sort_bounces=sort_bounces, tile_rays=tile_rays,
-            sort_window=sort_window,
+            env_importance=env_importance, intersector=intersector, blue_noise=blue_noise,
+            sort_bounces=sort_bounces, tile_rays=tile_rays, sort_window=sort_window,
         )
 
     def accumulate_pass(acc: torch.Tensor, img: torch.Tensor, frame: int) -> torch.Tensor:
@@ -101,8 +105,7 @@ class Renderer:
         self.camera = camera.to(self.device)
         self._config = config
         self.post = post
-        self.env_importance = False
-        self.set_env_importance(env_importance)
+        self.env_importance = bool(env_importance)
         self.enable_timing = bool(enable_timing)
         self.status: str = "idle"
         self._frame: int = 1
@@ -129,15 +132,16 @@ class Renderer:
 
     def _rebuild(self) -> None:
         c = self._config
-        if c.blue_noise:
-            raise NotImplementedError("blue-noise AA jitter is not ported yet (ROADMAP.md)")
-        _check_sort_window(c.sort_window)  # the config's window, then TPT_SORT_WINDOW
         resolve_intersector(c.intersector, 0)  # rejects unknown names
+        bn = None
+        if c.blue_noise:
+            bn = torch.from_numpy(blue_noise_table(64)).to(self.device)
         self._raytrace, self._accumulate = make_passes(
             c.scaled_width, c.scaled_height, aspect=c.width / c.height,
             samples_per_frame=c.samples_per_frame, max_bounces=c.max_bounces,
             accumulate_frames=c.accumulate, intersector=c.intersector,
             sort_bounces=c.sort_bounces, tile_rays=c.tile_rays, sort_window=c.sort_window,
+            env_importance=self.env_importance, blue_noise=bn,
         )
         self._timed_warm = False
         self._acc = self._zero_acc()
@@ -166,10 +170,12 @@ class Renderer:
                 raise AttributeError(f"unknown option {k}")
 
     def set_env_importance(self, enabled: bool) -> None:
-        """Env CDF importance sampling: not ported yet, so turning it on
-        raises."""
-        if enabled:
-            raise NotImplementedError("env importance sampling is not ported yet (ROADMAP.md)")
+        """Toggle env CDF importance sampling; a change rebuilds the passes
+        (and clears the accumulation), as the JAX package's does."""
+        enabled = bool(enabled)
+        if enabled != self.env_importance:
+            self.env_importance = enabled
+            self._rebuild()
 
     def set_timing(self, enabled: bool) -> None:
         """Toggle the per-pass timing meters."""

@@ -39,8 +39,9 @@ def _build(cls, arrays: Mapping[str, np.ndarray], prefix: str, device):
     })
 
 
-def scene_from_numpy(arrays: Mapping[str, np.ndarray], device="cpu") -> SceneData:
-    """`SceneData` on `device` from numpy leaves keyed "group.field"."""
+def scene_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> SceneData:
+    """`SceneData` on `device` (the card unless the caller asks for
+    another) from numpy leaves keyed "group.field"."""
     return SceneData(
         triangles=_build(Triangles, arrays, "triangles", device),
         materials=_build(Materials, arrays, "materials", device),
@@ -51,9 +52,10 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray], device="cpu") -> SceneDat
     )
 
 
-def params_from_numpy(arrays: Mapping[str, np.ndarray], device="cpu") -> RenderParams:
-    """`RenderParams` on `device` from numpy leaves keyed "camera.position",
-    ..., "frame", "env_intensity", "env_rotation"."""
+def params_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> RenderParams:
+    """`RenderParams` on `device` (the card unless the caller asks for
+    another) from numpy leaves keyed "camera.position", ..., "frame",
+    "env_intensity", "env_rotation"."""
     f32 = lambda key: torch.tensor(np.float32(arrays[key]), device=device)
     return RenderParams(
         camera=_build(Camera, arrays, "camera", device),

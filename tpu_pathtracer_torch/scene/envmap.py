@@ -25,12 +25,17 @@ def build_cdf_tables(radiance: np.ndarray):
 
     row_totals = weighted.sum(axis=1)
     total = row_totals.sum()
-    norm_rows = row_totals / total
+    # An environment with no light (or a row without any) has no density
+    # to invert: it gets the uniform CDF there, where the JAX package's
+    # tables hold NaN (0/0), so that the importance sampler stays finite.
+    # Every other table is the JAX package's, byte for byte.
+    norm_rows = row_totals / total if total > 0 else np.full(h, 1.0 / h)
     marginal = np.concatenate([[0.0], np.cumsum(norm_rows)[:-1]])
     marginal_2d = np.broadcast_to(marginal[:, None], (h, w))
 
     lum_row_totals = lum.sum(axis=1, keepdims=True)
-    col_norm = lum / lum_row_totals
+    lit = lum_row_totals > 0
+    col_norm = np.where(lit, lum / np.where(lit, lum_row_totals, 1.0), 1.0 / w)
     conditional = np.concatenate(
         [np.zeros((h, 1)), np.cumsum(col_norm, axis=1)[:, :-1]], axis=1
     )

@@ -194,7 +194,9 @@ class Scene:
                 env_size: Optional[tuple] = None, device="cuda") -> SceneData:
         """Build the device scene (triangles, materials, the BVH in its three
         layouts, packed rows, env CDF) as tensors on `device`, the card unless
-        the caller asks for another."""
+        the caller asks for another.  The BVH comes from the native builder
+        (`accel.native`) unless TPU_PT_NO_NATIVE selects the numpy one; both
+        give the same bytes."""
         p0, p1, p2, n0, n1, n2, mat, materials = self.gather_triangles()
         n = p0.shape[0]
 
