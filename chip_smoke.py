@@ -66,7 +66,29 @@ public entry points:
     kernels of one frame); the native BVH builder against numpy's on the
     stress scene's triangles (byte-equal, both host times) and the large
     scene's compile with it; `cli render --env sky --env-importance
-    --blue-noise`.
+    --blue-noise`;
+  * sharded (`parallel/`), at the headline shape: in this process the 2
+    tile bands and the 2x2 shards through `render_frame`'s band hooks
+    (row_offset, full_height, seed_salt), the nf walk launched once a
+    bounce a band, the bands' composite against the unsharded frame
+    (differing pixels counted, the outlier rule), the plain loop's ('mt')
+    bands bit-equal; then two ranks sharing the card, spawned with gloo
+    (`parallel.dryrun.run`, `_sharded_rank`): the 2-tile sharded step and
+    `Renderer(shard=ShardConfig(2)).render_all()` + `display()` (their nf
+    and denoise launches counted in each rank) against the unsharded frame
+    and Renderer, a 1x2 mesh against the mean of the unsalted and salted
+    frames bit for bit, `make_sharded_value_and_grad` at the training
+    step's size against the unsharded gradient (loss rtol 1e-5, gradients
+    atol 1e-6 / rtol 1e-4, not doubled), the sharded and unsharded frames
+    in turns, the all-reduce of the image on gloo and `bench_scaling` at
+    tiles 1 and 2 (two ranks on one card: no claim of scaling), the ranks
+    rendering rank 0's scene and camera as `multihost.replicate` broadcasts
+    them over gloo (rank 1 starts from a black sky and another camera);
+    then `cli render --shard-tiles 2` under torchrun, two ranks on the one
+    card (they join with gloo, the ranks outnumbering the cards), its
+    accumulation (.hdr) against the unsharded CLI's; then one NCCL rank whose (1, 1) step
+    equals the unsharded frame, before and after an all-reduce.  A rank
+    that fails or outlasts SHARD_TIMEOUT fails the run.
 
 The near-to-far, list, cond, streamed and MXU walks are Hopper redesigns
 (csrc/nf_walk.cu, csrc/cond_walk.cu, csrc/stream_walk.cu,
@@ -123,6 +145,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -1960,6 +1983,312 @@ def _render_options_phase(pt, trace, scene, data, cam, counters, results, tag):
     results["render_options"] = out
 
 
+SHARD_TIMEOUT = 300.0  # s, a spawned group of ranks from start to end
+SHARD_GRAD_TOL = dict(atol=1e-6, rtol=1e-4)  # tests/test_parallel.py:143
+
+
+def _sharded_rank(spec) -> dict:
+    """One of the sharded phase's two ranks (gloo, both on the one card),
+    spawned by `parallel.dryrun.run`.  Its numbers go back to the parent,
+    which checks and prints them: the main path over 2 tiles (the step,
+    then `Renderer(shard=ShardConfig(2)).render_all()` and `display()`, with
+    the nf and denoise launch counts set to 0 just before and read just
+    after) against the unsharded frame and Renderer; a 1x2 mesh against the
+    mean of the unsalted and salted frames; the sharded loss gradient at
+    the training step's size against the unsharded one; the sharded frame
+    and the unsharded one timed in turns, the all-reduce of the image, and
+    `bench_scaling` at tiles 1 and 2.  Both ranks render rank 0's scene
+    and camera, broadcast over gloo by `multihost.replicate`: rank 1 starts
+    from a black sky and another camera."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import tpu_pathtracer_torch as pt
+    from tpu_pathtracer_torch import diff
+    from tpu_pathtracer_torch.ops import trace
+    from tpu_pathtracer_torch.ops.kernels import denoise as kdenoise
+    from tpu_pathtracer_torch.ops.kernels import mt_shade
+    from tpu_pathtracer_torch.parallel import (make_mesh, make_sharded_frame_step,
+                                               make_sharded_value_and_grad, multihost,
+                                               zeros_acc)
+    from tpu_pathtracer_torch.parallel.sharded import _SALT, assemble
+    from tpu_pathtracer_torch.render.benchmark import bench_scaling
+    from tpu_pathtracer_torch.render.renderer import make_frame_step
+    from tpu_pathtracer_torch.scene.envmap import gradient_sky
+
+    rank = dist.get_rank()
+    dev = torch.device(spec["device"])
+    w, h, b = spec["width"], spec["height"], spec["bounces"]
+    kw = dict(width=w, height=h, aspect=w / h, max_bounces=b)
+    scene = pt.default_scene(gradient_sky(64, 128))
+    data = scene.compile(device=dev)
+    cam = pt.Camera.create(**CAMERA, device=dev)
+    params = pt.RenderParams.create(cam, frame=1)
+    counters = (mt_shade.mt_intersect_nf_phi, kdenoise.smart_denoise)
+    out = {}
+
+    def diffs(a, b):  # differing pixels; outlier fraction; mean diff of the others
+        d = (a.double() - b.double()).abs()
+        outlier = d.amax(dim=-1) > 0.05
+        return np.array([int((a != b).any(dim=-1).sum()), float(outlier.double().mean()),
+                         float(d[~outlier].mean())])
+
+    mesh = make_mesh(tiles=2, samples=1, device=dev)
+    mine, my_params = data, params
+    if rank != 0:
+        mine = dataclasses.replace(data, env=dataclasses.replace(
+            data.env, radiance=torch.zeros_like(data.env.radiance)))
+        my_params = pt.RenderParams.create(
+            pt.Camera.create(**dict(CAMERA, position=(1.0, 2.0, 3.0)), device=dev), frame=1)
+    rdata, rparams = multihost.replicate(mesh, mine), multihost.replicate(mesh, my_params)
+    out["replicated"] = np.array([torch.equal(rdata.env.radiance, data.env.radiance),
+                                  torch.equal(rparams.camera.position, params.camera.position)])
+    step = make_sharded_frame_step(mesh, **kw)
+    config = pt.RenderConfig(width=w, height=h, frames=2, max_bounces=b)
+    for fn in counters:
+        fn.launches = 0
+    img = assemble(mesh, step(rdata, rparams, zeros_acc(mesh, h, w)), h)
+    r = pt.Renderer(scene, cam, config, device=dev, shard=pt.ShardConfig(tiles=2))
+    acc = r.render_all()
+    disp = r.display()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out["launches"] = np.array([fn.launches for fn in counters])
+    out["tiles_vs_unsharded"] = diffs(img, trace.render_frame(data, params, **kw))
+    ustep = make_frame_step(w, h, w / h, 1, b, True)
+    uacc = torch.zeros((h, w, 3), device=dev)
+    for f in (1, 2):
+        ustep(data, pt.RenderParams.create(cam, frame=f), uacc)
+    out["renderer_vs_unsharded"] = diffs(acc, uacc)
+    out["display"] = np.array([float(disp.min()), float(disp.max()), float(disp.mean()),
+                               float(torch.isfinite(disp).all())])
+
+    mesh2 = make_mesh(tiles=1, samples=2, device=dev)
+    step2 = make_sharded_frame_step(mesh2, samples_per_frame=2, **kw)
+    img2 = assemble(mesh2, step2(data, params, zeros_acc(mesh2, h, w)), h)
+    mean2 = (trace.render_frame(data, params, **kw)
+             + trace.render_frame(data, params, seed_salt=_SALT, **kw)) / 2.0
+    out["samples_vs_streams"] = diffs(img2, mean2)
+
+    n = spec["invert_size"]
+    tkw = dict(width=n, height=n, aspect=1.0, samples_per_frame=1, max_bounces=b)
+    tdata = pt.default_scene(gradient_sky(512, 1024)).compile(device=dev)
+    target = diff.render_frame_diff(tdata, params, **tkw).detach()
+    wrong = torch.from_numpy(np.random.default_rng(0).random(
+        tuple(tdata.materials.color.shape)).astype(np.float32)).to(dev)
+    loss, grads = make_sharded_value_and_grad(mesh, tdata, params, **tkw)(
+        {"materials.color": wrong}, target)
+    leaf = wrong.clone().requires_grad_(True)
+    l_ref = diff.make_param_loss(diff.make_loss(target, **tkw), tdata, params,
+                                 ["materials.color"])({"materials.color": leaf})
+    (g_ref,) = torch.autograd.grad(l_ref, [leaf])
+    out["vg_loss"] = np.array([float(loss), float(l_ref.detach())])
+    out["vg_grad"] = np.stack([grads["materials.color"].cpu().numpy(), g_ref.cpu().numpy()])
+
+    if dev.type == "cuda":
+        sacc = zeros_acc(mesh, h, w)
+        fns = {"unsharded": lambda: ustep(data, params, uacc),
+               "sharded": lambda: step(data, params, sacc)}
+        turns = []
+        for k in ("unsharded", "sharded", "sharded", "unsharded"):
+            dist.barrier()
+            turns.append(_time_ms(fns[k], 2, 10) if k == "sharded" or rank == 0 else np.nan)
+            dist.barrier()
+        out["frame_turns_ms"] = np.array(turns)
+        image = torch.zeros((h, w, 3), device=dev)
+        dist.barrier()
+        out["all_reduce_ms"] = np.array(
+            _time_ms(lambda: dist.all_reduce(image, group=mesh.group), 2, 10))
+        rows = bench_scaling(data, cam, width=w, height=h, spp=1, bounces=b, tile_counts=(1, 2),
+                             reps=3, target_seconds=0.5)
+        out["scaling"] = np.array([[r["tiles"], r["per_frame_s"], r["efficiency"], r["ok"]]
+                                   for r in rows])
+    return out
+
+
+def _sharded_cli(tag) -> dict:
+    """`cli render --shard-tiles 2` under torchrun, two ranks sharing the
+    one card: each must join with gloo (the ranks outnumber the cards), and
+    rank 0's accumulation (written as .hdr) must equal the unsharded CLI's
+    at the same settings (or differ on near-ties only, by the outlier
+    rule)."""
+    import os
+    import signal
+
+    import numpy as np
+    import torch
+
+    from tpu_pathtracer_torch.cli import main as cli
+    from tpu_pathtracer_torch.io.hdr import read_hdr
+
+    args = ["render", "--width", str(WIDTH), "--height", str(HEIGHT), "--bounces", str(BOUNCES),
+            "--frames", "4"]
+    sharded = ROOT / "build" / "chip_smoke_cli_sharded.hdr"
+    plain = ROOT / "build" / "chip_smoke_cli_unsharded.hdr"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         "-m", "tpu_pathtracer_torch.cli", *args, "--shard-tiles", "2", "-o", str(sharded)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=SHARD_TIMEOUT)
+    finally:  # torchrun and both ranks, whatever happened
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    spawn_s = time.perf_counter() - t0
+    _check(proc.returncode == 0, f"torchrun cli render --shard-tiles 2: exit {proc.returncode}"
+           f"\n{log[-4000:]}")
+    # the ranks' lines may interleave on the shared pipe
+    joined = sorted(re.findall(r"rank (\d) of 2 \((\w+)\)", log))
+    _check(joined == [("0", "gloo"), ("1", "gloo")], f"the two ranks joined as {joined}")
+    _check(cli([*args, "-o", str(plain)]) == 0, "cli render (unsharded) failed")
+    a, b = (torch.from_numpy(np.ascontiguousarray(read_hdr(str(f)))) for f in (sharded, plain))
+    n_diff = int((a != b).any(dim=-1).sum())
+    frac, _ = _outlier_rule(a, b)
+    who = ", ".join(f"rank {r} {backend}" for r, backend in joined)
+    print(f"cli render --shard-tiles 2 under torchrun ({tag}; 2 ranks on one card, joined "
+          f"{who}; {spawn_s:.1f} s): its accumulation against the unsharded "
+          f"CLI's at {WIDTH}x{HEIGHT}, 4 frames: {n_diff} pixels differ (outlier fraction "
+          f"{frac:.2e})")
+    return dict(cli_joined=joined, cli_diff_pixels=n_diff, cli_s=spawn_s)
+
+
+def _sharded_phase(pt, trace, data, cam, counters, results, tag):
+    """The sharded path (`parallel/`) at the headline shape: in this process
+    the 2 tile bands and the 2x2 shards through `render_frame`'s band hooks
+    (their composite against the unsharded frame, the nf walk launched once
+    a bounce a band; the plain loop's bands bit-equal); two gloo ranks on
+    the card (`_sharded_rank`); the sharded CLI under torchrun
+    (`_sharded_cli`); one NCCL rank whose (1, 1) step equals the unsharded
+    frame.  Returns the nf and denoise launches of the path (the CLI's ranks
+    count their own)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpu_pathtracer_torch.parallel import dryrun, make_mesh, make_sharded_frame_step
+    from tpu_pathtracer_torch.parallel import multihost, zeros_acc
+    from tpu_pathtracer_torch.parallel.sharded import assemble, shard_frame
+
+    params = pt.RenderParams.create(cam, frame=1)
+    kw = dict(width=WIDTH, height=HEIGHT, aspect=WIDTH / HEIGHT, max_bounces=BOUNCES)
+    nf = counters["mt_nf"]
+    out = {}
+
+    def shards(tiles, samples, **extra):
+        nf.launches = 0
+        got = [[shard_frame(data, params, tile=t, sample=s, tiles=tiles, samples=samples,
+                            samples_per_frame=samples, **kw, **extra) for s in range(samples)]
+               for t in range(tiles)]
+        torch.cuda.synchronize()
+        return got, nf.launches
+
+    bands, launches = shards(2, 1)
+    _check(launches == 2 * BOUNCES, f"nf launched {launches} times for 2 bands of {BOUNCES} "
+           f"bounces")
+    full = trace.render_frame(data, params, **kw)
+    comp = torch.cat([b[0] for b in bands])
+    n_diff = int((comp != full).any(dim=-1).sum())
+    frac, agree = _outlier_rule(comp, full)
+    print(f"sharded bands in process: nf launched {launches} times (2 bands x {BOUNCES} "
+          f"bounces); the 2 bands put together against the unsharded frame: {n_diff} pixels "
+          f"differ (outlier fraction {frac:.2e}, non-outlier mean diff {agree:.2e})")
+    quads, quad_launches = shards(2, 2)
+    _check(quad_launches == 4 * BOUNCES, f"nf launched {quad_launches} times for 4 shards")
+    comp2 = torch.cat([(q[0] + q[1]) / 2.0 for q in quads])
+    ref2 = trace.render_frame(data, params, samples_per_frame=2, **kw)
+    _check(bool(torch.isfinite(comp2).all()), "2x2 composite not finite")
+    mean_gap = float((comp2.mean() - ref2.mean()).abs())
+    _check(mean_gap < 0.01, f"2x2 composite mean {float(comp2.mean())} against "
+           f"{float(ref2.mean())}")
+    plain, plain_launches = shards(2, 1, intersector="mt")
+    _check(plain_launches == 0, "the plain loop's bands launched the nf walk")
+    _check(torch.equal(torch.cat([b[0] for b in plain]),
+                       trace.render_frame(data, params, intersector="mt", **kw)),
+           "the plain loop's 2 bands differ from its unsharded frame")
+    print(f"sharded bands in process: 2x2 shards launched nf {quad_launches} times, composite "
+          f"mean {float(comp2.mean()):.4f} against {float(ref2.mean()):.4f} at 2 spp; the "
+          f"plain loop's ('mt') bands bit-equal to its unsharded frame")
+    out.update(band_launches=launches, band_diff_pixels=n_diff, band_outlier_frac=frac,
+               shard_launches=quad_launches)
+    del bands, quads, plain, comp, comp2
+
+    spec = {"device": "cuda", "backend": "gloo", "width": WIDTH, "height": HEIGHT,
+            "bounces": BOUNCES, "invert_size": INVERT_SIZE}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = dryrun.run(_sharded_rank, 2, spec, tmp, timeout=SHARD_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    for i, r in enumerate(ranks):
+        nf_l, den_l = (int(x) for x in r["launches"])
+        _check(nf_l >= BOUNCES and den_l >= 1, f"rank {i}: nf {nf_l}, denoise {den_l} launches")
+        tiles, rend, samp = (r[k] for k in ("tiles_vs_unsharded", "renderer_vs_unsharded",
+                                            "samples_vs_streams"))
+        for what, d in (("step", tiles), ("Renderer", rend)):
+            _check(d[1] < 0.01 and d[2] < 1e-4, f"rank {i}: 2-tile {what} against unsharded {d}")
+        _check(samp[0] == 0, f"rank {i}: 1x2 mesh differs from the streams' mean on {samp[0]} px")
+        _check(bool(r["replicated"].all()), f"rank {i}: replicate gave another scene or camera "
+               f"than rank 0's {r['replicated']}")
+        lo, hi, mean, finite = r["display"]
+        _check(finite == 1.0 and lo >= 0.0 and hi <= 1.0 and mean > 0.05,
+               f"rank {i}: display {r['display']}")
+        l_sh, l_ref = r["vg_loss"]
+        _check(abs(l_sh - l_ref) <= 1e-5 * abs(l_ref), f"rank {i}: loss {l_sh} against {l_ref}")
+        g_sh, g_ref = r["vg_grad"]
+        _check(bool(np.allclose(g_sh, g_ref, **SHARD_GRAD_TOL))
+               and not np.allclose(g_sh, 2 * g_ref, **SHARD_GRAD_TOL),
+               f"rank {i}: gradients {g_sh} against {g_ref}")
+        print(f"sharded rank {i} of 2 (gloo, one card): nf {nf_l}, denoise {den_l} launches; "
+              f"2-tile step against the unsharded frame {int(tiles[0])} pixels differ "
+              f"(outliers {tiles[1]:.2e}), Renderer 2 frames {int(rend[0])} (outliers "
+              f"{rend[1]:.2e}), on rank 0's scene and camera from replicate; 1x2 mesh equal "
+              f"to the mean of the two streams; loss "
+              f"{l_sh:.6f} against {l_ref:.6f}, max gradient difference "
+              f"{float(np.abs(g_sh - g_ref).max()):.2e}")
+    r0 = ranks[0]
+    turns, ar_ms, scaling = r0["frame_turns_ms"], float(r0["all_reduce_ms"]), r0["scaling"]
+    print(f"timing {tag}: frame unsharded, 2-tile sharded, sharded, unsharded (2 gloo ranks "
+          f"sharing the one card, rank 0's CUDA events, median of 10): {_fmt_ms(turns)} ms; "
+          f"rank 1 sharded {_fmt_ms(ranks[1]['frame_turns_ms'][1:3])} ms")
+    print(f"timing {tag}: all_reduce of the {HEIGHT}x{WIDTH}x3 f32 image on gloo (2 ranks, one "
+          f"card): {ar_ms:.3f} ms")
+    for t, per_frame, eff, ok in scaling:
+        print(f"timing {tag}: bench_scaling tiles={int(t)} (2 ranks on one card, no claim of "
+              f"scaling): {per_frame * 1e3:.3f} ms/frame, efficiency {eff:.3f}, ok {bool(ok)}")
+    print(f"sharded ranks: spawned, ran and joined in {spawn_s:.1f} s")
+    out.update(rank_launches=[r["launches"].tolist() for r in ranks],
+               frame_turns_ms=turns.tolist(), all_reduce_ms=ar_ms, scaling=scaling.tolist(),
+               spawn_s=spawn_s, rank_frame_diff=[r["tiles_vs_unsharded"].tolist() for r in ranks])
+
+    out.update(_sharded_cli(tag))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        multihost.initialize("nccl", f"file://{tmp}/store", 1, 0)
+        try:
+            mesh = make_mesh(tiles=1, samples=1)
+            step = make_sharded_frame_step(mesh, **kw)
+            img = assemble(mesh, step(data, params, zeros_acc(mesh, HEIGHT, WIDTH)), HEIGHT)
+            want = trace.render_frame(data, params, **kw)
+            _check(torch.equal(img, want),
+                   "the NCCL rank's (1, 1) step differs from the unsharded frame")
+            dist.all_reduce(img)  # the communicator runs a collective: a sum over one rank
+            _check(torch.equal(img, want), "an NCCL all-reduce over one rank changed the image")
+            print(f"sharded NCCL rank ({dist.get_backend()}, world 1): (1, 1) step bit-equal "
+                  f"to the unsharded frame, and after an all-reduce")
+        finally:
+            dist.destroy_process_group()
+    results["sharded"] = out
+    return (launches + quad_launches + sum(int(r["launches"][0]) for r in ranks),
+            sum(int(r["launches"][1]) for r in ranks))
+
+
 def main(argv=None) -> int:
     args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     args.add_argument("--profile", action="store_true")
@@ -2114,6 +2443,10 @@ def main(argv=None) -> int:
     # --- render options: env importance, blue noise, sort window, native BVH -
     phase("render options")
     _render_options_phase(pt, trace, scene, data, cam, counters, results, tag)
+
+    # --- sharded: the band hooks, 2 gloo ranks on the card, one NCCL rank ------
+    phase("sharded")
+    sharded_launches = _sharded_phase(pt, trace, data, cam, counters, results, tag)
 
     # --- stress: streamed MT kernel vs plain on the stress scene's rays ------
     phase("stress")
@@ -2279,7 +2612,8 @@ def main(argv=None) -> int:
         {"name": "mt_nf", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/nf_walk.cu",
          "replaces": "tpu_pathtracer/ops/pallas/mt_shade.py:308", "launches": launches["mt_nf"],
          "max_abs_err": max(mt_err, culls["nf"][0]), "ms": mt_ms, "plain_ms": mt_plain_ms,
-         **bound(cull_bounds["nf"]), **walk("nf_headline_primary")},
+         **bound(cull_bounds["nf"]), **walk("nf_headline_primary"),
+         "sharded_launches": sharded_launches[0]},
         {"name": "denoise", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/denoise.cu",
          "replaces": "tpu_pathtracer/ops/pallas/denoise.py:33",
          "launches": launches["denoise"], "max_abs_err": den_err, "ms": den512["ms"],
@@ -2287,7 +2621,8 @@ def main(argv=None) -> int:
          "kernel_ms": den512["kernel_ms"], "v1_ms": den512["v1_ms"],
          "v1_kernel_ms": den512["v1_kernel_ms"], "ms_1080p": den1080["ms"],
          "kernel_ms_1080p": den1080["kernel_ms"], "v1_ms_1080p": den1080["v1_ms"],
-         "v1_kernel_ms_1080p": den1080["v1_kernel_ms"], "bound_ms_1080p": den1080["bound_ms"]},
+         "v1_kernel_ms_1080p": den1080["v1_kernel_ms"], "bound_ms_1080p": den1080["bound_ms"],
+         "sharded_launches": sharded_launches[1]},
         {"name": "mt_stream", "route": "cuda",
          "source": "tpu_pathtracer_torch/csrc/stream_walk.cu",
          "replaces": "tpu_pathtracer/ops/pallas/mt_shade.py:628",

@@ -156,8 +156,16 @@ def test_headline_record_has_the_jax_keys(ok, device):
 
 
 def test_bench_scaling_is_not_ported(scene):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        benchmark.bench_scaling(scene.compile(device="cpu"), tpt.Camera.create(**CAM))
+    """bench_scaling, ported since it was named so: in one process without
+    a process group it times tiles=1 alone (efficiency 1) and logs the
+    tile counts above the world's one rank as skipped, as JAX's does."""
+    logs = []
+    rows = benchmark.bench_scaling(scene.compile(device="cpu"), tpt.Camera.create(**CAM),
+                                   width=16, height=16, bounces=1, reps=1, target_seconds=0.02,
+                                   max_frames=4, log=logs.append)
+    assert [r["tiles"] for r in rows] == [1]
+    assert rows[0]["per_frame_s"] > 0 and rows[0]["efficiency"] == 1.0
+    assert sum("skip tiles=" in line for line in logs) == 3
 
 
 def test_device_time_requests_no_cuda_activity_off_the_card():

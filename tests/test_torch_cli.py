@@ -85,6 +85,29 @@ def test_cli_invert(capsys):
     assert rec["value"] < rec["loss_start"]
 
 
+def test_cli_shard_joins_with_the_rank_device(monkeypatch, tmp_path):
+    """`render --shard-tiles 2 --device cpu` under torchrun's environment
+    joins with gloo even where a card is present: the CLI hands its
+    device to `multihost.initialize` (CUDA stubbed, the group's start
+    recorded and stopped there)."""
+    import torch.distributed as dist
+
+    class Joined(Exception):
+        pass
+
+    def join(backend, **kw):
+        raise Joined(backend)
+
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(dist, "init_process_group", join)
+    monkeypatch.setattr("torch.cuda.is_available", lambda: True)
+    monkeypatch.setattr("torch.cuda.device_count", lambda: 1)
+    for k, v in dict(WORLD_SIZE="2", RANK="0", LOCAL_RANK="0", LOCAL_WORLD_SIZE="2").items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(Joined, match="gloo"):
+        main(["render", "--shard-tiles", "2", "-o", str(tmp_path / "r.png"), *CPU])
+
+
 @pytest.mark.parametrize("argv", [
     ["view"],
     ["export", "-o", "x.glb"],
@@ -93,16 +116,24 @@ def test_cli_invert(capsys):
     ["render", "--blue-noise"],
     ["render", "--shard-tiles", "2"],
 ], ids=["view", "export", "gltf", "env_importance", "blue_noise", "shard"])
-def test_cli_unported_options_raise(argv, tmp_path):
-    """`view`, `export`, glTF and sharding are not ported and raise; the
+def test_cli_unported_options_raise(argv, tmp_path, monkeypatch):
+    """`view`, `export` and glTF are not ported and raise; the
     env-importance and blue-noise options (which raised until they were
-    ported) render a 16x16 image."""
+    ported) render a 16x16 image; sharding (ported) outside torchrun
+    raises, since it has no process group to join, and renders nothing."""
     if argv[1:] in (["--env-importance"], ["--blue-noise"]):
         png = tmp_path / "r.png"
         assert main(argv + ["--width", "16", "--height", "16", "--frames", "2", "--bounces", "2",
                             "--env", "sky", "-o", str(png), *CPU]) == 0
         img = read_png(str(png))
         assert img.shape[:2] == (16, 16) and img.max() > 0
+        return
+    if "--shard-tiles" in argv:
+        monkeypatch.delenv("WORLD_SIZE", raising=False)
+        png = tmp_path / "r.png"
+        with pytest.raises(RuntimeError, match="torchrun"):
+            main(argv + ["-o", str(png), *CPU])
+        assert not png.exists()
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(argv + CPU if argv[0] == "render" else argv)

@@ -203,3 +203,43 @@ def test_resume_equals_a_fresh_render(tmp_path):
     fresh = _renderer(frames=4)
     fresh.reset()
     assert torch.equal(got, fresh.render_all())
+
+
+def test_make_frame_step_has_the_jax_signature():
+    """make_frame_step (and make_passes, its two halves) take the JAX
+    package's parameters, names, order and defaults."""
+    import inspect
+
+    from tpu_pathtracer.render.renderer import make_frame_step as j_make_frame_step
+    from tpu_pathtracer_torch.render.renderer import make_frame_step, make_passes
+
+    def params(fn):
+        return [(p.name, p.default) for p in inspect.signature(fn).parameters.values()]
+
+    assert params(make_frame_step) == params(j_make_frame_step)
+    assert params(make_passes) == params(j_make_frame_step)
+
+
+def test_make_frame_step_passes_env_importance_and_blue_noise():
+    """`accumulate`, `env_importance` and `blue_noise` by keyword, as JAX's
+    step takes them: the step folds what render_frame renders with them."""
+    from tpu_pathtracer_torch.ops import trace as ttrace
+    from tpu_pathtracer_torch.render.renderer import make_frame_step
+    from tpu_pathtracer_torch.scene.sky import sun_sky
+    from tpu_pathtracer_torch.utils.bluenoise import blue_noise_table
+
+    data = tpt.default_scene(sun_sky(16, 32)).compile(device="cpu")
+    params = tpt.RenderParams.create(tpt.Camera.create(**CAM), frame=1)
+    bn = blue_noise_table(64)
+    kw = dict(aspect=1.0, samples_per_frame=1, max_bounces=2)
+    step = make_frame_step(16, 12, accumulate=False, env_importance=True, blue_noise=bn, **kw)
+    acc = step(data, params, torch.zeros((12, 16, 3)))
+    want = ttrace.render_frame(data, params, width=16, height=12, env_importance=True,
+                               blue_noise=bn, **kw)
+    assert torch.equal(acc, want)
+    assert not torch.equal(acc, ttrace.render_frame(data, params, width=16, height=12, **kw))
+
+
+def test_package_exports_match_jax():
+    assert tpt.__all__ == jpt.__all__
+    from tpu_pathtracer_torch import FlatBVH, ShardConfig  # noqa: F401

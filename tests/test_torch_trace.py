@@ -212,22 +212,25 @@ def test_sort_window_variable_raises_when_nonzero(scenes, entry, env, monkeypatc
     assert torch.equal(img, run(window=0))
 
 
-@pytest.mark.parametrize("kw", [dict(shard=object()), dict(env_importance=True)],
+@pytest.mark.parametrize("kw", [dict(shard=tpt.ShardConfig(tiles=2)), dict(env_importance=True)],
                          ids=["shard", "env_importance"])
 def test_unported_renderer_options_raise(kw):
-    """Sharding is not ported and raises; env importance (ported) renders
-    what `render_frame(env_importance=True)` renders."""
+    """Options that raised until they were ported.  Sharding over 2 tiles
+    without a process group raises (it never renders unsharded in
+    silence), and a (1, 1) mesh renders the unsharded frame; env importance
+    renders what `render_frame(env_importance=True)` renders."""
+    cfg = tpt.RenderConfig(width=8, height=8, frames=1, max_bounces=2)
     if "shard" in kw:
-        with pytest.raises(NotImplementedError):
-            tpt.Renderer(tpt.default_scene(), tpt.Camera.create(), device="cpu", **kw)
-        return
-    r = tpt.Renderer(tpt.default_scene(gradient_sky(8, 16)), tpt.Camera.create(**CAM),
-                     tpt.RenderConfig(width=8, height=8, frames=1, max_bounces=2),
+        with pytest.raises(ValueError, match="torchrun"):
+            tpt.Renderer(tpt.default_scene(), tpt.Camera.create(), cfg, device="cpu", **kw)
+        kw = dict(shard=tpt.ShardConfig(tiles=1, samples=1))
+    r = tpt.Renderer(tpt.default_scene(gradient_sky(8, 16)), tpt.Camera.create(**CAM), cfg,
                      device="cpu", **kw)
     acc = r.render_all()
     want = ttrace.render_frame(r.scene_data, tpt.RenderParams.create(r.camera, frame=1),
-                               width=8, height=8, aspect=1.0, max_bounces=2, env_importance=True)
-    assert r.env_importance and torch.equal(acc, want)
+                               width=8, height=8, aspect=1.0, max_bounces=2,
+                               env_importance=r.env_importance)
+    assert r.env_importance == ("env_importance" in kw) and torch.equal(acc, want)
 
 
 # --- env importance sampling in the loops -----------------------------------

@@ -7,16 +7,25 @@ hand-written CUDA C++ for Hopper (csrc/), built with nvcc at first use
 (`_build.py`); a CPU tensor runs each kernel's plain PyTorch version.
 """
 
-from .config import PostConfig, RenderConfig, Tonemap
+from .config import PostConfig, RenderConfig, ShardConfig, Tonemap
 from .render.renderer import Renderer
 from .scene.host import Material, Mesh, Scene, default_scene
-from .scene.types import Camera, EnvironmentMap, Materials, RenderParams, SceneData, Triangles
+from .scene.types import (
+    Camera,
+    EnvironmentMap,
+    FlatBVH,
+    Materials,
+    RenderParams,
+    SceneData,
+    Triangles,
+)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Camera",
     "EnvironmentMap",
+    "FlatBVH",
     "Material",
     "Materials",
     "Mesh",
@@ -26,6 +35,7 @@ __all__ = [
     "Renderer",
     "Scene",
     "SceneData",
+    "ShardConfig",
     "Tonemap",
     "Triangles",
     "default_scene",

@@ -14,9 +14,16 @@ PyTorch version):
 
 `render` takes `--env-importance` (CDF importance sampling of the
 environment) and `--blue-noise` (blue-noise AA jitter), as the JAX CLI's
-does.  Not ported yet (ROADMAP.md), and raising NotImplementedError:
-`view`, `export`, a glTF `--scene` and `--shard-tiles` /
-`--shard-samples` above 1.
+does.  `--shard-tiles` / `--shard-samples` above 1 render on a mesh of
+`torch.distributed` ranks (`render`; `invert` shards its tiles): start one
+process a rank under torchrun, e.g.
+
+    torchrun --nproc-per-node 2 -m tpu_pathtracer_torch.cli render --shard-tiles 2
+
+(NCCL with a card a rank; gloo on the CPU, or where the ranks outnumber
+the cards and share them).  Rank 0 writes the outputs.  Not ported yet
+(ROADMAP.md), and raising NotImplementedError: `view`, `export` and a glTF
+`--scene`.
 """
 
 from __future__ import annotations
@@ -63,10 +70,10 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--blue-noise", action="store_true",
                    help="blue-noise low-discrepancy AA jitter")
     p.add_argument("--shard-tiles", type=int, default=1,
-                   help="shard image rows over this many devices (not ported yet)")
+                   help="shard image rows over this many ranks (run under torchrun)")
     p.add_argument("--shard-samples", type=int, default=1,
-                   help="shard the per-frame sample budget over this many devices "
-                        "(not ported yet)")
+                   help="shard the per-frame sample budget over this many ranks "
+                        "(run under torchrun)")
     p.add_argument("--device", default="cuda",
                    help="torch device: 'cuda' (the kernels) or 'cpu' (their plain versions)")
 
@@ -96,11 +103,19 @@ def _build_scene(args):
 def _build_renderer(args):
     import math
 
-    from . import PostConfig, RenderConfig, Renderer, Tonemap
+    from . import PostConfig, RenderConfig, Renderer, ShardConfig, Tonemap
     from .scene.types import Camera
 
+    shard = None
     if args.shard_tiles * args.shard_samples > 1:
-        raise _not_ported("sharded rendering (--shard-tiles, --shard-samples)")
+        import torch.distributed as dist
+
+        from .parallel import multihost
+
+        multihost.initialize(device=args.device)
+        print(f"rank {dist.get_rank()} of {dist.get_world_size()} ({dist.get_backend()})",
+              file=sys.stderr)
+        shard = ShardConfig(tiles=args.shard_tiles, samples=args.shard_samples)
     scene = _build_scene(args)
     cam = Camera.create(
         position=tuple(args.camera_position),
@@ -116,7 +131,7 @@ def _build_renderer(args):
     )
     post = PostConfig(denoise=args.denoise, tonemap=Tonemap[args.tonemap.upper()])
     r = Renderer(scene, cam, cfg, post, device=args.device, env_importance=args.env_importance,
-                 enable_timing=getattr(args, "timing", False))
+                 enable_timing=getattr(args, "timing", False), shard=shard)
     r.env_intensity = args.env_intensity
     r.env_rotation = math.radians(args.env_rotation)
     return r
@@ -188,7 +203,9 @@ def _render_body(args) -> int:
         # linear radiance at render resolution (no tonemap, no denoise)
         from .io.hdr import write_hdr
 
-        write_hdr(args.output, r.accumulation.cpu().numpy()[::-1])
+        acc = r.accumulation.cpu().numpy()
+        if r._writes_files:
+            write_hdr(args.output, acc[::-1])
     else:
         r.screenshot(args.output)
     spp = args.frames * args.spp
@@ -241,8 +258,15 @@ def cmd_invert(args) -> int:
         scene_data, materials=dataclasses.replace(scene_data.materials, color=wrong))
     print(f"optimizing materials.color from random init, {args.steps} steps...",
           file=sys.stderr)
-    res = diff.invert(bad, params, target, ["materials.color"], steps=args.steps,
-                      learning_rate=args.lr, **kw)
+    if args.shard_tiles > 1:
+        from .parallel import invert_sharded, make_mesh
+
+        res = invert_sharded(make_mesh(tiles=args.shard_tiles, samples=1, device=r.device), bad,
+                             params, target, ["materials.color"], steps=args.steps,
+                             learning_rate=args.lr, **kw)
+    else:
+        res = diff.invert(bad, params, target, ["materials.color"], steps=args.steps,
+                          learning_rate=args.lr, **kw)
     err = float((res.values["materials.color"] - scene_data.materials.color).abs().max())
     print(json.dumps({
         "metric": "invert_final_loss",

@@ -1,8 +1,6 @@
 """Configuration surface of the port: the same frozen dataclasses as
 `tpu_pathtracer.config`, field for field, so that a configuration moves
 between the two packages unchanged.
-
-`ShardConfig` is not ported yet (ROADMAP.md, modules item 11).
 """
 
 from __future__ import annotations
@@ -75,3 +73,17 @@ class PostConfig:
     denoise_sigma: float = 5.0
     denoise_k_sigma: float = 1.0
     denoise_threshold: float = 0.08
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardConfig:
+    """Mesh layout of the sharded render and training steps (`parallel/`):
+    image rows shard over `tiles` ranks, the per-frame sample budget over
+    `samples` ranks, whose radiance is averaged by an all-reduce."""
+
+    tiles: int = 1
+    samples: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.tiles * self.samples

@@ -34,14 +34,17 @@ from ..scene.types import RenderParams, SceneData
 def render_frame_diff(scene, params, *, width: int, height: int, aspect: float,
                       samples_per_frame: int = 1, max_bounces: int = 4,
                       env_importance: bool = False, intersector: str = "auto",
+                      row_offset: int = 0, full_height: int | None = None,
                       plain: bool = False):
     """`ops.trace.render_frame` with the differentiable intersect path.
-    `plain=True` intersects through the MT kernels' plain versions."""
+    `row_offset` / `full_height` render one row band of a taller image
+    (`parallel.diffshard`).  `plain=True` intersects through the MT
+    kernels' plain versions."""
     return render_frame(
         scene, params, width=width, height=height, aspect=aspect,
         samples_per_frame=samples_per_frame, max_bounces=max_bounces,
         env_importance=env_importance, differentiable=True, intersector=intersector,
-        plain=plain,
+        row_offset=row_offset, full_height=full_height, plain=plain,
     )
 
 

@@ -477,10 +477,37 @@ def _r2_point(frame: int, samples_per_frame: int, s: int, device):
     return torch.from_numpy(np.mod(n * _R2, np.float32(1.0))).to(device)
 
 
+def band_pixels(width: int, height: int, frame: int, *, row_offset: int = 0,
+                full_height: int | None = None, seed_salt=None, blocked: bool = False,
+                device="cpu"):
+    """The pixels of rows [row_offset, row_offset + height) of a
+    `full_height`-tall image, as `render_frame` lays them out: flat (xs, ys)
+    int64 in global coordinates (screen-block order of the band when
+    `blocked`, else row-major), their uvs (R, 2) f32 with uv.y = ys /
+    full_height, and their seeds `pixel_seed(xs + ys * width, frame)` plus
+    `seed_salt`, mod 2**32 (salt None or 0: the unsharded stream)."""
+    if full_height is None:
+        full_height = height
+    if blocked:
+        xs, ys = blocked_pixel_grid(height, width, device)
+    else:
+        ys, xs = torch.meshgrid(torch.arange(height, device=device),
+                                torch.arange(width, device=device), indexing="ij")
+        xs, ys = xs.reshape(-1), ys.reshape(-1)
+    ys = ys + int(row_offset)
+    uv = torch.stack([xs.to(torch.float32) / float(width),
+                      ys.to(torch.float32) / float(full_height)], dim=-1)
+    seed = rng.pixel_seed(xs + ys * width, frame)
+    if seed_salt is not None:
+        seed = (seed + (int(seed_salt) & 0xFFFFFFFF)) & 0xFFFFFFFF
+    return xs, ys, uv, seed
+
+
 def render_frame(scene, params, *, width: int, height: int, aspect: float,
                  samples_per_frame: int = 1, max_bounces: int = 4,
                  env_importance: bool = False, differentiable: bool = False,
-                 intersector: str = "auto", blue_noise=None, sort_bounces=None,
+                 intersector: str = "auto", blue_noise=None, row_offset: int = 0,
+                 full_height: int | None = None, seed_salt=None, sort_bounces=None,
                  sort_window=None, tile_rays=None, plain: bool = False):
     """Render one progressive frame at (height, width): (H, W, 3) f32 on the
     scene's device.  Row 0 is the bottom of the camera frustum.
@@ -501,6 +528,13 @@ def render_frame(scene, params, *, width: int, height: int, aspect: float,
     rotation) in place of the two hash draws, so the error across pixels is
     high-frequency; every other draw keeps the per-pixel PCG stream.
 
+    Sharding hooks (`parallel.sharded`): the call renders rows
+    [row_offset, row_offset + height) of a `full_height`-tall image, with
+    seeds, uv.y, the AA resolution and the blue-noise lookup in global
+    coordinates, so the bands of a row-sharded frame put together give the
+    unsharded frame (`band_pixels`).  `seed_salt` (an integer) is added to
+    every pixel seed mod 2**32 to decorrelate the sample axis's shards.
+
     `plain=True` intersects through the kernels' plain PyTorch versions on
     any device (a reference for the kernel path); the default launches the
     kernels for CUDA tensors and runs the plain versions for CPU tensors."""
@@ -509,17 +543,14 @@ def render_frame(scene, params, *, width: int, height: int, aspect: float,
     fused = kind in ("mt_pallas", "mt_stream") and not differentiable
     device = tri_pos.device
 
-    if not fused:
-        ys, xs = torch.meshgrid(torch.arange(height, device=device),
-                                torch.arange(width, device=device), indexing="ij")
-        xs, ys = xs.reshape(-1), ys.reshape(-1)
-    else:
-        xs, ys = blocked_pixel_grid(height, width, device)
-    uv = torch.stack([xs.to(torch.float32) / float(width),
-                      ys.to(torch.float32) / float(height)], dim=-1)
-    seed = rng.pixel_seed(xs + ys * width, params.frame)
+    if full_height is None:
+        full_height = height
+    xs, ys, uv, seed = band_pixels(width, height, params.frame, row_offset=row_offset,
+                                   full_height=full_height, seed_salt=seed_salt,
+                                   blocked=fused, device=device)
     base_o, base_d = camera_ops.camera_rays(params.camera, uv, aspect)
-    resolution = torch.tensor([width, height], dtype=torch.float32, device=device)
+    # AA jitter scales by the whole image's resolution, not the band's
+    resolution = torch.tensor([width, full_height], dtype=torch.float32, device=device)
     if blue_noise is not None:
         bn = torch.as_tensor(blue_noise, dtype=torch.float32, device=device)
         bn_pix = bn[ys % bn.shape[0], xs % bn.shape[1]]  # per-pixel CP offsets (R, 2)

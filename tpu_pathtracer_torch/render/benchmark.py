@@ -27,8 +27,8 @@ Methodology, as in the JAX package:
   5. Physics gate: the throughput the slope implies, at a minimal cost per
      ray, must stay under the H100 SXM data sheet's peaks.
 
-`bench_scaling` (the sharded mesh-size table) is not ported: sharding is
-not (ROADMAP.md).
+`bench_scaling` is the sharded mesh-size table: the same slope method over
+`parallel.sharded.make_sharded_render_all` at growing tile counts.
 """
 
 from __future__ import annotations
@@ -84,7 +84,7 @@ def make_budget(width: int, height: int, spp: int, bounces: int, aspect=None,
     from .renderer import make_frame_step
 
     aspect = aspect if aspect is not None else width / height
-    step = make_frame_step(width, height, aspect, spp, bounces, True, intersector)
+    step = make_frame_step(width, height, aspect, spp, bounces, True, intersector=intersector)
 
     def budget(scene_d, params0, n_frames: int):
         acc = torch.zeros((height, width, 3), dtype=torch.float32,
@@ -273,11 +273,69 @@ def bench_config(
     )
 
 
-def bench_scaling(*args, **kwargs) -> list:
-    """The sharded mesh-size scaling table: not ported, since sharded
-    rendering is not (ROADMAP.md)."""
-    raise NotImplementedError("bench_scaling needs sharded rendering, which is not ported yet "
-                              "(ROADMAP.md)")
+def bench_scaling(
+    scene_data,
+    cam,
+    *,
+    width: int = 256,
+    height: int = 256,
+    spp: int = 1,
+    bounces: int = 4,
+    tile_counts=(1, 2, 4, 8),
+    reps: int = 3,
+    target_seconds: float = 1.0,
+    max_frames: int = 512,
+    log: Callable[[str], None] = lambda s: None,
+) -> list:
+    """Mesh-size scaling table: the slope-timed per-frame cost of the
+    sharded whole-budget render (`make_sharded_render_all`) at growing tile
+    counts, with parallel efficiency against tiles=1.  Every rank of the
+    process group calls it (one process without a group: tiles=1 only); a
+    tile count above the world size, or not dividing `height`, is skipped
+    and logged.  Each tile count's ranks time their own budgets (no
+    profiler cross-check, as in JAX); the row holds the slowest rank's
+    slope, the same on every rank.  Ranks outside a count's mesh do no
+    work.  `max_frames` caps the calibrated budget (`measure_budget`).
+    Returns [{tiles, per_frame_s, efficiency, ok}, ...]."""
+    import torch
+    import torch.distributed as dist
+
+    from ..parallel import sharded
+    from ..parallel.mesh import make_mesh
+
+    grouped = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if grouped else 1
+    device = scene_data.packed.tri_pos.device
+    rows = []
+    base = None
+    for tiles in tile_counts:
+        if tiles > world or height % tiles:
+            log(f"scaling: skip tiles={tiles} (ranks={world}, height={height})")
+            continue
+        mesh = make_mesh(tiles=tiles, samples=1, device=device)
+        # [slope, not ok]: outside ranks add zeros to the max
+        res = torch.zeros(2, dtype=torch.float64, device=device)
+        if mesh.in_mesh:
+            render_all = sharded.make_sharded_render_all(
+                mesh, width=width, height=height, aspect=width / height,
+                samples_per_frame=spp, max_bounces=bounces,
+            )
+            r = measure_budget(
+                lambda scene, params, n: render_all(scene, params, n), scene_data, cam,
+                width=width, height=height, spp=spp, bounces=bounces, reps=reps,
+                target_seconds=target_seconds, max_frames=max_frames, profile=False, log=log,
+            )
+            res[0], res[1] = r.per_frame_s, float(not r.ok)
+        if grouped:
+            dist.all_reduce(res, op=dist.ReduceOp.MAX)
+        per_frame, ok = float(res[0]), not bool(res[1])
+        if base is None:
+            base = per_frame
+        eff = base / (per_frame * tiles) if per_frame > 0 else 0.0
+        rows.append({"tiles": tiles, "per_frame_s": per_frame, "efficiency": eff, "ok": ok})
+        log(f"scaling tiles={tiles}: {per_frame*1e3:.2f} ms/frame, "
+            f"efficiency {eff*100:.0f}% (ok={ok})")
+    return rows
 
 
 def headline_record(result: BenchResult, backend: str,

@@ -24,8 +24,17 @@ intersector as `ops.trace.resolve_intersector` does: 'auto' takes the MT
 kernels up to 262,144 padded triangles and the fat-leaf BVH walk ('bvh8')
 above.  `env_importance` (or `set_env_importance`) samples the environment
 by its CDFs, and `RenderConfig.blue_noise` jitters AA by a 64x64
-blue-noise table; either rebuilds the passes.  Not ported yet
-(ROADMAP.md): sharding (`shard`).
+blue-noise table; either rebuilds the passes.
+
+`shard=ShardConfig(tiles, samples)` renders on a (tiles, samples) mesh of
+`torch.distributed` ranks (`parallel/`): every rank of the mesh runs the
+same Renderer calls, holds its band of the accumulation and renders its
+band of each frame (bit-equal to the unsharded frame over the tiles; the
+sample shards averaged).  `accumulation`, `display`, `screenshot`,
+`save_state` and `load_state` work on the whole image (assembled by an
+all-reduce, so every rank of the mesh must call them together); only rank
+0 writes files.  With `shard=None` or one rank the render is unsharded, as
+in JAX; a mesh larger than the process group raises.
 """
 
 from __future__ import annotations
@@ -37,7 +46,8 @@ import numpy as np
 import torch
 
 from ..config import PostConfig, RenderConfig
-from ..ops.trace import accumulate, render_frame, resolve_intersector
+from ..ops.trace import accumulate as accumulate_op
+from ..ops.trace import render_frame, resolve_intersector
 from ..post.pipeline import postprocess
 from ..scene.host import Scene
 from ..scene.types import Camera, RenderParams, SceneData
@@ -48,13 +58,13 @@ Event = str  # 'reset' | 'start' | 'pause' | 'progress' | 'complete'
 
 
 def make_passes(width: int, height: int, aspect: float, samples_per_frame: int,
-                max_bounces: int, accumulate_frames: bool, intersector: str = "auto",
-                sort_bounces=None, tile_rays=None, sort_window=None,
-                env_importance: bool = False, blue_noise=None):
+                max_bounces: int, accumulate: bool, env_importance: bool = False,
+                intersector: str = "auto", blue_noise=None, sort_bounces=None,
+                tile_rays=None, sort_window=None):
     """The progressive frame's two passes: raytrace (scene, params) -> frame
     image, and accumulate (acc, image, frame) -> acc, folding the image into
     `acc` in place (the JAX step donates its accumulator, so nothing else
-    holds it)."""
+    holds it).  The parameters are `make_frame_step`'s."""
 
     def raytrace(scene: SceneData, params: RenderParams) -> torch.Tensor:
         return render_frame(
@@ -65,19 +75,21 @@ def make_passes(width: int, height: int, aspect: float, samples_per_frame: int,
         )
 
     def accumulate_pass(acc: torch.Tensor, img: torch.Tensor, frame: int) -> torch.Tensor:
-        return accumulate(acc, img, frame, enabled=accumulate_frames, out=acc)
+        return accumulate_op(acc, img, frame, enabled=accumulate, out=acc)
 
     return raytrace, accumulate_pass
 
 
 def make_frame_step(width: int, height: int, aspect: float, samples_per_frame: int,
-                    max_bounces: int, accumulate_frames: bool, intersector: str = "auto",
-                    sort_bounces=None, tile_rays=None, sort_window=None):
-    """The progressive step: render one frame and fold it into `acc` in
-    place (`make_passes` run back to back)."""
+                    max_bounces: int, accumulate: bool, env_importance: bool = False,
+                    intersector: str = "auto", blue_noise=None, sort_bounces=None,
+                    tile_rays=None, sort_window=None):
+    """The progressive step, with the JAX package's parameters: render one
+    frame and fold it into `acc` in place (`make_passes` run back to
+    back)."""
     raytrace, accumulate_pass = make_passes(
-        width, height, aspect, samples_per_frame, max_bounces, accumulate_frames, intersector,
-        sort_bounces, tile_rays, sort_window)
+        width, height, aspect, samples_per_frame, max_bounces, accumulate, env_importance,
+        intersector, blue_noise, sort_bounces, tile_rays, sort_window)
 
     def step(scene: SceneData, params: RenderParams, acc: torch.Tensor) -> torch.Tensor:
         return accumulate_pass(acc, raytrace(scene, params), params.frame)
@@ -98,9 +110,17 @@ class Renderer:
         enable_timing: bool = False,
         shard=None,
     ) -> None:
-        if shard is not None:
-            raise NotImplementedError("sharded rendering is not ported yet (ROADMAP.md)")
         self.device = torch.device(device)
+        self.shard = shard
+        self._mesh = None
+        if shard is not None and shard.num_devices > 1:
+            from ..parallel.mesh import make_mesh
+
+            self._mesh = make_mesh(tiles=shard.tiles, samples=shard.samples, device=self.device)
+            if not self._mesh.in_mesh:
+                raise ValueError(f"rank {self._mesh.rank} is outside the "
+                                 f"{shard.tiles}x{shard.samples} mesh")
+            self.device = self._mesh.device
         self.scene = scene
         self.camera = camera.to(self.device)
         self._config = config
@@ -136,18 +156,33 @@ class Renderer:
         bn = None
         if c.blue_noise:
             bn = torch.from_numpy(blue_noise_table(64)).to(self.device)
-        self._raytrace, self._accumulate = make_passes(
-            c.scaled_width, c.scaled_height, aspect=c.width / c.height,
-            samples_per_frame=c.samples_per_frame, max_bounces=c.max_bounces,
-            accumulate_frames=c.accumulate, intersector=c.intersector,
-            sort_bounces=c.sort_bounces, tile_rays=c.tile_rays, sort_window=c.sort_window,
-            env_importance=self.env_importance, blue_noise=bn,
-        )
+        if self._mesh is not None:
+            from ..parallel.sharded import make_sharded_passes
+
+            # JAX's sharded step takes no sort_bounces, tile_rays or
+            # sort_window: the environment's TPT_* settings apply
+            self._raytrace, self._accumulate = make_sharded_passes(
+                self._mesh, width=c.scaled_width, height=c.scaled_height,
+                aspect=c.width / c.height, samples_per_frame=c.samples_per_frame,
+                max_bounces=c.max_bounces, accumulate=c.accumulate,
+                env_importance=self.env_importance, intersector=c.intersector, blue_noise=bn)
+        else:
+            self._raytrace, self._accumulate = make_passes(
+                c.scaled_width, c.scaled_height, aspect=c.width / c.height,
+                samples_per_frame=c.samples_per_frame, max_bounces=c.max_bounces,
+                accumulate=c.accumulate, env_importance=self.env_importance,
+                intersector=c.intersector, blue_noise=bn, sort_bounces=c.sort_bounces,
+                tile_rays=c.tile_rays, sort_window=c.sort_window,
+            )
         self._timed_warm = False
         self._acc = self._zero_acc()
 
     def _zero_acc(self) -> torch.Tensor:
         c = self._config
+        if self._mesh is not None:
+            from ..parallel.sharded import zeros_acc
+
+            return zeros_acc(self._mesh, c.scaled_height, c.scaled_width)
         return torch.zeros((c.scaled_height, c.scaled_width, 3), dtype=torch.float32,
                            device=self.device)
 
@@ -249,24 +284,31 @@ class Renderer:
 
     def render(self) -> None:
         """Advance one progressive frame (the reference's per-rAF render())."""
+        self._render_frames(1)
+
+    def _render_frames(self, n: int) -> None:
+        """Advance up to `n` progressive frames, then emit one progress event."""
         self._compile_scene()
         if not (self.status == "sampling" and self._frame <= self._config.frames):
             return
-        params = self._params()
-        if self.enable_timing:
-            if not self._timed_warm:
-                # One untimed run first, so that the rolling averages hold
-                # steady-state numbers (the first launch builds the kernels);
-                # its result is dropped, the accumulation is untouched.
-                accumulate(self._acc, self._raytrace(self._scene_data, params), params.frame,
-                           enabled=self._config.accumulate)
-                self._timed_warm = True
-            img = self.timings["raytrace"].time_device(self._raytrace, self._scene_data, params)
-            self.timings["accumulate"].time_device(self._accumulate, self._acc, img,
-                                                   params.frame)
-        else:
-            self._accumulate(self._acc, self._raytrace(self._scene_data, params), params.frame)
-        self.frame = self._frame + 1
+        for _ in range(min(n, self._config.frames - self._frame + 1)):
+            params = self._params()
+            if self.enable_timing:
+                if not self._timed_warm:
+                    # One untimed run first, so that the rolling averages hold
+                    # steady-state numbers (the first launch builds the kernels);
+                    # its result is dropped, the accumulation is untouched.
+                    accumulate_op(self._acc, self._raytrace(self._scene_data, params),
+                                  params.frame, enabled=self._config.accumulate)
+                    self._timed_warm = True
+                img = self.timings["raytrace"].time_device(self._raytrace, self._scene_data,
+                                                           params)
+                self.timings["accumulate"].time_device(self._accumulate, self._acc, img,
+                                                       params.frame)
+            else:
+                self._accumulate(self._acc, self._raytrace(self._scene_data, params),
+                                 params.frame)
+            self.frame = self._frame + 1
         self.emit("progress", self.progress)
 
     def render_all(self, *, checkpoint_path: Optional[str] = None,
@@ -274,13 +316,18 @@ class Renderer:
         """Run the full progressive budget; returns the raw accumulation.
         With `checkpoint_path` and `checkpoint_every=N` the state is saved
         every N frames and at the end, so a render that is stopped resumes
-        from its last checkpoint through `load_state`."""
+        from its last checkpoint through `load_state`.  Sharded (and not
+        timed), progress events and checkpoints come after chunks of
+        min(remaining, checkpoint_every or 32) frames, JAX's sharded
+        schedule; the frames of a chunk still run one by one."""
         if self.status == "idle":
             self.reset()
+        sharded = self._mesh is not None and not self.enable_timing
+        chunk = (checkpoint_every or 32) if sharded else 1
         while self.status == "sampling" and self._frame <= self._config.frames:
-            self.render()
-            if (checkpoint_path and checkpoint_every
-                    and (self._frame - 1) % checkpoint_every == 0):
+            self._render_frames(chunk)
+            if checkpoint_path and checkpoint_every and (
+                    sharded or (self._frame - 1) % checkpoint_every == 0):
                 self.save_state(checkpoint_path)
         if checkpoint_path and checkpoint_every:
             self.save_state(checkpoint_path)
@@ -290,8 +337,17 @@ class Renderer:
 
     @property
     def accumulation(self) -> torch.Tensor:
-        """Raw accumulated radiance at render resolution (h, w, 3)."""
+        """Raw accumulated radiance at render resolution (h, w, 3); sharded,
+        the whole image assembled from the ranks' bands."""
+        if self._mesh is not None:
+            from ..parallel.sharded import assemble
+
+            return assemble(self._mesh, self._acc, self._config.scaled_height)
         return self._acc
+
+    @property
+    def _writes_files(self) -> bool:
+        return self._mesh is None or self._mesh.rank == 0
 
     def display(self) -> torch.Tensor:
         """Post-processed display image at full resolution (upscale ->
@@ -299,7 +355,7 @@ class Renderer:
         c = self._config
 
         def run():
-            return postprocess(self._acc, self.post, c.height, c.width)
+            return postprocess(self.accumulation, self.post, c.height, c.width)
 
         if self.enable_timing:
             return self.timings["fullscreen"].time_device(run)
@@ -309,7 +365,9 @@ class Renderer:
         """Save the display image as PNG (reference: canvas.toDataURL)."""
         from ..io.image import write_png
 
-        write_png(path, np.asarray(self.display().cpu()), flip_vertical=True)
+        img = self.display()
+        if self._writes_files:
+            write_png(path, np.asarray(img.cpu()), flip_vertical=True)
 
     # ------------------------------------------------------------- resume
 
@@ -317,11 +375,18 @@ class Renderer:
         """Checkpoint the progressive render (accumulation and frame
         counter) as the JAX package's npz: acc (h, w, 3) float32, frame,
         frames and spp as integers."""
-        np.savez(path, acc=self._acc.detach().cpu().numpy(), frame=self._frame,
-                 frames=self._config.frames, spp=self._config.samples_per_frame)
+        acc = self.accumulation.detach().cpu().numpy()
+        if self._writes_files:
+            np.savez(path, acc=acc, frame=self._frame, frames=self._config.frames,
+                     spp=self._config.samples_per_frame)
 
     def load_state(self, path: str) -> None:
         data = np.load(path)
-        self._acc = torch.from_numpy(np.ascontiguousarray(data["acc"], np.float32)).to(self.device)
+        acc = np.ascontiguousarray(data["acc"], np.float32)
+        if self._mesh is not None:
+            from ..parallel.sharded import acc_sharding
+
+            acc = np.ascontiguousarray(acc[acc_sharding(self._mesh, acc.shape[0])])
+        self._acc = torch.from_numpy(acc).to(self.device)
         self._frame = int(data["frame"])
         self.status = "sampling" if self._frame <= self._config.frames else "idle"
