@@ -88,7 +88,20 @@ public entry points:
     card (they join with gloo, the ranks outnumbering the cards), its
     accumulation (.hdr) against the unsharded CLI's; then one NCCL rank whose (1, 1) step
     equals the unsharded frame, before and after an all-reduce.  A rank
-    that fails or outlasts SHARD_TIMEOUT fails the run.
+    that fails or outlasts SHARD_TIMEOUT fails the run;
+  * gltf+viewer, at 512x512, 1 sample per pixel, 6 bounces: the default
+    scene (`cli export`) and the stress scene's mesh_scene(320)
+    (`io.gltf.save_glb`) written to GLB plain, Draco lossless and Draco
+    14/10 bits, loaded back with normalize=False and rendered through
+    'auto' (the nf kernel for the default scene, the streamed one for the
+    mesh): the lossless frame equal to the plain GLB's bit for bit, the
+    plain GLB's to the procedural scene's (bit-equal, else the outlier
+    rule), the 14-bit positions within one quantisation step, each frame
+    timed in turns with the procedural one; `cli render --scene` of the
+    Draco mesh GLB (normalized) and `cli export --draco`; a ViewerServer on
+    127.0.0.1:0 with its session on the card, which gets the Draco mesh GLB
+    through /upload/scene, serves 16 progressive frames, /frame.png
+    (display(), so the denoise kernel) and resets on /params.
 
 The near-to-far, list, cond, streamed and MXU walks are Hopper redesigns
 (csrc/nf_walk.cu, csrc/cond_walk.cu, csrc/stream_walk.cu,
@@ -1725,28 +1738,31 @@ def _cond_e2e_phase(mt_shade, trace, data, frame_params, kw, phi, counters, resu
     return launches["cond"]["mt_cond"]
 
 
+def _cli_quiet(argv):
+    """`tpu_pathtracer_torch.cli.main(argv)` in this process with its output
+    kept; checks the exit code; (stdout, stderr, seconds)."""
+    import contextlib
+    import io
+
+    from tpu_pathtracer_torch.cli import main as cli
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli(argv)
+    _check(rc == 0, f"cli {argv}: exit {rc}\n{err.getvalue()}")
+    return out.getvalue(), err.getvalue(), time.perf_counter() - t0
+
+
 def _cli_phase(results, tag):
     """The port's CLI in this process, on the card: `benchmark` at the
     headline shape (its record must hold: no 'suspect', a device time);
     `render` of 16 frames with --timing and --checkpoint, then --resume to
     32 frames, whose accumulation must equal a fresh 32-frame render's bit
     for bit, with nonzero pass timings; `render --env sky:elevation=30`."""
-    import contextlib
-    import io
-
     import numpy as np
 
-    from tpu_pathtracer_torch.cli import main as cli
-
-    def run(argv):
-        out, err = io.StringIO(), io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            rc = cli(argv)
-        _check(rc == 0, f"cli {argv}: exit {rc}\n{err.getvalue()}")
-        return out.getvalue(), err.getvalue(), time.perf_counter() - t0
-
-    out, err, sec = run(["benchmark", "--width", str(WIDTH), "--height", str(HEIGHT),
+    out, err, sec = _cli_quiet(["benchmark", "--width", str(WIDTH), "--height", str(HEIGHT),
                          "--bounces", str(BOUNCES)])
     rec = json.loads(out.strip().splitlines()[-1])
     print(f"cli benchmark ({sec:.1f} s): {json.dumps(rec)}")
@@ -1757,17 +1773,18 @@ def _cli_phase(results, tag):
     build.mkdir(exist_ok=True)
     base = ["render", "--no-denoise", "--tonemap", "aces"]
     paths = {k: build / f"chip_smoke_cli_{k}" for k in ("first.npz", "resumed.npz", "fresh.npz")}
-    _, err, _ = run(base + ["--frames", "16", "--timing", "--checkpoint", str(paths["first.npz"]),
-                            "-o", str(build / "chip_smoke_cli_16.png")])
+    _, err, _ = _cli_quiet(base + ["--frames", "16", "--timing", "--checkpoint",
+                                   str(paths["first.npz"]), "-o",
+                                   str(build / "chip_smoke_cli_16.png")])
     timings = {line.split()[0]: float(line.split()[1]) for line in err.splitlines()
                if line.strip().endswith("us/frame")}
     print(f"cli render 16 frames --timing: pass timings {timings} us/frame")
     _check(set(timings) == {"raytrace", "accumulate", "fullscreen"}
            and all(v > 0 for v in timings.values()), f"cli render --timing: {timings}")
-    run(base + ["--frames", "32", "--resume", str(paths["first.npz"]), "--checkpoint",
-                str(paths["resumed.npz"]), "-o", str(build / "chip_smoke_cli_resumed.png")])
-    run(base + ["--frames", "32", "--checkpoint", str(paths["fresh.npz"]),
-                "-o", str(build / "chip_smoke_cli_fresh.png")])
+    _cli_quiet(base + ["--frames", "32", "--resume", str(paths["first.npz"]), "--checkpoint",
+                       str(paths["resumed.npz"]), "-o", str(build / "chip_smoke_cli_resumed.png")])
+    _cli_quiet(base + ["--frames", "32", "--checkpoint", str(paths["fresh.npz"]),
+                       "-o", str(build / "chip_smoke_cli_fresh.png")])
     resumed, fresh = np.load(paths["resumed.npz"]), np.load(paths["fresh.npz"])
     same = (np.array_equal(resumed["acc"], fresh["acc"])
             and int(resumed["frame"]) == int(fresh["frame"]) == 33)
@@ -1775,10 +1792,251 @@ def _cli_phase(results, tag):
           f"for bit: {same}")
     _check(same, "cli resume differs from a fresh render")
     sky = build / "chip_smoke_cli_sky.png"
-    _, _, sec = run(["render", "--env", "sky:elevation=30", "--frames", "16", "-o", str(sky)])
+    _, _, sec = _cli_quiet(["render", "--env", "sky:elevation=30", "--frames", "16", "-o",
+                            str(sky)])
     _check(sky.exists() and sky.stat().st_size > 1000, "cli sky render wrote no image")
     print(f"cli render --env sky:elevation=30 ({sec:.1f} s) -> {sky.relative_to(ROOT)}")
     results.update(cli_render_timings_us=timings, cli_resume_equal=same)
+
+
+GLTF_BOUNCES = 6  # the gltf+viewer phase's frames: 512x512, 1 sample per pixel
+VIEWER_FRAMES = 16  # progressive frames the viewer must serve from an uploaded GLB
+VIEWER_TIMEOUT = 180.0  # s, for those frames (the upload's compile included)
+PNG_REQUESTS = 20  # /frame.png fetches timed in each viewer run
+
+
+def _gltf_viewer_phase(pt, trace, counters, results, tag):
+    """glTF and Draco import, export and the viewer on the card.  The
+    default scene (through `cli export`) and the stress scene
+    mesh_scene(320) (through `save_glb`) go to GLB three ways: plain, Draco
+    lossless (0 bits) and Draco at 14/10 bits.  Each loads back with
+    normalize=False and renders one frame at 512x512, 1 sample per pixel, 6
+    bounces through 'auto' (#1 for the default scene, #3 for the mesh),
+    every launch count set to 0 just before and read just after: the
+    lossless frame must equal the plain GLB's bit for bit, the plain GLB's
+    the procedural scene's (bit-equal, else the outlier rule), and the
+    14-bit positions stay within one quantisation step.  Then `cli render
+    --scene mesh.glb` (normalized, as the CLI loads it) and `cli export`,
+    then `_viewer_run` with the Draco mesh GLB: checked once, and timed in
+    turns against a session whose requests wait on the lock alone (the
+    JAX session's locking): no turn, turn, turn, no turn."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from tpu_pathtracer_torch.io.gltf import load_gltf, save_glb
+    from tpu_pathtracer_torch.scene.envmap import gradient_sky
+    from tpu_pathtracer_torch.viewer import ViewerSession
+
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    kw = dict(width=WIDTH, height=HEIGHT, aspect=WIDTH / HEIGHT, samples_per_frame=1,
+              max_bounces=GLTF_BOUNCES)
+    params = pt.RenderParams.create(pt.Camera.create(**CAMERA, device="cuda"), frame=1)
+    ways = {"plain": [], "lossless": ["--draco", "--draco-bits", "0", "--draco-normal-bits", "0"],
+            "draco14": ["--draco"]}
+    procedural = {"default": pt.default_scene(gradient_sky(64, 128)),
+                  "mesh": _mesh_scene(pt, STRESS_SEGMENTS)}
+    expect = {"default": "mt_nf", "mesh": "mt_stream"}
+    out = {}
+    for name, proc in procedural.items():
+        paths = {way: out_dir / f"chip_smoke_{name}_{way}.glb" for way in ways}
+        for way, flags in ways.items():
+            if name == "default":
+                _cli_quiet(["export", "-o", str(paths[way]), *flags])
+            else:
+                bits = (0, 0) if way == "lossless" else (14, 10)
+                save_glb(proc.meshes, str(paths[way]), draco=way != "plain",
+                         draco_position_bits=bits[0], draco_normal_bits=bits[1])
+        sizes = {way: paths[way].stat().st_size for way in ways}
+        loaded, decode_s = {}, {}
+        for way in ways:
+            t0 = time.perf_counter()
+            loaded[way] = load_gltf(str(paths[way]), normalize=False)
+            decode_s[way] = time.perf_counter() - t0
+        for a, b in zip(loaded["plain"], proc.meshes):  # arrays and transforms exactly
+            _check(np.array_equal(a.positions, b.positions) and np.array_equal(a.normals, b.normals)
+                   and np.array_equal(a.indices, np.asarray(b.indices).reshape(-1, 3))
+                   and np.array_equal(a.transform, b.transform), f"{name}: plain GLB arrays differ")
+        for a, b in zip(loaded["lossless"], loaded["plain"]):
+            _check(all(np.array_equal(getattr(a, f), getattr(b, f)) for f in
+                       ("positions", "normals", "indices", "transform")),
+                   f"{name}: lossless Draco arrays differ from the plain GLB's")
+        q_err = []
+        for a, b in zip(loaded["draco14"], loaded["plain"]):
+            step = float((b.positions.max(0) - b.positions.min(0)).max()) / (2 ** 14 - 1)
+            err = float(np.abs(a.positions - b.positions).max())
+            _check(err <= step, f"{name}: 14-bit positions off by {err} > one step {step}")
+            q_err.append((err, step))
+        scenes, compile_s, frames, launches = {"procedural": proc}, {}, {}, {}
+        for way, meshes in loaded.items():
+            scenes[way] = pt.Scene()
+            for m in meshes:
+                scenes[way].add(m)
+            scenes[way].set_environment(proc.env_radiance)
+        data = {}
+        for key, sc in scenes.items():
+            t0 = time.perf_counter()
+            data[key] = sc.compile(device="cuda")
+            torch.cuda.synchronize()
+            compile_s[key] = time.perf_counter() - t0
+            for fn in counters.values():
+                fn.launches = 0
+            frames[key] = trace.render_frame(data[key], params, **kw)
+            torch.cuda.synchronize()
+            launches[key] = {n: fn.launches for n, fn in counters.items() if fn.launches}
+            _check(launches[key].get(expect[name], 0) >= 1
+                   and not _mt_launched(launches[key], (expect[name],)),
+                   f"{name} {key}: launches {launches[key]}, expected {expect[name]} alone")
+            img = frames[key]
+            _check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+                   f"{name} {key}: frame not finite or black")
+        _check(torch.equal(frames["lossless"], frames["plain"]),
+               f"{name}: the lossless Draco frame differs from the plain GLB's")
+        differ = int((frames["plain"] != frames["procedural"]).any(dim=-1).sum())
+        verdict = _equal_or_outliers(frames["plain"], frames["procedural"])
+        d14 = (frames["draco14"] - frames["plain"]).abs().amax(dim=-1)
+        times = _in_turns({"procedural": lambda: trace.render_frame(data["procedural"], params,
+                                                                     **kw),
+                           "gltf": lambda: trace.render_frame(data["plain"], params, **kw)},
+                          ("procedural", "gltf", "gltf", "procedural"))
+        print(f"gltf {name} ({sum(len(np.asarray(m.indices).reshape(-1, 3)) for m in proc.meshes)}"
+              f" triangles, {data['plain'].packed.tri_pos.shape[0]} padded): GLB bytes plain "
+              f"{sizes['plain']}, Draco lossless {sizes['lossless']}, Draco 14/10 "
+              f"{sizes['draco14']}; host load_gltf s plain {decode_s['plain']:.4f}, lossless "
+              f"{decode_s['lossless']:.4f}, 14/10 {decode_s['draco14']:.4f}")
+        print(f"gltf {name}: compile s procedural {compile_s['procedural']:.3f}, plain "
+              f"{compile_s['plain']:.3f}, lossless {compile_s['lossless']:.3f}, 14/10 "
+              f"{compile_s['draco14']:.3f}; launches a frame {launches['plain']}")
+        print(f"gltf {name}: lossless Draco frame equal to the plain GLB's bit for bit; plain "
+              f"GLB frame vs procedural: {differ} pixels differ, {verdict}; 14/10 positions "
+              f"within one step (max err / step "
+              + ", ".join(f"{e:.3e}/{st:.3e}" for e, st in q_err)
+              + f"), its frame differs from plain's on {int((d14 > 0).sum())} pixels")
+        print(f"timing {tag}: gltf {name} frame ({GLTF_BOUNCES} bounces) in turns (procedural, "
+              f"glTF, glTF, procedural): {_turns(times, 'procedural', 'gltf')} ms")
+        out[name] = dict(glb_bytes=sizes, load_s=decode_s, compile_s=compile_s,
+                         launches=launches["plain"], plain_vs_procedural=verdict,
+                         pixels_differ=differ, q14=q_err, frame_ms=times)
+        del frames, data, scenes
+
+    # the CLI on the card: render a normalized mesh GLB, export a GLB to Draco
+    mesh_glb = out_dir / "chip_smoke_mesh_draco14.glb"
+    for fn in counters.values():
+        fn.launches = 0
+    _, _, sec = _cli_quiet(["render", "--scene", str(mesh_glb), "--width", str(WIDTH),
+                            "--height", str(HEIGHT), "--bounces", str(GLTF_BOUNCES),
+                            "--frames", "2", "-o", str(out_dir / "chip_smoke_cli_gltf.png")])
+    torch.cuda.synchronize()
+    cli_launches = {n: fn.launches for n, fn in counters.items() if fn.launches}
+    _check(cli_launches.get("mt_stream", 0) >= 2 and cli_launches.get("denoise", 0) >= 1,
+           f"cli render --scene mesh.glb: launches {cli_launches}")
+    _, err, sec_x = _cli_quiet(["export", "--scene", str(mesh_glb), "--draco", "-o",
+                                str(out_dir / "chip_smoke_cli_export.glb")])
+    print(f"cli render --scene {mesh_glb.name} (normalized, 2 frames, {sec:.1f} s): launches "
+          f"{cli_launches}; cli export --draco ({sec_x:.2f} s): {err.strip()}")
+    out["cli"] = dict(render_s=sec, launches=cli_launches, export_s=sec_x)
+
+    # the viewer: a session on the card behind the HTTP server; the checked
+    # run in turns with sessions whose requests wait on the lock alone
+    class NoTurn(ViewerSession):
+        """The JAX session's locking: a request waits on the lock alone."""
+
+        @contextlib.contextmanager
+        def _turn(self):
+            with self.lock:
+                yield
+
+    runs = []
+    for label, cls, checked in (("no turn", NoTurn, False), ("turn", ViewerSession, True),
+                                ("turn", ViewerSession, False), ("no turn", NoTurn, False)):
+        runs.append((label, _viewer_run(pt, counters, cls, mesh_glb, checked)))
+    view = runs[1][1]
+    print(f"viewer (session on cuda, {WIDTH}x{HEIGHT}, {GLTF_BOUNCES} bounces): uploaded "
+          f"{mesh_glb.name} ({view['triangles']} triangles) in {view['upload_s']:.2f} s; "
+          f"{view['frames']} progressive frames; launches {view['launches']}; /params reset "
+          f"frame {view['reset'][0]} -> {view['reset'][1]}")
+    for label, got in runs:
+        lat = got["png_ms"]
+        print(f"timing {tag}: viewer ({label}) {got['fps']:.2f} frames/s by the host clock "
+              f"(rolling meter {got['meter_fps']} fps); /frame.png latency over "
+              f"{len(lat)} requests: median {statistics.median(lat):.1f} ms, max "
+              f"{max(lat):.1f} ms")
+    out["viewer"] = [{"locking": label, **got} for label, got in runs]
+    results["gltf_viewer"] = out
+    return {"mt_nf": out["default"]["launches"].get("mt_nf", 0),
+            "mt_stream": out["mesh"]["launches"].get("mt_stream", 0)
+            + cli_launches.get("mt_stream", 0) + view["launches"].get("mt_stream", 0),
+            "denoise": cli_launches.get("denoise", 0) + view["launches"].get("denoise", 0)}
+
+
+def _viewer_run(pt, counters, session_cls, glb: Path, checked: bool) -> dict:
+    """A ViewerServer on 127.0.0.1:0 with a `session_cls` session on the
+    card (512x512, 6 bounces): `glb` uploaded through /upload/scene,
+    VIEWER_FRAMES progressive frames awaited (frames/s by the host clock
+    from the end of the first), then PNG_REQUESTS fetches of /frame.png 50
+    ms apart (latency by the host clock).  `checked`: every launch count
+    set to 0 before the upload and read after the fetches (the streamed
+    walk a bounce, the denoise kernel for display(), no other MT kernel),
+    and /params must reset the accumulation.  The server stops in a
+    finally; `stop()` raises if the render loop failed or outlived its
+    limit."""
+    import urllib.request
+
+    from tpu_pathtracer_torch.viewer import ViewerServer
+
+    cfg = pt.RenderConfig(width=WIDTH, height=HEIGHT, scaling_factor=1.0, frames=2048,
+                          samples_per_frame=1, max_bounces=GLTF_BOUNCES)
+    server = ViewerServer(session_cls(config=cfg, device="cuda"), port=0)
+    session = server.session
+    server.start()
+    try:
+        url = server.url.rstrip("/")
+        session.control("pause")  # no frame of the start-up scene past this point
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        req = urllib.request.Request(url + "/upload/scene", data=glb.read_bytes(), method="POST")
+        with urllib.request.urlopen(req, timeout=VIEWER_TIMEOUT) as r:
+            stats = json.loads(r.read())["scene_stats"]
+        upload_s = time.perf_counter() - t0
+        first = None
+        while session.renderer.frame <= VIEWER_FRAMES:
+            _check(time.perf_counter() - t0 < VIEWER_TIMEOUT,
+                   f"the viewer served {session.renderer.frame - 1} frames in {VIEWER_TIMEOUT} s")
+            if first is None and session.renderer.frame >= 2:
+                first = (time.perf_counter(), session.renderer.frame)
+            time.sleep(0.005)
+        t_end, frame_end = time.perf_counter(), session.renderer.frame
+        png_ms = []
+        for _ in range(PNG_REQUESTS):
+            t1 = time.perf_counter()
+            with urllib.request.urlopen(url + "/frame.png", timeout=60) as r:
+                body = r.read()
+            png_ms.append((time.perf_counter() - t1) * 1e3)
+            _check(body[:8] == b"\x89PNG\r\n\x1a\n", "/frame.png is not a PNG")
+            time.sleep(0.05)
+        state = session.state()
+        got = dict(triangles=stats["triangles"], upload_s=upload_s, frames=frame_end - 1,
+                   fps=(frame_end - first[1]) / (t_end - first[0]), meter_fps=state["fps"],
+                   png_ms=png_ms)
+        if checked:
+            launches = {n: fn.launches for n, fn in counters.items() if fn.launches}
+            _check(launches.get("mt_stream", 0) >= VIEWER_FRAMES
+                   and launches.get("denoise", 0) >= 1
+                   and not _mt_launched(launches, ("mt_stream",)), f"viewer launches {launches}")
+            before = session.renderer.frame
+            req = urllib.request.Request(url + "/params", data=b'{"bounces": 4}', method="POST")
+            with urllib.request.urlopen(req, timeout=60) as r:
+                _check(json.loads(r.read())["params"]["bounces"] == 4, "/params did not apply")
+            after = session.renderer.frame
+            _check(after <= 2 < before,
+                   f"/params did not reset the accumulation ({before} -> {after})")
+            got.update(launches=launches, reset=(before, after))
+    finally:
+        server.stop()
+    return got
 
 
 SKY_SPEC = "sky:elevation=30,azimuth=90,turbidity=3"  # the CLI's sun-sky example
@@ -2448,6 +2706,10 @@ def main(argv=None) -> int:
     phase("sharded")
     sharded_launches = _sharded_phase(pt, trace, data, cam, counters, results, tag)
 
+    # --- glTF, Draco and the viewer: GLBs three ways, cli, ViewerServer ------
+    phase("gltf+viewer")
+    gltf_launches = _gltf_viewer_phase(pt, trace, counters, results, tag)
+
     # --- stress: streamed MT kernel vs plain on the stress scene's rays ------
     phase("stress")
     stress = _mesh_scene(pt, STRESS_SEGMENTS)
@@ -2613,7 +2875,7 @@ def main(argv=None) -> int:
          "replaces": "tpu_pathtracer/ops/pallas/mt_shade.py:308", "launches": launches["mt_nf"],
          "max_abs_err": max(mt_err, culls["nf"][0]), "ms": mt_ms, "plain_ms": mt_plain_ms,
          **bound(cull_bounds["nf"]), **walk("nf_headline_primary"),
-         "sharded_launches": sharded_launches[0]},
+         "sharded_launches": sharded_launches[0], "gltf_launches": gltf_launches["mt_nf"]},
         {"name": "denoise", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/denoise.cu",
          "replaces": "tpu_pathtracer/ops/pallas/denoise.py:33",
          "launches": launches["denoise"], "max_abs_err": den_err, "ms": den512["ms"],
@@ -2622,12 +2884,13 @@ def main(argv=None) -> int:
          "v1_kernel_ms": den512["v1_kernel_ms"], "ms_1080p": den1080["ms"],
          "kernel_ms_1080p": den1080["kernel_ms"], "v1_ms_1080p": den1080["v1_ms"],
          "v1_kernel_ms_1080p": den1080["v1_kernel_ms"], "bound_ms_1080p": den1080["bound_ms"],
-         "sharded_launches": sharded_launches[1]},
+         "sharded_launches": sharded_launches[1], "gltf_launches": gltf_launches["denoise"]},
         {"name": "mt_stream", "route": "cuda",
          "source": "tpu_pathtracer_torch/csrc/stream_walk.cu",
          "replaces": "tpu_pathtracer/ops/pallas/mt_shade.py:628",
          "launches": s_launches["mt_stream"], "max_abs_err": stream_err, "ms": st_ms,
-         "plain_ms": st_plain_ms, **bound(st_bound), **walk("stream_stress_primary")},
+         "plain_ms": st_plain_ms, **bound(st_bound), **walk("stream_stress_primary"),
+         "gltf_launches": gltf_launches["mt_stream"]},
         {"name": "mt_list", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/nf_walk.cu",
          "replaces": "tpu_pathtracer/ops/pallas/mt_shade.py:255",
          "launches": cull_launches["list"], "max_abs_err": culls["list"][0],

@@ -1,22 +1,37 @@
 """The port's CLI (`python -m tpu_pathtracer_torch.cli`) with `--device cpu`,
 mirroring tests/test_cli.py (info, render with checkpoint and resume, a
-scaled render, benchmark, invert), and its numpy codecs held byte for byte
-to the JAX package's: the Radiance HDR writer and reader, and the sun-sky
-environment."""
+scaled render, benchmark, invert, view, export, a glTF scene), and its
+numpy codecs held byte for byte to the JAX package's: the Radiance HDR
+writer and reader, and the sun-sky environment."""
 
 import json
+import time
+import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 from tpu_pathtracer.io import hdr as jhdr
 from tpu_pathtracer.io.image import read_png
 from tpu_pathtracer.scene import sky as jsky
 from tpu_pathtracer_torch.cli import main
 from tpu_pathtracer_torch.io import hdr
+from tpu_pathtracer_torch.io.gltf import load_gltf
 from tpu_pathtracer_torch.scene import sky
 
 CPU = ["--device", "cpu"]
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread for these tests' many small ops: under the
+    suite's parallel workers, torch's default pool (a thread a core in
+    each worker) oversubscribes the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def test_cli_info(capsys):
@@ -117,26 +132,57 @@ def test_cli_shard_joins_with_the_rank_device(monkeypatch, tmp_path):
     ["render", "--shard-tiles", "2"],
 ], ids=["view", "export", "gltf", "env_importance", "blue_noise", "shard"])
 def test_cli_unported_options_raise(argv, tmp_path, monkeypatch):
-    """`view`, `export` and glTF are not ported and raise; the
-    env-importance and blue-noise options (which raised until they were
-    ported) render a 16x16 image; sharding (ported) outside torchrun
-    raises, since it has no process group to join, and renders nothing."""
+    """Every option that raised until it was ported now works: `view`
+    serves a 16x16 session (its /state read back, the server stopped),
+    `export` writes a GLB of the default scene, a glTF `--scene` renders,
+    and the env-importance and blue-noise options render a 16x16 image;
+    sharding (ported) outside torchrun raises, since it has no process
+    group to join, and renders nothing."""
+    small = ["--width", "16", "--height", "16", "--frames", "2", "--bounces", "2"]
+    if argv[0] == "view":
+        from tpu_pathtracer_torch import viewer
+
+        real, states = viewer.serve, []
+
+        def serve(host, port, session, block=True):
+            srv = real(host=host, port=0, session=session, block=False)
+            try:
+                t0 = time.time()
+                while session.version < 2 and time.time() - t0 < 60:
+                    time.sleep(0.02)
+                with urllib.request.urlopen(srv.url + "state", timeout=30) as r:
+                    states.append(json.loads(r.read()))
+            finally:
+                srv.stop()
+            return srv
+
+        monkeypatch.setattr(viewer, "serve", serve)
+        assert main(argv + small + ["--env", "black", *CPU]) == 0
+        assert states[0]["frame"] >= 2 and states[0]["params"]["env"] == "black"
+        assert states[0]["resolution"]["width"] == 16
+        return
+    if argv[0] == "export" or "--scene" in argv:
+        glb = tmp_path / "x.glb"
+        assert main(["export", "-o", str(glb), "--draco"]) == 0
+        meshes = load_gltf(str(glb), normalize=False)
+        assert sum(len(m.indices) for m in meshes) == 1998
+        if argv[0] == "export":
+            return
+        png = tmp_path / "r.png"
+        assert main(["render", "--scene", str(glb), *small, "-o", str(png), *CPU]) == 0
+        assert read_png(str(png)).shape[:2] == (16, 16)
+        return
     if argv[1:] in (["--env-importance"], ["--blue-noise"]):
         png = tmp_path / "r.png"
-        assert main(argv + ["--width", "16", "--height", "16", "--frames", "2", "--bounces", "2",
-                            "--env", "sky", "-o", str(png), *CPU]) == 0
+        assert main(argv + small + ["--env", "sky", "-o", str(png), *CPU]) == 0
         img = read_png(str(png))
         assert img.shape[:2] == (16, 16) and img.max() > 0
         return
-    if "--shard-tiles" in argv:
-        monkeypatch.delenv("WORLD_SIZE", raising=False)
-        png = tmp_path / "r.png"
-        with pytest.raises(RuntimeError, match="torchrun"):
-            main(argv + ["-o", str(png), *CPU])
-        assert not png.exists()
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(argv + CPU if argv[0] == "render" else argv)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    png = tmp_path / "r.png"
+    with pytest.raises(RuntimeError, match="torchrun"):
+        main(argv + ["-o", str(png), *CPU])
+    assert not png.exists()
 
 
 def test_hdr_codec_is_byte_equal_to_jax(tmp_path):

@@ -10,7 +10,14 @@ beside the package, named by a hash of the sources, the shared headers
 unchanged tree loads at once.  `ctypes` binds it; every entry point returns
 a CUDA error code.
 
-Nothing here runs at import: the first kernel launch calls `load()`.
+The host libraries (the native BVH builder and the Draco codec, plain
+C++ over `ctypes`) are built by `build_cxx`: `g++ -O3 -fPIC -shared
+-std=c++17` into the same directory, named by a hash of the flags and the
+source, written under a temporary name and renamed, so processes that
+build at the same time never load a half-written library.
+
+Nothing here runs at import: the first kernel launch calls `load()`, the
+first native call `build_cxx`.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -29,6 +37,38 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
+
+
+CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
+
+
+def cxx_library_path(src: Path, stem: str, build_dir: Path = BUILD_DIR) -> Path:
+    """Where the g++ library of `src` (and the flags) lives: `stem_<hash>.so`."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update(src.read_bytes())
+    return build_dir / f"{stem}_{h.hexdigest()[:16]}.so"
+
+
+def build_cxx(src: Path, stem: str, what: str, build_dir: Path = BUILD_DIR) -> Path:
+    """Compile `src` with g++ unless its library exists; returns its path.
+    Raises RuntimeError("<what> build failed ...") with the compiler's
+    output if g++ fails or is missing."""
+    out = cxx_library_path(src, stem, build_dir)
+    if out.exists():
+        return out
+    build_dir.mkdir(parents=True, exist_ok=True)
+    tmp = build_dir / f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so"
+    cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), str(src)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        raise RuntimeError(f"{what} build failed: {' '.join(cmd)}: {e}") from e
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{what} build failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
 
 
 def _sources() -> list[Path]:

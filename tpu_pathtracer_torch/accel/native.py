@@ -6,12 +6,11 @@ makes the numpy builder's exact decisions (double-precision sweep SAH,
 the same BFS flatten and skip links), so its arrays are byte-equal to
 `accel.bvh`'s numpy path, at a fraction of the host time on large meshes.
 
-`g++ -O3 -fPIC -shared -std=c++17` builds it on first use into
-`build/tpu_pathtracer_torch/`, named by a hash of the flags and the
-source, so a changed source rebuilds and an unchanged one loads at once.
-The build writes a temporary name and renames it, so processes that build
-at the same time never load a half-written library; a lock serialises the
-threads of one process.
+`_build.build_cxx` (g++ -O3 -fPIC -shared -std=c++17) builds it on first
+use into `build/tpu_pathtracer_torch/`, named by a hash of the flags and
+the source, so a changed source rebuilds and an unchanged one loads at
+once; the build writes a temporary name and renames it.  A lock
+serialises the threads of one process.
 
 There is no silent fallback: when the native builder is asked for and
 cannot be built or loaded, `get_lib` raises with the compiler's message.
@@ -22,19 +21,16 @@ returns None), as in the JAX package.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
 
-from .._build import BUILD_DIR
+from .._build import BUILD_DIR, build_cxx, cxx_library_path
 
 SRC = Path(__file__).resolve().parent.parent / "csrc" / "bvh_builder.cpp"
-CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -42,31 +38,14 @@ _lib: Optional[ctypes.CDLL] = None
 
 def library_path() -> Path:
     """Where the library for the current source and flags lives."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SRC.read_bytes())
-    return BUILD_DIR / f"libtpt_bvh_{h.hexdigest()[:16]}.so"
+    return cxx_library_path(SRC, "libtpt_bvh", BUILD_DIR)
 
 
 def build() -> Path:
     """Compile the builder unless the library for this source exists;
     returns its path.  Raises RuntimeError with the compiler's output if
     g++ fails or is missing."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so"
-    cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), str(SRC)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-    except (OSError, subprocess.TimeoutExpired) as e:
-        raise RuntimeError(f"native BVH build failed: {' '.join(cmd)}: {e}") from e
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"native BVH build failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    return build_cxx(SRC, "libtpt_bvh", "native BVH", BUILD_DIR)
 
 
 def get_lib() -> Optional[ctypes.CDLL]:

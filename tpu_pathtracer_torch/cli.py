@@ -4,12 +4,17 @@ The port of `tpu_pathtracer.cli`, with the same commands, flags and
 defaults, plus `--device` (default 'cuda'; 'cpu' runs every kernel's plain
 PyTorch version):
 
-  render     scene -> PNG (or linear .hdr), with checkpoint/resume,
-             `--timing` (per-pass meters), `--metrics` (JSONL events) and
-             `--profile DIR` (a torch.profiler trace of the render).
+  render     scene (the default scene or a .glb/.gltf path) -> PNG (or
+             linear .hdr), with checkpoint/resume, `--timing` (per-pass
+             meters), `--metrics` (JSONL events) and `--profile DIR` (a
+             torch.profiler trace of the render).
   benchmark  rays/s measurement (one JSON line, render/benchmark.py).
   invert     inverse-rendering demo: recover the material colors from a
              rendered target.
+  view       interactive viewer: a progressive render loop behind a small
+             HTTP server and browser page (viewer/).
+  export     convert/compress a scene to .glb, optionally Draco-compressed
+             through the native codec (io/draco.py).
   info       torch, CUDA and device diagnostic.
 
 `render` takes `--env-importance` (CDF importance sampling of the
@@ -21,9 +26,7 @@ process a rank under torchrun, e.g.
     torchrun --nproc-per-node 2 -m tpu_pathtracer_torch.cli render --shard-tiles 2
 
 (NCCL with a card a rank; gloo on the CPU, or where the ranks outnumber
-the cards and share them).  Rank 0 writes the outputs.  Not ported yet
-(ROADMAP.md), and raising NotImplementedError: `view`, `export` and a glTF
-`--scene`.
+the cards and share them).  Rank 0 writes the outputs.
 """
 
 from __future__ import annotations
@@ -34,14 +37,9 @@ import sys
 import time
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md)")
-
-
 def _add_render_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--scene", default="default",
-                   help="'default' (plane+box+sphere, src/main.ts:49-75); a .glb/.gltf path "
-                        "is not ported yet")
+                   help="'default' (plane+box+sphere, src/main.ts:49-75) or a .glb/.gltf path")
     p.add_argument("--env", default="gradient",
                    help="'gradient', 'black', 'sky[:elevation=30,azimuth=90,"
                         "turbidity=3]' (Preetham sun-sky), or a .hdr path")
@@ -83,10 +81,8 @@ def _build_scene(args):
 
     from .io.hdr import read_hdr
     from .scene.envmap import gradient_sky
-    from .scene.host import default_scene
+    from .scene.host import Scene, default_scene
 
-    if args.scene != "default":
-        raise _not_ported("loading a glTF scene (--scene PATH)")
     if args.env == "gradient":
         env = gradient_sky(512, 1024)
     elif args.env == "black":
@@ -97,25 +93,41 @@ def _build_scene(args):
         env = sun_sky(512, 1024, **parse_sky_spec(args.env))
     else:
         env = read_hdr(args.env)
-    return default_scene(env)
+
+    if args.scene == "default":
+        return default_scene(env)
+    from .io.gltf import load_gltf
+
+    scene = Scene()
+    for m in load_gltf(args.scene):
+        scene.add(m)
+    scene.set_environment(env)
+    return scene
+
+
+def _shard_config(args):
+    """The ShardConfig of `--shard-tiles` / `--shard-samples`, after joining
+    this rank's process group; None for one rank."""
+    if args.shard_tiles * args.shard_samples == 1:
+        return None
+    import torch.distributed as dist
+
+    from . import ShardConfig
+    from .parallel import multihost
+
+    multihost.initialize(device=args.device)
+    print(f"rank {dist.get_rank()} of {dist.get_world_size()} ({dist.get_backend()})",
+          file=sys.stderr)
+    return ShardConfig(tiles=args.shard_tiles, samples=args.shard_samples)
 
 
 def _build_renderer(args):
     import math
 
-    from . import PostConfig, RenderConfig, Renderer, ShardConfig, Tonemap
+    from . import PostConfig, RenderConfig, Renderer, Tonemap
     from .scene.types import Camera
 
-    shard = None
-    if args.shard_tiles * args.shard_samples > 1:
-        import torch.distributed as dist
-
-        from .parallel import multihost
-
-        multihost.initialize(device=args.device)
-        print(f"rank {dist.get_rank()} of {dist.get_world_size()} ({dist.get_backend()})",
-              file=sys.stderr)
-        shard = ShardConfig(tiles=args.shard_tiles, samples=args.shard_samples)
+    shard = _shard_config(args)
     scene = _build_scene(args)
     cam = Camera.create(
         position=tuple(args.camera_position),
@@ -277,8 +289,73 @@ def cmd_invert(args) -> int:
     return 0 if res.final_loss < res.losses[0] * 0.5 else 1
 
 
-def cmd_not_ported(args) -> int:
-    raise _not_ported(f"the {args.command!r} command")
+def cmd_view(args) -> int:
+    """Interactive viewer (the reference's browser app, src/main.ts)."""
+    import math
+
+    import numpy as np
+
+    from . import PostConfig, RenderConfig, Tonemap
+    from .utils.orbit import OrbitCamera
+    from .viewer import ViewerSession, serve
+
+    cfg = RenderConfig(
+        width=args.width, height=args.height, scaling_factor=args.scale,
+        frames=args.frames, samples_per_frame=args.spp, max_bounces=args.bounces,
+        intersector=args.intersector, blue_noise=args.blue_noise,
+    )
+    post = PostConfig(denoise=args.denoise, tonemap=Tonemap[args.tonemap.upper()])
+    shard = _shard_config(args)
+    scene = None
+    if args.scene != "default":
+        from .io.gltf import load_gltf, normalize_meshes
+        from .scene.host import Scene
+
+        scene = Scene()
+        for m in normalize_meshes(load_gltf(args.scene)):
+            scene.add(m)
+    radius = np.linalg.norm(np.asarray(args.camera_position, float) - np.asarray(args.look_at,
+                                                                                float))
+    orbit = OrbitCamera(target=tuple(args.look_at), radius=float(radius), fov=args.fov,
+                        focal_distance=args.focal_distance, aperture=args.aperture)
+    session = ViewerSession(config=cfg, post=post, scene=scene, orbit=orbit, shard=shard,
+                            device=args.device)
+    if args.env == "black" or args.env == "sky" or args.env.startswith("sky:"):
+        session.set_env(args.env)
+    elif args.env != "gradient":
+        with open(args.env, "rb") as f:
+            session.load_env_hdr(f.read(), name=args.env)
+    if args.env_importance:
+        session.renderer.set_env_importance(True)
+    if args.env_intensity != 1.0 or args.env_rotation != 0.0:
+        session.renderer.env_intensity = args.env_intensity
+        session.renderer.env_rotation = math.radians(args.env_rotation)
+    serve(host=args.host, port=args.port, session=session)
+    return 0
+
+
+def cmd_export(args) -> int:
+    """Convert / compress a scene to .glb (optionally Draco-compressed
+    through the native codec)."""
+    import os
+
+    from .io.gltf import load_gltf, save_glb
+
+    if args.scene == "default":
+        import numpy as np
+
+        from .scene.host import default_scene
+
+        meshes = default_scene(np.zeros((8, 16, 3), np.float32)).meshes
+    else:
+        meshes = load_gltf(args.scene, normalize=not args.no_normalize)
+    save_glb(meshes, args.output, draco=args.draco, draco_position_bits=args.draco_bits,
+             draco_normal_bits=args.draco_normal_bits)
+    tris = sum(len(m.indices) for m in meshes)
+    print(f"{args.output}: {len(meshes)} meshes, {tris} triangles, "
+          f"{os.path.getsize(args.output)} bytes" + (" (draco)" if args.draco else ""),
+          file=sys.stderr)
+    return 0
 
 
 def cmd_info(args) -> int:
@@ -328,20 +405,23 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.set_defaults(fn=cmd_invert)
 
-    p = sub.add_parser("view", help="interactive viewer (not ported yet)")
+    p = sub.add_parser("view", help="interactive viewer (browser page)")
     _add_render_args(p)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8790)
-    p.set_defaults(fn=cmd_not_ported)
+    p.set_defaults(fn=cmd_view)
 
-    p = sub.add_parser("export", help="convert/compress a scene to .glb (not ported yet)")
-    p.add_argument("--scene", default="default")
+    p = sub.add_parser("export", help="convert/compress a scene to .glb (opt. Draco)")
+    p.add_argument("--scene", default="default", help="'default' or a .glb/.gltf path")
     p.add_argument("--output", "-o", required=True)
-    p.add_argument("--draco", action="store_true")
-    p.add_argument("--draco-bits", type=int, default=14, metavar="N")
+    p.add_argument("--draco", action="store_true",
+                   help="KHR_draco_mesh_compression via the native codec")
+    p.add_argument("--draco-bits", type=int, default=14, metavar="N",
+                   help="position quantization bits (0 = lossless)")
     p.add_argument("--draco-normal-bits", type=int, default=10, metavar="N")
-    p.add_argument("--no-normalize", action="store_true")
-    p.set_defaults(fn=cmd_not_ported)
+    p.add_argument("--no-normalize", action="store_true",
+                   help="keep source units (skip unit-scale normalization)")
+    p.set_defaults(fn=cmd_export)
 
     p = sub.add_parser("info", help="device diagnostic")
     p.set_defaults(fn=cmd_info)

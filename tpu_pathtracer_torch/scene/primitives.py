@@ -7,8 +7,9 @@ generators emit the same vertex ordering, winding and smooth normals as the
 three.js geometry classes.  All outputs are indexed (positions, normals,
 indices) numpy arrays.
 
-A copy of `tpu_pathtracer.scene.primitives` (plane, box, sphere): the port
-may not import the JAX package, whose `__init__` loads JAX.
+A copy of `tpu_pathtracer.scene.primitives` (plane, box, sphere,
+torus_knot): the port may not import the JAX package, whose `__init__`
+loads JAX.
 """
 
 from __future__ import annotations
@@ -139,3 +140,57 @@ def sphere(radius: float = 1.0, width_segments: int = 32, height_segments: int =
         np.asarray(indices, np.int32),
     )
 
+
+def torus_knot(radius: float = 1.0, tube: float = 0.4, tubular_segments: int = 64,
+               radial_segments: int = 8, p: int = 2, q: int = 3):
+    """three.js TorusKnotGeometry: the classic (p,q) torus-knot demo mesh
+    (the 'Suzanne-class' showcase model; see BASELINE.json configs[1]).
+    Smooth analytic normals; returns (positions, normals, indices)."""
+    ts = max(3, int(tubular_segments))
+    rs = max(3, int(radial_segments))
+
+    def center(t):
+        cu, su = np.cos(t), np.sin(t)
+        qp = q / p * t
+        cq = np.cos(qp)
+        return np.array([
+            radius * (2 + cq) * 0.5 * cu,
+            radius * (2 + cq) * 0.5 * su,
+            radius * np.sin(qp) * 0.5,
+        ])
+
+    positions, normals = [], []
+    for i in range(ts + 1):
+        u = i / ts * p * 2.0 * np.pi
+        p1 = center(u)
+        p2 = center(u + 0.01)
+        T = p2 - p1
+        N0 = p2 + p1
+        B = np.cross(T, N0)
+        N = np.cross(B, T)
+        B /= np.linalg.norm(B)
+        N /= np.linalg.norm(N)
+        for j in range(rs + 1):
+            v = j / rs * 2.0 * np.pi
+            cx = -tube * np.cos(v)
+            cy = tube * np.sin(v)
+            pos = p1 + cx * N + cy * B
+            positions.append(pos)
+            n = pos - p1
+            normals.append(n / np.linalg.norm(n))
+
+    indices = []
+    for i in range(1, ts + 1):
+        for j in range(1, rs + 1):
+            a = (rs + 1) * (i - 1) + (j - 1)
+            b = (rs + 1) * i + (j - 1)
+            c = (rs + 1) * i + j
+            d = (rs + 1) * (i - 1) + j
+            indices.append((a, b, d))
+            indices.append((b, c, d))
+
+    return (
+        np.asarray(positions, np.float32),
+        np.asarray(normals, np.float32),
+        np.asarray(indices, np.int32),
+    )
