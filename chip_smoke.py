@@ -101,7 +101,23 @@ public entry points:
     Draco mesh GLB (normalized) and `cli export --draco`; a ViewerServer on
     127.0.0.1:0 with its session on the card, which gets the Draco mesh GLB
     through /upload/scene, serves 16 progressive frames, /frame.png
-    (display(), so the denoise kernel) and resets on /params.
+    (display(), so the denoise kernel) and resets on /params;
+  * wavefront: `ops.wavefront.render_frame_wavefront` (torch ops, no
+    kernel) at 512x512, 4 bounces, chunk 2048, with sort_rays True and
+    False and at 500x500 (padded to the chunk), each bit-equal to
+    `render_frame(intersector='bvh')` and within the outlier rule of the
+    nf frame, and one stress-scene frame (6 bounces) bit-equal to its bvh
+    frame; no MT kernel may launch; wavefront and bvh frames timed in
+    turns.  The 500x500 frame takes a camera built on the CPU over the
+    CUDA scene, and so does one headline `render_frame`, which must equal
+    the card camera's frame bit for bit;
+  * checked render: `utils.debug.checked_render_frame` at the headline
+    shape (no error, bit-equal to the unchecked frame, its nf launches
+    counted, timed in turns with the unchecked frame); then, in a child
+    process (`--fault-child`), a NaN camera position, a zero camera
+    direction and a material index past the table, each through the
+    checked render, and an out-of-range index given to each index op on
+    CUDA tensors, which the mode clamps (no device-side assert).
 
 The near-to-far, list, cond, streamed and MXU walks are Hopper redesigns
 (csrc/nf_walk.cu, csrc/cond_walk.cu, csrc/stream_walk.cu,
@@ -2547,10 +2563,240 @@ def _sharded_phase(pt, trace, data, cam, counters, results, tag):
             sum(int(r["launches"][1]) for r in ranks))
 
 
+WAVE_CHUNK = 2048  # render_frame_wavefront's default chunk
+WAVE_PADDED = 500  # a 500x500 frame: 250,000 rays, not a multiple of the chunk
+FAULT_TIMEOUT = 300.0  # s, the injected-fault child from start to end
+
+
+def _mt_counts(counters) -> dict:
+    import torch
+
+    torch.cuda.synchronize()
+    return {n: fn.launches for n, fn in counters.items()}
+
+
+def _zero(counters) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def _wavefront_phase(pt, trace, data, sdata, cam, counters, results, tag):
+    """`ops.wavefront.render_frame_wavefront` (torch ops, no CUDA kernel)
+    at the headline shape with sort_rays True and False and at 500x500 (a
+    ray count the chunk does not divide), each bit-equal to the
+    `render_frame(intersector='bvh')` frame and within the outlier rule of
+    the default (nf kernel) frame; on the stress scene (131,072 padded
+    triangles, 6 bounces) bit-equal to its 'bvh' frame.  No MT kernel may
+    launch.  The wavefront and 'bvh' frames are timed in turns (bvh, wave,
+    wave, bvh).  F7: the padded frame is rendered with a camera built on the
+    CPU over the CUDA scene."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.wavefront import render_frame_wavefront
+
+    params = pt.RenderParams.create(cam, frame=3)
+    cpu_params = pt.RenderParams.create(pt.Camera.create(**CAMERA), frame=3)  # F7
+    kw = dict(width=WIDTH, height=HEIGHT, aspect=WIDTH / HEIGHT, max_bounces=BOUNCES)
+    out = {}
+
+    def bvh(scene, p, **k):
+        return trace.render_frame(scene, p, intersector="bvh", **k)
+
+    def wave(scene, p, **k):
+        return render_frame_wavefront(scene, p, chunk=WAVE_CHUNK, **k)
+
+    _zero(counters)
+    ref = bvh(data, params, **kw)
+    fused = trace.render_frame(data, params, **kw)
+    _zero(counters)
+    for sort_rays in (True, False):
+        img = wave(data, params, sort_rays=sort_rays, **kw)
+        launched = _mt_launched(_mt_counts(counters))
+        _check(not launched and not counters["denoise"].launches,
+               f"the wavefront frame launched kernels: {launched}")
+        _check(bool(torch.isfinite(img).all()) and float(img.min()) >= 0.0,
+               "wavefront frame not finite or negative")
+        differ = int((img != ref).any(dim=-1).sum())
+        _check(differ == 0,
+               f"wavefront (sort_rays={sort_rays}) vs bvh frame: {differ} pixels differ")
+        frac, agree = _outlier_rule(img, fused)
+        print(f"wavefront {WIDTH}x{HEIGHT} sort_rays={sort_rays}: bit-equal to the bvh frame "
+              f"(0 pixels differ); vs the nf frame outlier fraction {frac:.2e}, non-outlier mean "
+              f"diff {agree:.2e}; MT kernels launched none")
+        out[f"sort_{sort_rays}"] = dict(pixels_differ=differ, fused_outlier_frac=frac,
+                                        fused_mean_diff=agree)
+    del img, fused
+
+    pkw = dict(width=WAVE_PADDED, height=WAVE_PADDED, aspect=1.0, max_bounces=BOUNCES)
+    _check((WAVE_PADDED * WAVE_PADDED) % WAVE_CHUNK != 0, "the padded case is not padded")
+    pref = bvh(data, params, **pkw)
+    img = wave(data, cpu_params, sort_rays=True, **pkw)
+    differ = int((img != pref).any(dim=-1).sum())
+    _check(differ == 0, f"padded wavefront frame (CPU camera) vs bvh: {differ} pixels differ")
+    f7 = trace.render_frame(data, cpu_params, **kw)
+    f7_differ = int((f7 != trace.render_frame(data, params, **kw)).any(dim=-1).sum())
+    _check(f7_differ == 0, f"F7: the CPU-camera frame differs from the card camera's on "
+           f"{f7_differ} pixels")
+    launched = _mt_launched(_mt_counts(counters), ("mt_nf",))
+    _check(not launched, f"unexpected MT kernels: {launched}")
+    print(f"wavefront {WAVE_PADDED}x{WAVE_PADDED} ({WAVE_PADDED ** 2} rays, "
+          f"{(-WAVE_PADDED ** 2) % WAVE_CHUNK} padding lanes), camera built on the CPU: "
+          f"bit-equal to the bvh frame; F7: render_frame with that camera over the CUDA scene "
+          f"equals the card camera's frame bit for bit")
+    out.update(padded_pixels_differ=differ, f7_pixels_differ=f7_differ)
+    del img, pref, f7
+
+    skw = dict(width=WIDTH, height=HEIGHT, aspect=WIDTH / HEIGHT, max_bounces=STRESS_BOUNCES)
+    _zero(counters)
+    s_wave, s_ref = wave(sdata, params, **skw), bvh(sdata, params, **skw)
+    differ = int((s_wave != s_ref).any(dim=-1).sum())
+    _check(differ == 0, f"stress wavefront frame vs bvh: {differ} pixels differ")
+    _check(bool(torch.isfinite(s_wave).all()), "stress wavefront frame not finite")
+    launched = _mt_launched(_mt_counts(counters))
+    _check(not launched, f"the stress wavefront frame launched MT kernels: {launched}")
+    print(f"wavefront stress ({sdata.packed.tri_pos.shape[0]} padded triangles, "
+          f"{STRESS_BOUNCES} bounces): bit-equal to the bvh frame; MT kernels launched none")
+    out["stress_pixels_differ"] = differ
+    del s_wave, s_ref
+
+    paths = WIDTH * HEIGHT
+    times = _in_turns({"bvh": lambda: bvh(data, params, **kw),
+                       "wave": lambda: wave(data, params, sort_rays=True, **kw),
+                       "wave_unsorted": lambda: wave(data, params, sort_rays=False, **kw)},
+                      ("bvh", "wave", "wave_unsorted", "wave", "wave_unsorted", "bvh"),
+                      warmup=0, reps=2)
+    stimes = _in_turns({"bvh": lambda: bvh(sdata, params, **skw),
+                        "wave": lambda: wave(sdata, params, sort_rays=True, **skw)},
+                       ("bvh", "wave", "wave", "bvh"), warmup=0, reps=1)
+    print(f"timing {tag}: headline frame bvh vs wavefront (chunk {WAVE_CHUNK}) in turns (bvh, "
+          f"wave, wave, bvh): {_turns(times, 'bvh', 'wave')} ms; wavefront unsorted "
+          f"{_fmt_ms(times['wave_unsorted'])} ms; "
+          f"{paths / statistics.median(times['wave']) / 1e3:.3f} Mpaths/s sorted")
+    print(f"timing {tag}: stress frame bvh vs wavefront in turns: "
+          f"{_turns(stimes, 'bvh', 'wave')} ms")
+    out.update(headline_ms=times, stress_ms=stimes)
+    results["wavefront"] = out
+
+
+def _checked_phase(pt, trace, data, cam, counters, results, tag) -> int:
+    """`utils.debug.checked_render_frame` at the headline shape on the card:
+    no error, the image equal to the unchecked frame bit for bit, the nf
+    walk launched (counted from 0 around the call); checked and unchecked
+    frames timed in turns.  Then the injected faults in a child process
+    (`_fault_child`), so that a device-side assert there could not poison
+    this process's context.  Returns the checked frame's nf launches."""
+    import torch
+
+    from tpu_pathtracer_torch.utils.debug import checked_render_frame
+
+    params = pt.RenderParams.create(cam, frame=3)
+    kw = dict(width=WIDTH, height=HEIGHT, aspect=WIDTH / HEIGHT, max_bounces=BOUNCES)
+    _zero(counters)
+    err, img = checked_render_frame(data, params, **kw)
+    launches = _mt_counts(counters)
+    _check(err.get() is None, f"the checked headline frame reports {err.get()}")
+    _check(launches["mt_nf"] >= 1, f"the checked frame launched no nf walk: {launches}")
+    _check(not _mt_launched(launches, ("mt_nf",)), f"other MT kernels launched: {launches}")
+    plain = trace.render_frame(data, params, **kw)
+    differ = int((img != plain).any(dim=-1).sum())
+    _check(differ == 0, f"checked vs unchecked frame: {differ} pixels differ")
+    print(f"checked render {WIDTH}x{HEIGHT}: error None, bit-equal to the unchecked frame; nf "
+          f"walk launched {launches['mt_nf']} times")
+    times = _in_turns({"unchecked": lambda: trace.render_frame(data, params, **kw),
+                       "checked": lambda: checked_render_frame(data, params, **kw)},
+                      ("unchecked", "checked", "checked", "unchecked"), warmup=1, reps=3)
+    print(f"timing {tag}: headline frame unchecked vs checked in turns (unchecked, checked, "
+          f"checked, unchecked): {_turns(times, 'unchecked', 'checked')} ms")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--fault-child"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=FAULT_TIMEOUT)
+    print(f"fault child: exit {proc.returncode} after {time.perf_counter() - t0:.1f} s")
+    _check(proc.returncode == 0, f"the fault child failed ({proc.returncode}):\n"
+           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    faults = json.loads(proc.stdout.strip().splitlines()[-1])
+    want = {"nan_position": "NaNError", "zero_direction": "DivisionByZeroError",
+            "material_index": None}
+    for case, cls in want.items():
+        _check(faults[case] == cls, f"fault {case}: {faults[case]}, want {cls}")
+    _check(all(v == "OOBError" for v in faults["index_ops"].values()),
+           f"out-of-range index ops: {faults['index_ops']}")
+    _check(faults["context_ok"], "the CUDA context did not survive the injected faults")
+    print(f"injected faults (child process): {faults}")
+    results["checked"] = dict(launches=launches["mt_nf"], ms=times, faults=faults)
+    return launches["mt_nf"]
+
+
+def _fault_child() -> int:
+    """The injected faults on the card, each through the checked render at
+    the headline shape: a NaN camera position (NaNError), a zero camera
+    direction (DivisionByZeroError), and a material index past the table
+    written into the compiled scene (no error: both packages clamp it
+    before their gather, so it reaches no index op; the frame must equal
+    the unchecked one).  Then an index past the end given to each index
+    op on CUDA tensors under the mode (OOBError, clamped, so no
+    device-side assert), and a synchronize that shows the context is
+    whole.  Prints one JSON line of error class names."""
+    import dataclasses
+
+    import torch
+
+    import tpu_pathtracer_torch as pt
+    from tpu_pathtracer_torch.ops import trace
+    from tpu_pathtracer_torch.scene.envmap import gradient_sky
+    from tpu_pathtracer_torch.utils import debug
+
+    dev = torch.device("cuda")
+    data = pt.default_scene(gradient_sky(64, 128)).compile(device=dev)
+    cam = pt.Camera.create(**CAMERA, device=dev)
+    kw = dict(width=WIDTH, height=HEIGHT, aspect=WIDTH / HEIGHT, max_bounces=BOUNCES)
+
+    def cls(err):
+        exc = err.get_exception()
+        return None if exc is None else type(exc).__name__
+
+    out = {}
+    bad_pos = dataclasses.replace(cam, position=torch.tensor([math.nan, 1.0, 4.0], device=dev))
+    out["nan_position"] = cls(debug.checked_render_frame(
+        data, pt.RenderParams.create(bad_pos, frame=1), **kw)[0])
+    bad_dir = dataclasses.replace(cam, direction=torch.zeros(3, device=dev))
+    out["zero_direction"] = cls(debug.checked_render_frame(
+        data, pt.RenderParams.create(bad_dir, frame=1), **kw)[0])
+    bits = data.packed.tri_shade.contiguous().view(torch.int32).clone()
+    bits[0, 9] = 1 << 20
+    bad = dataclasses.replace(data, packed=dataclasses.replace(
+        data.packed, tri_shade=bits.view(torch.float32)))
+    params = pt.RenderParams.create(cam, frame=1)
+    err, img = debug.checked_render_frame(bad, params, **kw)
+    out["material_index"] = cls(err)
+    _check(torch.equal(img, trace.render_frame(bad, params, **kw)),
+           "the material-index frame differs from the unchecked one")
+
+    x = torch.arange(20.0, device=dev).reshape(5, 4)
+    far = torch.tensor([0, 1 << 20], device=dev)
+    ops = {"index_select": lambda: torch.index_select(x, 0, far),
+           "gather": lambda: torch.gather(x, 0, far[:, None].expand(-1, 4)),
+           "index": lambda: x[far],
+           "index_put_": lambda: x.clone().index_put_((far,), torch.zeros(4, device=dev)),
+           "take": lambda: torch.take(x, -far),
+           "scatter_add": lambda: torch.zeros(5, device=dev).scatter_add(
+               0, far, torch.ones(2, device=dev))}
+    out["index_ops"] = {}
+    for name, op in ops.items():
+        with debug.CheckMode() as mode:
+            op()
+        out["index_ops"][name] = cls(mode.error())
+    torch.cuda.synchronize()
+    out["context_ok"] = bool(float((x * 2).sum()) == 380.0)
+    print(json.dumps(out))
+    return 0
+
+
 def main(argv=None) -> int:
     args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     args.add_argument("--profile", action="store_true")
     args.add_argument("--out", default=None)
+    args.add_argument("--fault-child", action="store_true", help=argparse.SUPPRESS)
     opts = args.parse_args(argv)
 
     import torch
@@ -2558,6 +2804,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run", file=sys.stderr)
         return 2
+    if opts.fault_child:
+        return _fault_child()
 
     import numpy as np
 
@@ -2819,6 +3067,14 @@ def main(argv=None) -> int:
 
     del s_prep
 
+    # --- wavefront: render_frame_wavefront vs the bvh frame, headline and stress
+    phase("wavefront")
+    _wavefront_phase(pt, trace, data, sdata, cam, counters, results, tag)
+
+    # --- checked render: checked_render_frame on the card, injected faults ---
+    phase("checked render")
+    checked_launches = _checked_phase(pt, trace, data, cam, counters, results, tag)
+
     # --- large-scene main path: Renderer on mesh_scene(640) through bvh8 ------
     phase("large")
     _large_phase(pt, trace, intersect, counters, results, tag, opts.profile)
@@ -2875,7 +3131,8 @@ def main(argv=None) -> int:
          "replaces": "tpu_pathtracer/ops/pallas/mt_shade.py:308", "launches": launches["mt_nf"],
          "max_abs_err": max(mt_err, culls["nf"][0]), "ms": mt_ms, "plain_ms": mt_plain_ms,
          **bound(cull_bounds["nf"]), **walk("nf_headline_primary"),
-         "sharded_launches": sharded_launches[0], "gltf_launches": gltf_launches["mt_nf"]},
+         "sharded_launches": sharded_launches[0], "gltf_launches": gltf_launches["mt_nf"],
+         "checked_launches": checked_launches},
         {"name": "denoise", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/denoise.cu",
          "replaces": "tpu_pathtracer/ops/pallas/denoise.py:33",
          "launches": launches["denoise"], "max_abs_err": den_err, "ms": den512["ms"],

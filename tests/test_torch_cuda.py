@@ -398,7 +398,7 @@ def _mxu_mutant_agreement(cuda, tmp_path, monkeypatch, old, new):
     assert text.count(old) == 1
     walk.write_text(text.replace(old, new))
     monkeypatch.setattr(_build, "CSRC", src)
-    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_cache_dir", tmp_path / "build")
     _build.load.cache_clear()
     try:
         bad = mt_shade.hit_agreement(tri, phi_t, mt_shade.mt_intersect_nf_mxu_phi(tri, phi_t), hp)
@@ -708,7 +708,7 @@ def test_walk_count_check_catches_a_dropped_r2_mask_reformation(cuda, tmp_path, 
     assert text.count(reform) == 1
     walk.write_text(text.replace(reform, "chunks = decide<C>(slots, parity, chunks, kNone).bits;"))
     monkeypatch.setattr(_build, "CSRC", src)
-    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_cache_dir", tmp_path / "build")
     _build.load.cache_clear()
     try:
         bad = [mt_intersect.walk_stats(*c, stream=True) for c in cases]
@@ -865,7 +865,7 @@ def test_walk_count_check_catches_a_skipped_chunk_retest(cuda, tmp_path, monkeyp
     assert text.count(retest) == 2
     walk.write_text(text.replace(retest, "chunks"))
     monkeypatch.setattr(_build, "CSRC", src)
-    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_cache_dir", tmp_path / "build")
     _build.load.cache_clear()
     try:
         bad = mt_stream.walk_stats(tri, phi_t)
@@ -968,7 +968,7 @@ def test_walk_count_check_catches_a_dropped_cond_mask_reformation(cuda, tmp_path
     assert text.count(reform) == 1
     walk.write_text(text.replace(reform, "subs << 16 | chunks"))
     monkeypatch.setattr(_build, "CSRC", src)
-    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_cache_dir", tmp_path / "build")
     _build.load.cache_clear()
     try:
         bad = mt_shade.cond_walk_stats(tri, phi_t, sub=32)

@@ -31,6 +31,7 @@ import pytest
 from tpu_pathtracer.io import draco as jdraco_module
 from tpu_pathtracer.io import gltf as jgltf
 from tpu_pathtracer.scene import host as jhost
+from tpu_pathtracer_torch import _build
 from tpu_pathtracer_torch.io import draco, gltf
 from tpu_pathtracer_torch.scene import host, primitives
 
@@ -207,7 +208,7 @@ def test_a_failed_build_raises_with_the_compiler_message(monkeypatch, tmp_path):
     broken.write_text(draco.SRC.read_text() + "\nthis is not C++;\n")
     monkeypatch.delenv("TPU_PT_NO_NATIVE", raising=False)
     monkeypatch.setattr(draco, "SRC", broken)
-    monkeypatch.setattr(draco, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_cache_dir", tmp_path / "build")
     monkeypatch.setattr(draco, "_lib", None)
     with pytest.raises(RuntimeError, match="(?s)Draco codec build failed.*error"):
         draco.decode(b"DRACO")

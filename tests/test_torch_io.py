@@ -283,7 +283,9 @@ def test_port_imports_no_jax():
         tpu_pathtracer_torch.__path__, "tpu_pathtracer_torch."))
     assert {"tpu_pathtracer_torch.io.draco", "tpu_pathtracer_torch.io.gltf",
             "tpu_pathtracer_torch.utils.orbit", "tpu_pathtracer_torch.viewer.session",
-            "tpu_pathtracer_torch.viewer.server", "tpu_pathtracer_torch.viewer.page"} <= set(names)
+            "tpu_pathtracer_torch.viewer.server", "tpu_pathtracer_torch.viewer.page",
+            "tpu_pathtracer_torch.ops.wavefront", "tpu_pathtracer_torch.utils.debug",
+            "tpu_pathtracer_torch.utils.compcache"} <= set(names)
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"
             "    importlib.import_module(name)\n"

@@ -21,6 +21,7 @@ import pytest
 from tpu_pathtracer.accel import bvh as jbvh
 from tpu_pathtracer.accel import native as jnative
 import tpu_pathtracer_torch as tpt
+from tpu_pathtracer_torch import _build
 from tpu_pathtracer_torch.accel import bvh, native
 from tpu_pathtracer_torch.scene.envmap import gradient_sky
 
@@ -115,7 +116,7 @@ def test_a_failed_build_raises_with_the_compiler_message(monkeypatch, tmp_path):
     broken.write_text(native.SRC.read_text() + "\nthis is not C++;\n")
     monkeypatch.delenv("TPU_PT_NO_NATIVE", raising=False)
     monkeypatch.setattr(native, "SRC", broken)
-    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_cache_dir", tmp_path / "build")
     monkeypatch.setattr(native, "_lib", None)
     with pytest.raises(RuntimeError, match="(?s)native BVH build failed.*error"):
         bvh.build_bvh_flat(*_random_tris(5))
@@ -124,7 +125,7 @@ def test_a_failed_build_raises_with_the_compiler_message(monkeypatch, tmp_path):
 
 def test_library_is_named_by_its_source(monkeypatch, tmp_path):
     path = native.build()
-    assert path.parent == native.BUILD_DIR and path.name.startswith("libtpt_bvh_")
+    assert path.parent == _build.build_dir() and path.name.startswith("libtpt_bvh_")
     assert path == native.library_path() and path.exists()
     changed = tmp_path / "bvh_builder.cpp"
     changed.write_text(native.SRC.read_text() + "\n// a changed source\n")

@@ -11,8 +11,10 @@ and the timing and metrics modules.
     `save_state` npz loads in the port, and back, with the same acc, frame
     and keys), and a resumed render equals a fresh one bit for bit."""
 
+import importlib
 import io
 import json
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -243,3 +245,27 @@ def test_make_frame_step_passes_env_importance_and_blue_noise():
 def test_package_exports_match_jax():
     assert tpt.__all__ == jpt.__all__
     from tpu_pathtracer_torch import FlatBVH, ShardConfig  # noqa: F401
+
+
+_SUBPACKAGES = sorted(p.name for p in Path(jpt.__file__).parent.iterdir()
+                      if (p / "__init__.py").exists() and p.name != "oracle")
+
+
+@pytest.mark.parametrize("sub", _SUBPACKAGES)
+def test_subpackage_exports_match_jax(sub):
+    """Every subpackage of the JAX package has its port, exporting the same
+    names (`__all__`, or none where JAX's has none), each importable.  The
+    numpy oracle (`tpu_pathtracer/oracle`) is shared by both packages'
+    tests, not ported."""
+    jmod = importlib.import_module(f"tpu_pathtracer.{sub}")
+    tmod = importlib.import_module(f"tpu_pathtracer_torch.{sub}")
+    assert getattr(tmod, "__all__", None) == getattr(jmod, "__all__", None)
+    for name in getattr(tmod, "__all__", ()):
+        assert getattr(tmod, name) is not None
+
+
+def test_every_port_subpackage_has_a_jax_twin():
+    ours = sorted(p.name for p in Path(tpt.__file__).parent.iterdir()
+                  if (p / "__init__.py").exists() and p.name != "csrc")
+    assert ours == _SUBPACKAGES
+    assert set(_SUBPACKAGES) >= {"accel", "post", "utils"}

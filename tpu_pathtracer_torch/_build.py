@@ -4,15 +4,17 @@
 all started together, and links the objects into one shared library with a
 plain C interface, for sm_90a, without fast-math and with `-fmad=false` (no
 contraction of products and sums into FMAs, so kernels round like their
-plain PyTorch versions).  The library goes to `build/tpu_pathtracer_torch/`
-beside the package, named by a hash of the sources, the shared headers
+plain PyTorch versions).  The library goes to the build directory
+(`build_dir()`: `build/tpu_pathtracer_torch/` beside the package unless
+`TPU_PATHTRACER_CACHE_DIR` or `utils.compcache.enable_compilation_cache`
+places it elsewhere), named by a hash of the sources, the shared headers
 (`csrc/*.cuh`) and the flags, so a changed source or header rebuilds and an
 unchanged tree loads at once.  `ctypes` binds it; every entry point returns
 a CUDA error code.
 
 The host libraries (the native BVH builder and the Draco codec, plain
 C++ over `ctypes`) are built by `build_cxx`: `g++ -O3 -fPIC -shared
--std=c++17` into the same directory, named by a hash of the flags and the
+-std=c++17` into the build directory, named by a hash of the flags and the
 source, written under a temporary name and renamed, so processes that
 build at the same time never load a half-written library.
 
@@ -22,12 +24,14 @@ first native call `build_cxx`.
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
@@ -40,24 +44,53 @@ NVCC_FLAGS = (
 
 
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
+CACHE_ENV = "TPU_PATHTRACER_CACHE_DIR"
+
+_cache_dir: Path | None = None  # pinned by enable_compilation_cache(cache_dir)
+_fresh: tuple[int, Path] | None = None  # (pid, directory) when the cache is off
 
 
-def cxx_library_path(src: Path, stem: str, build_dir: Path = BUILD_DIR) -> Path:
+def _fresh_dir() -> Path:
+    """A directory of this process's own, removed when it exits."""
+    global _fresh
+    pid = os.getpid()
+    if _fresh is None or _fresh[0] != pid:  # a forked child makes its own
+        path = Path(tempfile.mkdtemp(prefix="tpu_pathtracer_build_"))
+        _fresh = (pid, path)
+        atexit.register(lambda: os.getpid() == pid and shutil.rmtree(path, ignore_errors=True))
+    return _fresh[1]
+
+
+def build_dir() -> Path:
+    """The directory every build writes to and every load reads from,
+    resolved at each call: the directory pinned by
+    `enable_compilation_cache(cache_dir)`, else `TPU_PATHTRACER_CACHE_DIR`
+    (the empty string: a fresh directory for this process, so nothing is
+    cached), else `BUILD_DIR`."""
+    if _cache_dir is not None:
+        return _cache_dir
+    env = os.environ.get(CACHE_ENV)
+    if env is None:
+        return BUILD_DIR
+    return _fresh_dir() if env == "" else Path(env)
+
+
+def cxx_library_path(src: Path, stem: str) -> Path:
     """Where the g++ library of `src` (and the flags) lives: `stem_<hash>.so`."""
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
     h.update(src.read_bytes())
-    return build_dir / f"{stem}_{h.hexdigest()[:16]}.so"
+    return build_dir() / f"{stem}_{h.hexdigest()[:16]}.so"
 
 
-def build_cxx(src: Path, stem: str, what: str, build_dir: Path = BUILD_DIR) -> Path:
+def build_cxx(src: Path, stem: str, what: str) -> Path:
     """Compile `src` with g++ unless its library exists; returns its path.
     Raises RuntimeError("<what> build failed ...") with the compiler's
     output if g++ fails or is missing."""
-    out = cxx_library_path(src, stem, build_dir)
+    out = cxx_library_path(src, stem)
     if out.exists():
         return out
-    build_dir.mkdir(parents=True, exist_ok=True)
-    tmp = build_dir / f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.parent / f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so"
     cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), str(src)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
@@ -92,7 +125,7 @@ def library_path() -> Path:
     for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libtpt_kernels_{h.hexdigest()[:16]}.so"
+    return build_dir() / f"libtpt_kernels_{h.hexdigest()[:16]}.so"
 
 
 def _run_all(cmds) -> list[tuple[int, str]]:
@@ -110,10 +143,10 @@ def build() -> Path:
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
-    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    objs = [out.parent / f"{tag}.{src.stem}.o" for src in _sources()]
+    tmp = out.parent / f"{tag}.tmp.so"
     cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
             for src, obj in zip(_sources(), objs)]
     results = _run_all(cmds)

@@ -1,1 +1,5 @@
 """accel layer of the port (see the package docstring)."""
+
+from .bvh import build_bvh_flat
+
+__all__ = ["build_bvh_flat"]

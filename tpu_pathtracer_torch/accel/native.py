@@ -7,7 +7,7 @@ the same BFS flatten and skip links), so its arrays are byte-equal to
 `accel.bvh`'s numpy path, at a fraction of the host time on large meshes.
 
 `_build.build_cxx` (g++ -O3 -fPIC -shared -std=c++17) builds it on first
-use into `build/tpu_pathtracer_torch/`, named by a hash of the flags and
+use into the build directory (`_build.build_dir()`), named by a hash of the flags and
 the source, so a changed source rebuilds and an unchanged one loads at
 once; the build writes a temporary name and renames it.  A lock
 serialises the threads of one process.
@@ -28,7 +28,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from .._build import BUILD_DIR, build_cxx, cxx_library_path
+from .._build import build_cxx, cxx_library_path
 
 SRC = Path(__file__).resolve().parent.parent / "csrc" / "bvh_builder.cpp"
 
@@ -38,14 +38,14 @@ _lib: Optional[ctypes.CDLL] = None
 
 def library_path() -> Path:
     """Where the library for the current source and flags lives."""
-    return cxx_library_path(SRC, "libtpt_bvh", BUILD_DIR)
+    return cxx_library_path(SRC, "libtpt_bvh")
 
 
 def build() -> Path:
     """Compile the builder unless the library for this source exists;
     returns its path.  Raises RuntimeError with the compiler's output if
     g++ fails or is missing."""
-    return build_cxx(SRC, "libtpt_bvh", "native BVH", BUILD_DIR)
+    return build_cxx(SRC, "libtpt_bvh", "native BVH")
 
 
 def get_lib() -> Optional[ctypes.CDLL]:

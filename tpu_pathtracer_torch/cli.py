@@ -369,6 +369,10 @@ def cmd_info(args) -> int:
 
 
 def main(argv=None) -> int:
+    # The built kernels persist in the build cache (TPU_PATHTRACER_CACHE_DIR)
+    from .utils.compcache import enable_compilation_cache
+
+    enable_compilation_cache()
     parser = argparse.ArgumentParser(
         prog="tpu_pathtracer_torch",
         description="progressive path tracer (PyTorch + CUDA port)",

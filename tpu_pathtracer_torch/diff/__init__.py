@@ -14,10 +14,10 @@ from .api import (
 )
 from .invert import InvertResult, invert
 
+# the leaf helpers stay importable here; `__all__` is JAX's (which keeps them in diff.api)
 __all__ = [
     "InvertResult",
     "extract",
-    "get_leaf",
     "grads",
     "insert",
     "invert",
@@ -25,5 +25,4 @@ __all__ = [
     "make_loss",
     "make_param_loss",
     "render_frame_diff",
-    "set_leaf",
 ]

@@ -15,7 +15,7 @@ raw-width or rANS-entropy-coded.  Valence-coded edgebreaker streams raise
 DracoError.
 
 `_build.build_cxx` (g++ -O3 -fPIC -shared -std=c++17) builds the codec on
-first use into `build/tpu_pathtracer_torch/`, named by a hash of the flags
+first use into the build directory (`_build.build_dir()`), named by a hash of the flags
 and the source, under a temporary name that is then renamed.  There is no
 silent fallback: a codec that does not build raises with the compiler's
 message, and TPU_PT_NO_NATIVE makes `encode` and `decode` raise
@@ -38,7 +38,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from .._build import BUILD_DIR, build_cxx, cxx_library_path
+from .._build import build_cxx, cxx_library_path
 
 ATT_POSITION, ATT_NORMAL, ATT_COLOR, ATT_TEX_COORD, ATT_GENERIC = range(5)
 
@@ -57,13 +57,13 @@ class DracoError(ValueError):
 
 def library_path() -> Path:
     """Where the codec library for the current source and flags lives."""
-    return cxx_library_path(SRC, "libtpt_draco", BUILD_DIR)
+    return cxx_library_path(SRC, "libtpt_draco")
 
 
 def build() -> Path:
     """Compile the codec unless its library exists; returns its path.
     Raises RuntimeError with the compiler's output if g++ fails."""
-    return build_cxx(SRC, "libtpt_draco", "Draco codec", BUILD_DIR)
+    return build_cxx(SRC, "libtpt_draco", "Draco codec")
 
 
 def get_lib() -> Optional[ctypes.CDLL]:

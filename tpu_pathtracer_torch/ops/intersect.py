@@ -36,7 +36,7 @@ from .vecmath import EPSILON, INF, cross, dot
 __all__ = [
     "Hit", "MAX_STACK_SIZE", "brute_force_intersect", "bvh_fat_intersect", "bvh_intersect",
     "bvh_intersect_diff", "bvh_intersect_stack", "ray_aabb", "ray_aabb_t", "ray_triangle",
-    "replay_hit",
+    "replay_hit", "skip_link_walk",
 ]
 
 MAX_STACK_SIZE = 64  # raytrace.wgsl:8
@@ -136,6 +136,17 @@ def bvh_intersect(nodes, tri_pos, ro, rd) -> Hit:
     r, k = ro.shape[0], nodes.shape[0]
     if k == 0:  # empty-scene early out (raytrace.wgsl:205-211)
         return miss_hit(r, ro.device)
+    return skip_link_walk(nodes, tri_pos, ro, rd,
+                          torch.zeros((r,), dtype=torch.int32, device=ro.device))
+
+
+def skip_link_walk(nodes, tri_pos, ro, rd, ptr, walking=None) -> Hit:
+    """`bvh_intersect`'s walk from the node pointers `ptr` (R,) int32 of a
+    non-empty node table: a lane that starts at the end sentinel K is
+    finished and misses.  `walking(ptr)` gives the (R,) lanes that the
+    walk keeps stepping (by default `ptr < K`); it must hold every lane
+    with `ptr < K`, since a step is an identity only on a finished lane."""
+    k = nodes.shape[0]
     links = _link_columns(nodes, 6, 2)  # [tri, miss]
     n_tri = tri_pos.shape[0]
 
@@ -160,8 +171,9 @@ def bvh_intersect(nodes, tri_pos, ro, rd) -> Hit:
         nxt = torch.where(box_hit & ~is_leaf, p + 1, miss)
         return torch.where(active, nxt, ptr), best_t, best_tri, best_u, best_v
 
-    ptr = torch.zeros((r,), dtype=torch.int32, device=ro.device)
-    _, t, tri, u, v = _walk(step, (ro, rd), (ptr, *_start(ro)), lambda s: s[0] < k)
+    if walking is None:
+        walking = lambda ptr: ptr < k
+    _, t, tri, u, v = _walk(step, (ro, rd), (ptr, *_start(ro)), lambda s: walking(s[0]))
     return Hit(tri >= 0, t, tri, u, v)
 
 

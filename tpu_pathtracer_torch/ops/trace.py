@@ -537,11 +537,15 @@ def render_frame(scene, params, *, width: int, height: int, aspect: float,
 
     `plain=True` intersects through the kernels' plain PyTorch versions on
     any device (a reference for the kernel path); the default launches the
-    kernels for CUDA tensors and runs the plain versions for CPU tensors."""
+    kernels for CUDA tensors and runs the plain versions for CPU tensors.
+
+    The frame runs on the scene's device: `params` (a camera built on the
+    CPU, say) is moved there first, a no-op when it is already there."""
     tri_pos = scene.packed.tri_pos
     kind = resolve_intersector(intersector, tri_pos.shape[0])
     fused = kind in ("mt_pallas", "mt_stream") and not differentiable
     device = tri_pos.device
+    params = params.to(device)
 
     if full_height is None:
         full_height = height

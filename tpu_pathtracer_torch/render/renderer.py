@@ -110,6 +110,9 @@ class Renderer:
         enable_timing: bool = False,
         shard=None,
     ) -> None:
+        from ..utils.compcache import enable_compilation_cache
+
+        enable_compilation_cache()
         self.device = torch.device(device)
         self.shard = shard
         self._mesh = None
