@@ -1,0 +1,9 @@
+"""Device kernels launched an optimiser step in the traced window (frame
+layer: host dispatch)."""
+
+
+def read(trace, counts):
+    kernels = sum(1 for op in trace.ops if op.kind == "kernel")
+    if not counts.get("steps") or not kernels:
+        return None
+    return kernels / counts["steps"]
