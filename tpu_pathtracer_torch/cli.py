@@ -7,7 +7,8 @@ PyTorch version):
   render     scene (the default scene or a .glb/.gltf path) -> PNG (or
              linear .hdr), with checkpoint/resume, `--timing` (per-pass
              meters), `--metrics` (JSONL events) and `--profile DIR` (a
-             torch.profiler trace of the render).
+             torch.profiler trace of the render, and the frame path's
+             spans and counters, `utils.spans`, as DIR/spans.jsonl).
   benchmark  rays/s measurement (one JSON line, render/benchmark.py).
   invert     inverse-rendering demo: recover the material colors from a
              rendered target.
@@ -163,6 +164,8 @@ def cmd_render(args) -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
+    from .utils import spans
+
     activities = [ProfilerActivity.CPU]
     if args.device.startswith("cuda"):
         activities.append(ProfilerActivity.CUDA)
@@ -171,7 +174,8 @@ def cmd_render(args) -> int:
     out = Path(args.profile)
     out.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out / "render_trace.json"))
-    print(f"profile -> {out / 'render_trace.json'}", file=sys.stderr)
+    spans.write_jsonl(out / "spans.jsonl")
+    print(f"profile -> {out / 'render_trace.json'}, {out / 'spans.jsonl'}", file=sys.stderr)
     return rc
 
 
@@ -389,7 +393,8 @@ def main(argv=None) -> int:
     p.add_argument("--timing", action="store_true",
                    help="per-pass timing meters (reference: src/timing.ts)")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="write a torch.profiler trace of the render to DIR")
+                   help="write a torch.profiler trace of the render, and the frame "
+                        "path's spans and counters (spans.jsonl), to DIR")
     p.add_argument("--metrics", default=None, metavar="PATH",
                    help="emit JSONL metrics to PATH ('-' for stderr)")
     p.add_argument("--checkpoint-every", type=int, default=0, metavar="N",

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import spans
 from . import rng
 from .vecmath import cross, normalize
 
@@ -18,8 +19,9 @@ from .vecmath import cross, normalize
 def camera_basis(direction):
     """Returns (u_dir, v_dir, w) per raytrace.wgsl:226-235.  `direction` (3,)."""
     w = normalize(-direction)
-    up_default = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=w.device)
-    up_alt = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=w.device)
+    with spans.sync(2 * w.is_cuda):  # two copies from host memory
+        up_default = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=w.device)
+        up_alt = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=w.device)
     degenerate = torch.abs(torch.sum(w * up_default)) > float(np.float32(0.99999))
     up = torch.where(degenerate, up_alt, up_default)
     u_dir = normalize(cross(up, w))
@@ -29,7 +31,8 @@ def camera_basis(direction):
 
 def camera_rays(camera, uv, aspect: float):
     """Primary rays for pixel uvs: uv (R, 2) f32 -> (origin (R,3), direction (R,3))."""
-    aspect_t = torch.tensor(np.float32(aspect), device=uv.device)
+    with spans.sync(uv.is_cuda):
+        aspect_t = torch.tensor(np.float32(aspect), device=uv.device)
     fov_rad = camera.fov * float(np.float32(np.pi / 180.0))
     t = torch.tan(fov_rad / 2.0)
     r = aspect_t * t

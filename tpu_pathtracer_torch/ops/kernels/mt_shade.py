@@ -70,6 +70,7 @@ import os
 
 import torch
 
+from ...utils import spans
 from ..mt_matmul import (Hit, determinants, epilogue, miss_hit, nearest, ray_features,
                          triangle_columns)
 from ..vecmath import EPSILON, INF
@@ -177,7 +178,8 @@ def _dead_pad_boxes(boxes, n_real: int, granule: int):
         return boxes
     inf = float(INF)
     out = boxes.clone()
-    out[first_dead:] = torch.tensor([inf] * 3 + [-inf] * 3 + [0.0, 0.0], device=boxes.device)
+    with spans.sync(boxes.is_cuda):  # the row is copied from host memory
+        out[first_dead:] = torch.tensor([inf] * 3 + [-inf] * 3 + [0.0, 0.0], device=boxes.device)
     return out
 
 
@@ -333,7 +335,8 @@ def _prepare(tri_pos, phi_t, tile_rays, sub: int = SUB_TRIS):
     tri_padded, cols_rows = _pad_scene(tri_pos, sub)
     sub_boxes = treelet_boxes(tri_padded, sub)
     phi_pad = _pad_rays(phi_t, tile_rays)
-    counts, lists, emins = _precull_live_subs(sub_boxes, phi_pad, tile_rays)
+    with spans.span("walk.precull"):
+        counts, lists, emins = _precull_live_subs(sub_boxes, phi_pad, tile_rays)
     return phi_pad, cols_rows, counts, lists, emins, tile_rays
 
 
@@ -407,6 +410,7 @@ def _fold_subs(phi, coef, tiles, subs, best, mxu: bool = False, tiles_per_chunk:
         v[tc] = torch.where(take, v_w, v[tc])
 
 
+@spans.spanned("walk.launch")
 def _walk_plain(phi_pad, cols_rows, counts, lists, emins, tile_rays: int, stats=None,
                 mxu: bool = False):
     """The 'nf' kernel's walk in torch ops: step j evaluates entry j of
@@ -431,6 +435,7 @@ def _walk_plain(phi_pad, cols_rows, counts, lists, emins, tile_rays: int, stats=
     return tuple(x.reshape(-1) for x in best)
 
 
+@spans.spanned("walk.launch")
 def _walk_list_plain(phi_pad, cols_rows, counts, lists, tile_rays: int, mxu: bool = False,
                      stats=None):
     """The 'list' kernel's walk in torch ops: step j evaluates entry j of
@@ -450,6 +455,7 @@ def _walk_list_plain(phi_pad, cols_rows, counts, lists, tile_rays: int, mxu: boo
     return tuple(x.reshape(-1) for x in best)
 
 
+@spans.spanned("walk.launch")
 def _walk_cond_plain(phi_pad, cols_rows, chunk_boxes, sub_boxes, tile_rays: int, stats=None,
                      mxu: bool = False):
     """The 'cond' kernel's walk in torch ops, vectorised over tiles: the
@@ -544,10 +550,12 @@ def _walk_cuda(phi_pad, cols_rows, counts, lists, emins, tile_rays: int, mxu: bo
         return _list_launch("mt_nf_mxu", phi_pad, cols_rows, counts, lists, emins, tile_rays,
                             stats)
     sub = cols_rows.shape[0] // (4 * lists.shape[1])
-    return _list_launch("mt_nf", phi_pad, _pack_walk_table(cols_rows, sub), counts, lists, emins,
-                        tile_rays, stats)
+    with spans.span("walk.prep"):
+        table = _pack_walk_table(cols_rows, sub)
+    return _list_launch("mt_nf", phi_pad, table, counts, lists, emins, tile_rays, stats)
 
 
+@spans.spanned("walk.launch")
 def _list_launch(what, phi_pad, table, counts, lists, emins, tile_rays: int, stats=None):
     """Launch `tpt_<what>`, a Hopper walk over the per-tile lists ('nf',
     which reads `emins`, or 'list', given None), on its table; outputs
@@ -606,8 +614,9 @@ def _walk_list_cuda(phi_pad, cols_rows, counts, lists, tile_rays: int, mxu: bool
         return _list_launch("mt_list_mxu", phi_pad, cols_rows, counts, lists, None, tile_rays,
                             stats)
     sub = cols_rows.shape[0] // (4 * lists.shape[1])
-    return _list_launch("mt_list", phi_pad, _pack_walk_table(cols_rows, sub), counts, lists, None,
-                        tile_rays, stats)
+    with spans.span("walk.prep"):
+        table = _pack_walk_table(cols_rows, sub)
+    return _list_launch("mt_list", phi_pad, table, counts, lists, None, tile_rays, stats)
 
 
 def _walk_list_cuda_v1(phi_pad, cols_rows, counts, lists, tile_rays: int):
@@ -655,8 +664,9 @@ def _walk_cond_cuda(phi_pad, cols_rows, chunk_boxes, sub_boxes, tile_rays: int, 
         return _cond_launch("mt_cond_mxu", 1, phi_pad, cols_rows, chunk_boxes, sub_boxes,
                             tile_rays, stats)
     sub = CHUNK_TRIS * chunk_boxes.shape[0] // sub_boxes.shape[0]
-    return _walk_cond_table_cuda(phi_pad, _pack_walk_table(cols_rows, sub), chunk_boxes,
-                                 sub_boxes, tile_rays, stats)
+    with spans.span("walk.prep"):
+        table = _pack_walk_table(cols_rows, sub)
+    return _walk_cond_table_cuda(phi_pad, table, chunk_boxes, sub_boxes, tile_rays, stats)
 
 
 def _walk_cond_table_cuda(phi_pad, table, chunk_boxes, sub_boxes, tile_rays: int, stats=None):
@@ -677,6 +687,7 @@ def _walk_cond_cuda_v1(phi_pad, cols_rows, chunk_boxes, sub_boxes, tile_rays: in
                         stats)
 
 
+@spans.spanned("walk.launch")
 def _cond_launch(what, rows_a_tri: int, phi_pad, table, chunk_boxes, sub_boxes, tile_rays: int,
                  stats=None):
     """Launch `tpt_<what>`, a 'cond' walk over `table`, whose row width
@@ -739,11 +750,53 @@ def _mma_prepare(prepare, pack=None):
     return prep
 
 
-def _intersect(tri_pos, phi_t, tile_rays, walk, prepare=_prepare, **prep_kw) -> Hit:
+_STATS_COLUMNS = {"nf": 1, "list": 1, "cond": 2, "stream": 3}  # a tile's walk counts
+
+
+def _walk_counts(kind: str, prep, n_tris: int, lanes: int):
+    """While the recorder is on: a zeroed stats buffer for the walk `kind`
+    ('nf', 'list', 'cond' or 'stream') on its prepared inputs `prep`, and
+    that walk's work counted from it (`walk.pairs`, `walk.slabs`) as
+    `chip_smoke._walk_work` counts it, every lane of a tile, with the
+    `lanes` handed to it (`walk.lanes`).  Read when the counters are, so the
+    counts add no launch and no host wait (cond's tile-alive gate aside,
+    which its kernel does not count).  None when the recorder is off."""
+    phi_pad, tile_rays = prep[0], prep[-1]
+    n_tiles = phi_pad.shape[1] // tile_rays
+    cols = _STATS_COLUMNS[kind]
+    stats = spans.ints(phi_pad.device, n_tiles * cols)
+    if stats is None:
+        return None
+    spans.count("walk.lanes", lanes)
+    if cols == 1:  # subs evaluated; no slab tests
+        sub = -(-n_tris // CHUNK_TRIS) * CHUNK_TRIS // prep[3].shape[1]
+        spans.count("walk.pairs", stats, sub * tile_rays)
+        spans.count("walk.slabs", 0)
+        return stats
+    stats = stats.view(n_tiles, cols)
+    chunk_boxes, sub_boxes = prep[2], prep[3]
+    subs_a_chunk = sub_boxes.shape[0] // chunk_boxes.shape[0]
+    sub = CHUNK_TRIS // subs_a_chunk
+    spans.count("walk.pairs", stats[:, -1], sub * tile_rays)
+    if kind == "cond":  # every chunk box of a tile that moves, the sub boxes of live chunks
+        alive = phi_pad[4:7].abs().reshape(3, n_tiles, tile_rays).sum(dim=(0, 2)) > 0.0
+        spans.count("walk.slabs", alive, chunk_boxes.shape[0] * tile_rays)
+        spans.count("walk.slabs", stats[:, 0], (subs_a_chunk if subs_a_chunk > 1 else 0) * tile_rays)
+    else:  # stream: the chunk boxes of walked supers, the sub boxes of staged chunks
+        spans.count("walk.slabs", stats[:, 0], CHUNKS_PER_SUPER * tile_rays)
+        spans.count("walk.slabs", stats[:, 1], subs_a_chunk * tile_rays)
+    return stats
+
+
+def _intersect(tri_pos, phi_t, tile_rays, walk, prepare=_prepare, kind: str = "nf",
+               **prep_kw) -> Hit:
     r = phi_t.shape[1]
     if tri_pos.shape[0] == 0 or r == 0:
         return miss_hit(r, phi_t.device)
-    t, idx, u, v = walk(*prepare(tri_pos, phi_t, tile_rays, **prep_kw))
+    with spans.span("walk.prep"):
+        prep = prepare(tri_pos, phi_t, tile_rays, **prep_kw)
+    stats = _walk_counts(kind, prep, tri_pos.shape[0], r)
+    t, idx, u, v = walk(*prep) if stats is None else walk(*prep, stats=stats)
     idx = idx[:r]
     return Hit(idx >= 0, t[:r], idx, u[:r], v[:r])
 
@@ -770,7 +823,7 @@ mt_intersect_nf_phi.launches = 0
 
 def mt_intersect_list_phi_plain(tri_pos, phi_t, *, tile_rays=None, sub=None) -> Hit:
     """Plain PyTorch version of the 'list' MT kernel, on any device."""
-    return _intersect(tri_pos, phi_t, tile_rays, _walk_list_plain, _prepare_list,
+    return _intersect(tri_pos, phi_t, tile_rays, _walk_list_plain, _prepare_list, "list",
                       sub=_sub_tris(sub))
 
 
@@ -781,7 +834,7 @@ def mt_intersect_list_phi(tri_pos, phi_t, *, tile_rays=None, sub=None) -> Hit:
     if not _launches_kernel(phi_t):
         return mt_intersect_list_phi_plain(tri_pos, phi_t, tile_rays=tile_rays, sub=sub)
     return _intersect(tri_pos, phi_t, tile_rays,
-                      _counted(mt_intersect_list_phi, _walk_list_cuda), _prepare_list,
+                      _counted(mt_intersect_list_phi, _walk_list_cuda), _prepare_list, "list",
                       sub=_sub_tris(sub))
 
 
@@ -790,7 +843,7 @@ mt_intersect_list_phi.launches = 0
 
 def mt_intersect_cond_phi_plain(tri_pos, phi_t, *, tile_rays=None, sub=None) -> Hit:
     """Plain PyTorch version of the 'cond' MT kernel, on any device."""
-    return _intersect(tri_pos, phi_t, tile_rays, _walk_cond_plain, _prepare_cond,
+    return _intersect(tri_pos, phi_t, tile_rays, _walk_cond_plain, _prepare_cond, "cond",
                       sub=_sub_tris(sub))
 
 
@@ -801,7 +854,7 @@ def mt_intersect_cond_phi(tri_pos, phi_t, *, tile_rays=None, sub=None) -> Hit:
     if not _launches_kernel(phi_t):
         return mt_intersect_cond_phi_plain(tri_pos, phi_t, tile_rays=tile_rays, sub=sub)
     return _intersect(tri_pos, phi_t, tile_rays,
-                      _counted(mt_intersect_cond_phi, _walk_cond_cuda), _prepare_cond,
+                      _counted(mt_intersect_cond_phi, _walk_cond_cuda), _prepare_cond, "cond",
                       sub=_sub_tris(sub))
 
 
@@ -820,7 +873,7 @@ _MXU_WALKS = {  # cull -> (prepare, plain walk, CUDA walk)
 def _mxu_plain(cull: str, tri_pos, phi_t, tile_rays, sub) -> Hit:
     prepare, walk, _ = _MXU_WALKS[cull]
     return _intersect(tri_pos, phi_t, tile_rays, functools.partial(walk, mxu=True), prepare,
-                      sub=_sub_tris(sub))
+                      cull, sub=_sub_tris(sub))
 
 
 def _mxu_kernel(cull: str, wrapper, tri_pos, phi_t, tile_rays, sub) -> Hit:
@@ -829,7 +882,7 @@ def _mxu_kernel(cull: str, wrapper, tri_pos, phi_t, tile_rays, sub) -> Hit:
     prepare, _, walk = _MXU_WALKS[cull]
     return _intersect(tri_pos, phi_t, tile_rays,
                       _counted(wrapper, functools.partial(walk, mxu=True)),
-                      _mma_prepare(prepare), sub=_sub_tris(sub))
+                      _mma_prepare(prepare), cull, sub=_sub_tris(sub))
 
 
 def mt_intersect_nf_mxu_phi_plain(tri_pos, phi_t, *, tile_rays=None, sub=None) -> Hit:

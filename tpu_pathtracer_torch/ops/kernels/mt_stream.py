@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from ...utils import spans
 from ..mt_matmul import Hit, ray_features, triangle_columns
 from ..vecmath import INF
 from .mt_intersect import _check_inputs, _outputs, _ptr, _stream
@@ -81,10 +82,12 @@ def _prepare(tri_pos, phi_t, tile_rays):
         _dead_pad_boxes(treelet_boxes(tri_padded, g), n, g)
         for g in (SUPER_TRIS, CHUNK_TRIS, SUB_TRIS))
     phi_pad = _pad_rays(phi_t, tile_rays)
-    counts, lists, emins = _precull_live_subs(super_boxes, phi_pad, tile_rays)
+    with spans.span("walk.precull"):
+        counts, lists, emins = _precull_live_subs(super_boxes, phi_pad, tile_rays)
     return phi_pad, cols_rows, chunk_boxes, sub_boxes, counts, lists, emins, tile_rays
 
 
+@spans.spanned("walk.launch")
 def _walk_plain(phi_pad, cols_rows, chunk_boxes, sub_boxes, counts, lists, emins,
                 tile_rays: int, stats=None):
     """The kernel's walk in torch ops, vectorised over tiles: list entry j
@@ -135,10 +138,13 @@ def _walk_cuda(phi_pad, cols_rows, chunk_boxes, sub_boxes, counts, lists, emins,
     """Launch the Hopper walk (csrc/stream_walk.cu) on the current stream,
     on the table `_pack_walk_table` repacks; outputs (R_pad,) x4.
     `stats`, if given, a (T, 3) int32 tensor, receives the walk counts."""
-    return _walk_table_cuda(phi_pad, _pack_walk_table(cols_rows, SUB_TRIS), chunk_boxes,
-                            sub_boxes, counts, lists, emins, tile_rays, stats=stats)
+    with spans.span("walk.prep"):
+        table = _pack_walk_table(cols_rows, SUB_TRIS)
+    return _walk_table_cuda(phi_pad, table, chunk_boxes, sub_boxes, counts, lists, emins,
+                            tile_rays, stats=stats)
 
 
+@spans.spanned("walk.launch")
 def _walk_table_cuda(phi_pad, table, chunk_boxes, sub_boxes, counts, lists, emins,
                      tile_rays: int, stats=None):
     """Launch the Hopper walk on the walk table; outputs (R_pad,) x4."""
@@ -172,7 +178,7 @@ def _walk_table_cuda(phi_pad, table, chunk_boxes, sub_boxes, counts, lists, emin
 def mt_intersect_stream2_phi_plain(tri_pos, phi_t, *, tile_rays=None) -> Hit:
     """Plain PyTorch version of the streamed MT kernel, on any device.
     tri_pos: (N, 9) packed rows; phi_t: (10, R) ray features."""
-    return _intersect(tri_pos, phi_t, tile_rays, _walk_plain, _prepare)
+    return _intersect(tri_pos, phi_t, tile_rays, _walk_plain, _prepare, "stream")
 
 
 def mt_intersect_stream2_phi(tri_pos, phi_t, *, tile_rays=None) -> Hit:
@@ -186,11 +192,11 @@ def mt_intersect_stream2_phi(tri_pos, phi_t, *, tile_rays=None) -> Hit:
     if phi_t.device.type != "cuda":
         raise NotImplementedError(f"no MT kernel for device {phi_t.device}")
 
-    def walk(*args):
+    def walk(*args, **kw):
         mt_intersect_stream2_phi.launches += 1
-        return _walk_cuda(*args)
+        return _walk_cuda(*args, **kw)
 
-    return _intersect(tri_pos, phi_t, tile_rays, walk, _prepare)
+    return _intersect(tri_pos, phi_t, tile_rays, walk, _prepare, "stream")
 
 
 mt_intersect_stream2_phi.launches = 0

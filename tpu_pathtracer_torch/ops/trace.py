@@ -44,6 +44,7 @@ import os
 import numpy as np
 import torch
 
+from ..utils import spans
 from . import camera as camera_ops
 from . import envsample, rng
 from .intersect import bvh_fat_intersect, bvh_intersect, replay_hit
@@ -317,10 +318,6 @@ def trace_rays(scene, params, ro, rd, seed, *, max_bounces: int, env_importance:
         fat = scene.packed.fat_nodes.detach()
         choose = lambda ro, rd: bvh_fat_intersect(fat, ro, rd, ray_batch=0)
 
-    def intersect(ro, rd):
-        h = choose(ro.detach(), rd.detach())
-        return replay_hit(tri_pos, ro, rd, h) if differentiable else h
-
     shade_mat = pack_shade_material_rows(scene)
     env_patches = envsample.pack_env_patches(scene.env.radiance)
     r = ro.shape[0]
@@ -328,13 +325,21 @@ def trace_rays(scene, params, ro, rd, seed, *, max_bounces: int, env_importance:
     color = torch.ones((r, 3), dtype=torch.float32, device=ro.device)
     active = torch.ones((r,), dtype=torch.bool, device=ro.device)
     for _ in range(max_bounces):
-        if not bool(active.any()):
-            break
-        am = active[:, None]
-        hit = intersect(torch.where(am, ro, 1e30), torch.where(am, rd, 0.0))
-        ro, rd, incoming, color, seed, active = bounce_shade(
-            scene, params, hit, (ro, rd, incoming, color, seed, active),
-            shade_mat=shade_mat, env_patches=env_patches, env_importance=env_importance)
+        with spans.span("bounce"):
+            with spans.sync():
+                going = bool(active.any())
+            if not going:
+                break
+            am = active[:, None]
+            ro_p, rd_p = torch.where(am, ro, 1e30), torch.where(am, rd, 0.0)
+            with spans.span("walk"):
+                hit = choose(ro_p.detach(), rd_p.detach())
+            with spans.span("shade"):
+                if differentiable:
+                    hit = replay_hit(tri_pos, ro_p, rd_p, hit)
+                ro, rd, incoming, color, seed, active = bounce_shade(
+                    scene, params, hit, (ro, rd, incoming, color, seed, active),
+                    shade_mat=shade_mat, env_patches=env_patches, env_importance=env_importance)
     return incoming, seed
 
 
@@ -404,39 +409,49 @@ def trace_rays_fused(scene, params, ro, rd, seed, *, max_bounces: int,
     color = torch.ones((3, r), dtype=torch.float32, device=device)
     active = torch.ones((r,), dtype=torch.bool, device=device)
     for bounce in range(max_bounces):
-        if not bool(active.any()):
-            break
-        am = active[None, :]
-        hit = intersector_phi_fn(_ray_features_t(
-            torch.where(am, ro, 1e30), torch.where(am, rd, 0.0)))
-        ro, rd, incoming, color, seed, active = bounce_shade_t(
-            scene, params, hit, (ro, rd, incoming, color, seed, active), shade_mat=shade_mat)
-        if bounce < n_sort:
-            # Unstable sort: any ray order gives the same per-ray results,
-            # and the final scatter keys on the unique pixel index.
-            order = _windowed_sort(_coherence_key(ro, rd, active, key_boxes), window)
-            ro, rd, incoming, color = (x[:, order] for x in (ro, rd, incoming, color))
-            seed, active, pix = seed[order], active[order], pix[order]
+        with spans.span("bounce"):
+            with spans.sync():
+                going = bool(active.any())
+            if not going:
+                break
+            am = active[None, :]
+            phi = _ray_features_t(torch.where(am, ro, 1e30), torch.where(am, rd, 0.0))
+            with spans.span("walk"):
+                hit = intersector_phi_fn(phi)
+            with spans.span("shade"):
+                ro, rd, incoming, color, seed, active = bounce_shade_t(
+                    scene, params, hit, (ro, rd, incoming, color, seed, active),
+                    shade_mat=shade_mat)
+            if bounce < n_sort:
+                with spans.span("sort"):
+                    # Unstable sort: any ray order gives the same per-ray
+                    # results, and the final scatter keys on the unique pixel
+                    # index.
+                    order = _windowed_sort(_coherence_key(ro, rd, active, key_boxes), window)
+                    ro, rd, incoming, color = (x[:, order] for x in (ro, rd, incoming, color))
+                    seed, active, pix = seed[order], active[order], pix[order]
 
-    # Deferred environment term for the rays that ended on a miss; rays
-    # still active after max_bounces get nothing (raytrace.wgsl:378-408).
-    # rd, color and seed still hold their miss-time values (the updates are
-    # hit-gated), so the importance sampler draws what the plain loop draws.
-    missed = ~active
-    if env_importance:
-        seed_m, env_term = _env_importance_term(scene, params, seed, env_patches)
-        env_term = env_term.T
-        seed = torch.where(missed, seed_m, seed)
-    else:
-        env_uv = envsample.env_uv_from_ray(rd.T, params.env_rotation)
-        env_term = envsample.env_radiance_packed(
-            env_patches, (scene.env.height, scene.env.width), env_uv).T * params.env_intensity
-    incoming = incoming + torch.where(missed[None, :], env_term * color, 0.0)
+    with spans.span("env"):
+        # Deferred environment term for the rays that ended on a miss; rays
+        # still active after max_bounces get nothing (raytrace.wgsl:378-408).
+        # rd, color and seed still hold their miss-time values (the updates
+        # are hit-gated), so the importance sampler draws what the plain
+        # loop draws.
+        missed = ~active
+        if env_importance:
+            seed_m, env_term = _env_importance_term(scene, params, seed, env_patches)
+            env_term = env_term.T
+            seed = torch.where(missed, seed_m, seed)
+        else:
+            env_uv = envsample.env_uv_from_ray(rd.T, params.env_rotation)
+            env_term = envsample.env_radiance_packed(
+                env_patches, (scene.env.height, scene.env.width), env_uv).T * params.env_intensity
+        incoming = incoming + torch.where(missed[None, :], env_term * color, 0.0)
 
-    out_incoming = torch.empty((r, 3), dtype=torch.float32, device=device)
-    out_seed = torch.empty_like(seed)
-    out_incoming[pix] = incoming.T
-    out_seed[pix] = seed
+        out_incoming = torch.empty((r, 3), dtype=torch.float32, device=device)
+        out_seed = torch.empty_like(seed)
+        out_incoming[pix] = incoming.T
+        out_seed[pix] = seed
     return out_incoming, out_seed
 
 
@@ -503,6 +518,7 @@ def band_pixels(width: int, height: int, frame: int, *, row_offset: int = 0,
     return xs, ys, uv, seed
 
 
+@spans.spanned("frame")
 def render_frame(scene, params, *, width: int, height: int, aspect: float,
                  samples_per_frame: int = 1, max_bounces: int = 4,
                  env_importance: bool = False, differentiable: bool = False,
@@ -549,15 +565,19 @@ def render_frame(scene, params, *, width: int, height: int, aspect: float,
 
     if full_height is None:
         full_height = height
-    xs, ys, uv, seed = band_pixels(width, height, params.frame, row_offset=row_offset,
-                                   full_height=full_height, seed_salt=seed_salt,
-                                   blocked=fused, device=device)
-    base_o, base_d = camera_ops.camera_rays(params.camera, uv, aspect)
-    # AA jitter scales by the whole image's resolution, not the band's
-    resolution = torch.tensor([width, full_height], dtype=torch.float32, device=device)
-    if blue_noise is not None:
-        bn = torch.as_tensor(blue_noise, dtype=torch.float32, device=device)
-        bn_pix = bn[ys % bn.shape[0], xs % bn.shape[1]]  # per-pixel CP offsets (R, 2)
+    on_card = device.type == "cuda"
+    with spans.span("raygen"):
+        xs, ys, uv, seed = band_pixels(width, height, params.frame, row_offset=row_offset,
+                                       full_height=full_height, seed_salt=seed_salt,
+                                       blocked=fused, device=device)
+        base_o, base_d = camera_ops.camera_rays(params.camera, uv, aspect)
+        # AA jitter scales by the whole image's resolution, not the band's
+        with spans.sync(on_card):
+            resolution = torch.tensor([width, full_height], dtype=torch.float32, device=device)
+        if blue_noise is not None:
+            with spans.sync(on_card and not (torch.is_tensor(blue_noise) and blue_noise.is_cuda)):
+                bn = torch.as_tensor(blue_noise, dtype=torch.float32, device=device)
+            bn_pix = bn[ys % bn.shape[0], xs % bn.shape[1]]  # per-pixel CP offsets (R, 2)
 
     if not fused:
         def trace(o, d, seed):
@@ -579,12 +599,14 @@ def render_frame(scene, params, *, width: int, height: int, aspect: float,
 
     acc = torch.zeros((height * width, 3), dtype=torch.float32, device=device)
     for s in range(samples_per_frame):
-        aa = None
-        if blue_noise is not None:
-            aa = torch.remainder(_r2_point(params.frame, samples_per_frame, s, device) + bn_pix,
-                                 1.0)
-        seed, o, d = camera_ops.apply_dof(seed, base_o, base_d, params.camera, resolution,
-                                          aa_uniforms=aa)
+        with spans.span("raygen"):
+            aa = None
+            if blue_noise is not None:
+                with spans.sync(on_card):
+                    point = _r2_point(params.frame, samples_per_frame, s, device)
+                aa = torch.remainder(point + bn_pix, 1.0)
+            seed, o, d = camera_ops.apply_dof(seed, base_o, base_d, params.camera, resolution,
+                                              aa_uniforms=aa)
         light, seed = trace(o, d, seed)
         acc = acc + light
     color = acc / float(np.float32(samples_per_frame))

@@ -51,6 +51,7 @@ from ..ops.trace import render_frame, resolve_intersector
 from ..post.pipeline import postprocess
 from ..scene.host import Scene
 from ..scene.types import Camera, RenderParams, SceneData
+from ..utils import spans
 from ..utils.bluenoise import blue_noise_table
 from .timing import PassTimer
 
@@ -281,9 +282,10 @@ class Renderer:
         return self._scene_data
 
     def _params(self) -> RenderParams:
-        return RenderParams.create(self.camera, frame=self._frame,
-                                   env_intensity=self.env_intensity,
-                                   env_rotation=self.env_rotation)
+        with spans.sync(2 * (self.device.type == "cuda")):  # two scalars copied to the card
+            return RenderParams.create(self.camera, frame=self._frame,
+                                       env_intensity=self.env_intensity,
+                                       env_rotation=self.env_rotation)
 
     def render(self) -> None:
         """Advance one progressive frame (the reference's per-rAF render())."""
@@ -306,11 +308,13 @@ class Renderer:
                     self._timed_warm = True
                 img = self.timings["raytrace"].time_device(self._raytrace, self._scene_data,
                                                            params)
-                self.timings["accumulate"].time_device(self._accumulate, self._acc, img,
-                                                       params.frame)
+                with spans.span("accumulate"):
+                    self.timings["accumulate"].time_device(self._accumulate, self._acc, img,
+                                                           params.frame)
             else:
-                self._accumulate(self._acc, self._raytrace(self._scene_data, params),
-                                 params.frame)
+                img = self._raytrace(self._scene_data, params)
+                with spans.span("accumulate"):
+                    self._accumulate(self._acc, img, params.frame)
             self.frame = self._frame + 1
         self.emit("progress", self.progress)
 
@@ -358,7 +362,8 @@ class Renderer:
         c = self._config
 
         def run():
-            return postprocess(self.accumulation, self.post, c.height, c.width)
+            with spans.span("postprocess", timed=self.device.type == "cuda", device=self.device):
+                return postprocess(self.accumulation, self.post, c.height, c.width)
 
         if self.enable_timing:
             return self.timings["fullscreen"].time_device(run)

@@ -11,8 +11,11 @@ device and nothing else.
 
 from __future__ import annotations
 
+import collections
 import time
 from contextlib import contextmanager
+
+from ..utils import spans
 
 
 class RollingAverage:
@@ -39,7 +42,8 @@ class RollingAverage:
 
 class PassTimer:
     """Times one named pass on `device`; `value` is the rolling mean in
-    microseconds."""
+    microseconds.  On the card a pass's CUDA events are read only when
+    `value` is asked for, so timing a pass makes the host wait for nothing."""
 
     def __init__(self, name: str, device="cpu") -> None:
         import torch
@@ -47,6 +51,9 @@ class PassTimer:
         self.name = name
         self.device = torch.device(device)
         self.average = RollingAverage()
+        # the passes timed on the card since `value` was last read; older
+        # ones would leave the rolling window unread
+        self._pending: collections.deque = collections.deque(maxlen=self.average._num_samples)
 
     @property
     def _on_card(self) -> bool:
@@ -55,34 +62,16 @@ class PassTimer:
     @contextmanager
     def measure(self):
         """Time the work enqueued inside the block: CUDA events around it on
-        the card (the recorded span ends when the last of it finishes), the
-        wall clock on the CPU."""
-        import torch
-
+        the card (`spans.DeviceTiming`; the span ends when the last of it
+        finishes), the wall clock on the CPU."""
         if self._on_card:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            yield
-            end.record()
-            end.synchronize()
-            self.average.add_sample(start.elapsed_time(end) * 1e3)
+            with spans.device_timed(self.device) as timing:
+                yield
+            self._pending.append(timing)
         else:
             t0 = time.perf_counter()
             yield
             self.average.add_sample((time.perf_counter() - t0) * 1e6)
-
-    def time_blocked(self, fn, *args, **kwargs):
-        """Run fn, wait for the device to finish it, and record the host's
-        elapsed time (launch overhead included); returns fn's output."""
-        import torch
-
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        if self._on_card:
-            torch.cuda.synchronize(self.device)
-        self.average.add_sample((time.perf_counter() - t0) * 1e6)
-        return out
 
     def time_device(self, fn, *args, **kwargs):
         """Run fn and record its span on the device (`measure`); returns
@@ -93,4 +82,6 @@ class PassTimer:
 
     @property
     def value(self) -> float:
+        while self._pending:
+            self.average.add_sample(self._pending.popleft().ms() * 1e3)
         return self.average.value

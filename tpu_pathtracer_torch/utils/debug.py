@@ -43,7 +43,7 @@ from __future__ import annotations
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from ..ops.trace import render_frame
+from ..ops import trace
 
 __all__ = [
     "CheckError", "CheckMode", "DivisionByZeroError", "Error", "NaNError", "OOBError",
@@ -229,7 +229,7 @@ def checked_render_frame(scene, params, *, width: int, height: int, aspect: floa
     raises it.  `render_frame` moves `params` to the scene's device."""
     mode = CheckMode(errors)
     with mode:
-        image = render_frame(scene, params, width=width, height=height, aspect=aspect,
+        image = trace.render_frame(scene, params, width=width, height=height, aspect=aspect,
                              samples_per_frame=samples_per_frame, max_bounces=max_bounces,
                              env_importance=env_importance)
     return mode.error(), image
