@@ -111,6 +111,12 @@ public entry points:
     turns.  The 500x500 frame takes a camera built on the CPU over the
     CUDA scene, and so does one headline `render_frame`, which must equal
     the card camera's frame bit for bit;
+  * precull: the walks' precull kernel (csrc/precull.cu) on the inputs
+    the nf wrapper (default scene, 32 sub boxes) and the streamed wrapper
+    (stress scene, 64 super boxes) hand it, on primary and first-bounce
+    rays, bit-equal to `_precull_live_subs_plain` (counts, lists, emins);
+    on the primary rays the kernel alone, one call and the plain version
+    timed beside its bound; on both main paths one precull launch a walk;
   * checked render: `utils.debug.checked_render_frame` at the headline
     shape (no error, bit-equal to the unchecked frame, its nf launches
     counted, timed in turns with the unchecked frame); then, in a child
@@ -1379,6 +1385,68 @@ def _sass_loads(lib_path: Path, kernels: dict, dump_dir=None) -> dict:
             widths[w] = widths.get(w, 0) + 1
         lds, pairs = sum(widths.values()), count(r"\bMUFU\.RCP\b", loop)
         out[label] = dict(lds=lds, lds_by_bits=widths, pairs=pairs, lds_per_pair=lds / pairs)
+    return out
+
+
+def _precull_args(mt_shade, fn):
+    """The (boxes, padded ray features, tile width) that a walk's wrapper
+    hands the precull kernel (`_precull_cuda`) in one call of `fn()`."""
+    seen = []
+    real = mt_shade._precull_cuda
+    mt_shade._precull_cuda = lambda *a: seen.append(a) or real(*a)
+    try:
+        fn()
+    finally:
+        mt_shade._precull_cuda = real
+    return seen[0]
+
+
+def _precull_bound(ms: int, n_rays: int, n_tiles: int):
+    """Bound of one precull: SLAB_OPS FP32 operations a ray-box pair against
+    24 bytes a ray read (ro, rd), the boxes (32 bytes each) and 8 bytes a
+    tile and box plus 4 a tile written."""
+    return _bound(ms * n_rays * SLAB_OPS, 24 * n_rays + 32 * ms + n_tiles * (8 * ms + 4))
+
+
+def _precull_phase(mt_shade, cases, results, tag):
+    """The walks' precull kernel (csrc/precull.cu) against its plain version
+    (`_precull_live_subs_plain`) on the inputs the wrappers hand it: the nf
+    walk's sub boxes on the default scene (Ms 32) and the streamed walk's
+    super boxes on the stress scene (Ms 64), each on its primary and
+    bounce-1 rays: counts, lists and emins bit-equal.  On the primary rays
+    (512^2) the kernel is timed by `_kernel_ms`, one call of the wrapper
+    and of the plain version by CUDA events around it (their host path
+    included), beside `_precull_bound`.  Returns the default scene's
+    primary readings."""
+    import torch
+
+    out = {}
+    for scene, wrapper, tri_pos, rays in cases:
+        for what, (phi, _) in rays.items():
+            boxes, phi_pad, tile = _precull_args(mt_shade, lambda: wrapper(tri_pos, phi))
+            got = mt_shade._precull_live_subs(boxes, phi_pad, tile)
+            want = mt_shade._precull_live_subs_plain(boxes, phi_pad, tile)
+            torch.cuda.synchronize()
+            equal = all(torch.equal(a, b) for a, b in zip(got, want))
+            ms, n_rays = boxes.shape[0], phi_pad.shape[1]
+            n_tiles, live = n_rays // tile, int(got[0].sum())
+            print(f"precull {scene} {what}: {n_rays} rays, {n_tiles} tiles of {tile}, Ms {ms}, "
+                  f"live {live} of {n_tiles * ms}; bit-equal to the plain version: {equal}")
+            _check(equal, f"precull {scene} {what}: the kernel differs from the plain version")
+            res = dict(rays=n_rays, tiles=n_tiles, ms=ms, live=live, bit_equal=equal)
+            if what == "primary":
+                kernel_ms = _kernel_ms(lambda: mt_shade._precull_cuda(boxes, phi_pad, tile),
+                                       "precull_kernel")
+                call_ms = _time_ms(lambda: mt_shade._precull_live_subs(boxes, phi_pad, tile), 3, 20)
+                plain_ms = _time_ms(
+                    lambda: mt_shade._precull_live_subs_plain(boxes, phi_pad, tile), 3, 20)
+                bound_ms, bound_by = _precull_bound(ms, n_rays, n_tiles)
+                print(f"timing {tag}: precull {scene} primary (Ms {ms}): kernel {kernel_ms:.4f} ms, "
+                      f"one call {call_ms:.4f} ms, plain version {plain_ms:.4f} ms; bound "
+                      f"{bound_ms:.4f} ms ({bound_by})")
+                res.update(kernel_ms=kernel_ms, call_ms=call_ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by)
+            results[f"precull_{scene}_{what}"] = out[f"{scene}_{what}"] = res
     return out
 
 
@@ -2888,9 +2956,13 @@ def main(argv=None) -> int:
     config = pt.RenderConfig(width=WIDTH, height=HEIGHT, frames=FRAMES,
                              samples_per_frame=1, max_bounces=BOUNCES)
     print("headline main path:")
+    precull0 = mt_shade._precull_live_subs.launches
     launches, main_s, renderer, mean = _drive(pt, scene, config, counters,
                                               ROOT / "build" / "chip_smoke_headline.png")
     _check(FRAMES <= launches["mt_nf"] <= FRAMES * BOUNCES, f"mt_nf launches {launches}")
+    precull_launches = mt_shade._precull_live_subs.launches - precull0
+    _check(precull_launches == launches["mt_nf"], f"precull launches {precull_launches}, "
+           f"one a walk expected: {launches}")
     _check(not _mt_launched(launches, ("mt_nf",)),
            f"other MT kernels launched on the headline path: {launches}")
     _check(launches["denoise"] >= 1, "denoise kernel not launched")
@@ -2984,6 +3056,12 @@ def main(argv=None) -> int:
                                             subs_evaluated=evaluated)
     results["stress_compile_s"] = compile_s
 
+    # --- precull phase: the walks' precull kernel vs plain, timed -----------
+    phase("precull")
+    precull = _precull_phase(mt_shade, [
+        ("default", mt_shade.mt_intersect_nf_phi, tri_pos, rays),
+        ("stress", mt_stream.mt_intersect_stream2_phi, s_tri, s_rays)], results, tag)
+
     # --- walk phase: the Hopper walks of #1, #4b and #3 vs plain ------------
     phase("walk")
     walks = _walk_phase(mt_shade, mt_stream, _walk_cases(tri_pos, rays, s_tri, s_rays),
@@ -3001,8 +3079,12 @@ def main(argv=None) -> int:
     s_config = pt.RenderConfig(width=WIDTH, height=HEIGHT, frames=STRESS_FRAMES,
                                samples_per_frame=1, max_bounces=STRESS_BOUNCES)
     print("stress main path:")
+    precull0 = mt_shade._precull_live_subs.launches
     s_launches, s_main_s, s_renderer, s_mean = _drive(pt, stress, s_config, counters,
                                                       ROOT / "build" / "chip_smoke_stress.png")
+    s_precull_launches = mt_shade._precull_live_subs.launches - precull0
+    _check(s_precull_launches == s_launches["mt_stream"],
+           f"precull launches {s_precull_launches}, one a walk expected: {s_launches}")
     _check(STRESS_FRAMES <= s_launches["mt_stream"] <= STRESS_FRAMES * STRESS_BOUNCES,
            f"mt_stream launches {s_launches}")
     _check(not _mt_launched(s_launches, ("mt_stream",)),
@@ -3166,6 +3248,15 @@ def main(argv=None) -> int:
            "critical_path_bound_ms": r2[name]["critical_path_bound_ms"],
            **({f"stress_{k}": v for k, v in r2_stress.items()} if name == "mt_stream_r2" else {})}
           for name, line in (("mt_pallas_r2", 62), ("mt_stream_r2", 293))),
+        {"name": "precull", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/precull.cu",
+         "replaces": None, "xla_glue": "tpu_pathtracer/ops/pallas/mt_shade.py:364",
+         "launches": precull_launches, "stress_launches": s_precull_launches, "max_abs_err": 0.0,
+         "kernel_ms": precull["default_primary"]["kernel_ms"],
+         "ms": precull["default_primary"]["call_ms"],
+         "plain_ms": precull["default_primary"]["plain_ms"],
+         **bound((precull["default_primary"]["bound_ms"], precull["default_primary"]["bound_by"])),
+         **{f"stress_{k}": precull["stress_primary"][k]
+            for k in ("kernel_ms", "call_ms", "plain_ms", "bound_ms")}},
         *({"name": f"mt_{cull}_mxu", "route": "cuda",
            "source": "tpu_pathtracer_torch/csrc/mxu_walk.cu",
            "replaces": "tpu_pathtracer/ops/pallas/mt_shade.py:118",

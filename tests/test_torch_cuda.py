@@ -1156,3 +1156,100 @@ def test_mxu_walk_repeats_on_bounce_rays(cuda, cull):
         differ += sum((a != b).sum() for a, b in zip(hk, h0)) + (sk != s0).sum()
     torch.cuda.synchronize()
     assert int(differ) == 0 and int(s0.sum()) > 0
+
+
+def _precull_inputs(cuda, ms, n_rays, tile_rays, seed=0):
+    """(boxes (ms, 8), ray features (10, R) padded to the tile, tile) for the
+    precull kernel.  Boxes of random sizes around the scene, two of them
+    dead padding boxes (`_dead_pad_boxes`) and two copies of box 1 (exact
+    ties); each 512-ray run of rays coherent (one origin and a cone of
+    directions), with parked lanes (rd = 0) at box centres, axes under
+    EPSILON or exactly 0 from inside boxes, NaN lanes, and padding lanes
+    (1e30) past n_rays.  `tile_rays` None: the wrappers' width
+    (`_widened_tile`)."""
+    rng = np.random.default_rng(seed + ms)
+    centre = rng.uniform(-1, 1, (ms, 3))
+    half = rng.uniform(0.02, 0.3, (ms, 3))
+    boxes = np.concatenate([centre - half, centre + half, np.zeros((ms, 2))], axis=1)
+    boxes[[5 % ms, 7 % ms]] = boxes[1]
+    boxes[-2:, :3], boxes[-2:, 3:6] = 1e20, -1e20
+    runs = -(-n_rays // 512)
+    ro = np.repeat(rng.uniform(-1.5, 1.5, (runs, 3)), 512, axis=0)[:n_rays]
+    rd = np.repeat(rng.normal(size=(runs, 3)), 512, axis=0)[:n_rays]
+    rd = rd / np.linalg.norm(rd, axis=1, keepdims=True) + rng.normal(0, 0.3, (n_rays, 3))
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    idx = np.arange(n_rays)
+    inside = centre[rng.integers(0, ms - 2, n_rays)]
+    for every, value in ((7, None), (11, 3e-7), (13, 0.0)):
+        pick = idx % every == 0
+        ro[pick] = inside[pick]
+        if value is None:
+            rd[pick] = 0.0
+        else:
+            rd[pick, idx[pick] % 3] = value
+    ro[idx % 997 == 3, 1] = np.nan
+    rd[idx % 991 == 5, 2] = np.nan
+    ro, rd = (torch.from_numpy(x.astype(np.float32)) for x in (ro, rd))
+    phi_t = ray_features(ro, rd).T.contiguous()
+    tile = mt_shade._widened_tile(tile_rays, n_rays)
+    return (torch.from_numpy(boxes.astype(np.float32)).to(cuda),
+            mt_shade._pad_rays(phi_t, tile).to(cuda), tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ms", [32, 64, 128, 1024])
+@pytest.mark.parametrize("n_rays,tile_rays,want_tile", [
+    (262144, None, 512),      # a 512^2 frame: 512 tiles of 512 rays
+    (300000, None, 1024),     # more than 512 tiles: the tile widens
+    (40000 - 77, 384, 384),   # not a multiple of 65,536, a partial last tile
+])
+def test_precull_kernel_matches_plain_bit_for_bit(cuda, ms, n_rays, tile_rays, want_tile):
+    """The precull kernel (csrc/precull.cu) against `_precull_live_subs_plain`
+    on the same CUDA inputs: counts, lists and emins equal, one launch a
+    call, and no fault."""
+    boxes, phi, tile = _precull_inputs(cuda, ms, n_rays, tile_rays)
+    assert tile == want_tile
+    before = mt_shade._precull_live_subs.launches
+    got = mt_shade._precull_live_subs(boxes, phi, tile)
+    assert mt_shade._precull_live_subs.launches == before + 1
+    want = mt_shade._precull_live_subs_plain(boxes, phi, tile)
+    torch.cuda.synchronize()
+    n_tiles = phi.shape[1] // tile
+    for a, b, shape, dtype in zip(got, want, [(n_tiles,), (n_tiles, ms), (n_tiles, ms)],
+                                  [torch.int32, torch.int32, torch.float32]):
+        assert a.shape == shape and a.dtype == dtype and a.is_contiguous()
+        assert torch.equal(a, b)
+    counts, _, emins = got
+    assert int(counts.min()) > 0
+    assert int((emins[:, 1:] == emins[:, :-1]).sum()) > 0  # ties
+
+
+@pytest.mark.cuda
+def test_precull_kernel_repeats_and_counts_its_rays(cuda):
+    """On the default scene's camera rays the kernel gives the same lists
+    every time, and under a profiler it counts its rays in
+    `walk.precull.rays` (the nf wrapper's lanes in `walk.lanes`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_pathtracer_torch.utils import spans
+
+    tri = tpt.default_scene().compile(device=cuda).packed.tri_pos
+    phi_t = _camera_rays(cuda)
+    with spans.span("between sessions"):
+        pass
+    with profile(activities=[ProfilerActivity.CPU]):
+        mt_shade.mt_intersect_nf_phi(tri, phi_t)
+    got = spans.totals()
+    assert got["walk.precull.rays"] == got["walk.lanes"] == phi_t.shape[1]
+    prep = mt_shade._prepare(tri, phi_t, None)
+    boxes = mt_shade.treelet_boxes(mt_shade._pad_scene(tri, 64)[0], 64)
+    first = mt_shade._precull_live_subs(boxes, prep[0], prep[-1])
+    differ = torch.zeros((), dtype=torch.int64, device=cuda)
+    for _ in range(20):
+        again = mt_shade._precull_live_subs(boxes, prep[0], prep[-1])
+        differ += sum((a != b).sum() for a, b in zip(again, first))
+    plain = mt_shade._precull_live_subs_plain(boxes, prep[0], prep[-1])
+    torch.cuda.synchronize()
+    assert int(differ) == 0
+    assert all(torch.equal(a, b) for a, b in zip(first, plain))
+    assert int(first[0].sum()) < first[1].numel()  # camera rays leave boxes dead

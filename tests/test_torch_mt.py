@@ -18,6 +18,7 @@ from tpu_pathtracer.ops.mt_matmul import ray_features as j_ray_features
 from tpu_pathtracer.ops.mt_matmul import triangle_columns as j_triangle_columns
 from tpu_pathtracer.ops.pallas.mt_intersect import _pad_to as j_pad_to
 from tpu_pathtracer.ops.pallas.mt_intersect import treelet_boxes as j_treelet_boxes
+from tpu_pathtracer.ops.pallas.mt_shade import _dead_pad_boxes as j_dead_pad_boxes
 from tpu_pathtracer.ops.pallas.mt_shade import _pack_subblock_major as j_pack
 from tpu_pathtracer.ops.pallas.mt_shade import _precull_live_subs as j_precull
 from tpu_pathtracer.ops.pallas.mt_shade import mt_intersect_pallas2_phi
@@ -107,21 +108,90 @@ def test_nf_plain_empty_scene_misses():
     assert not h.hit.any() and (h.tri == -1).all()
 
 
-def test_precull_live_sets_match_jax():
+def precull_edge_rays(rng, r, boxes):
+    """Rays for the precull's edge cases, (10, r) features: every 7th parked
+    (rd = 0) with its origin at a box's centre; every 11th with one axis
+    under EPSILON and every 13th with one axis exactly 0, aimed from inside
+    a box; the rest from random origins, some inside boxes."""
+    ro, rd = random_rays(rng, r)
+    idx = np.arange(r)
+    centres = (boxes[:, :3] + boxes[:, 3:6]) / 2
+    live = np.nonzero(boxes[:, 0] <= boxes[:, 3])[0]
+    inside = centres[rng.choice(live, r)].astype(np.float32)
+    for every, value in ((7, None), (11, np.float32(3e-7)), (13, np.float32(0.0))):
+        pick = idx % every == 0
+        ro[pick] = inside[pick]
+        if value is None:
+            rd[pick] = 0.0
+        else:
+            rd[pick, idx[pick] % 3] = value
+    return np.array(j_ray_features(jnp.asarray(ro), jnp.asarray(rd))).T  # (10, R)
+
+
+def precull_case(case):
+    """(boxes (Ms, 8), padded ray features (10, R), tile_rays) of a precull
+    test case.  `_dead_pad_boxes`' impossible box is entered by every ray
+    with no parallel axis (its slabs swap ends): entry -INF, as in JAX."""
     rng = np.random.default_rng(9)
-    tri = random_soup(rng, 500)
-    ro, rd = random_rays(rng, 1024, park_every=5)
-    phi = np.asarray(j_ray_features(jnp.asarray(ro), jnp.asarray(rd))).T  # (10, R)
-    tri_p = np.asarray(j_pad_to(jnp.asarray(tri), 512, 0))
-    boxes = np.asarray(j_treelet_boxes(jnp.asarray(tri_p), 64))
-    jc, jl, je = (np.asarray(x) for x in j_precull(jnp.asarray(boxes), jnp.asarray(phi), 256))
-    tc, tl, te = (x.numpy() for x in mt_shade._precull_live_subs(
-        torch.from_numpy(boxes.copy()), torch.from_numpy(phi.copy()), 256))
+    if case == "soup":
+        tri = random_soup(rng, 500)
+        ro, rd = random_rays(rng, 1024, park_every=5)
+        phi = np.asarray(j_ray_features(jnp.asarray(ro), jnp.asarray(rd))).T
+        tri_p = np.asarray(j_pad_to(jnp.asarray(tri), 512, 0))
+        return np.asarray(j_treelet_boxes(jnp.asarray(tri_p), 64)), phi, 256
+    if case == "edges":  # dead padding boxes, duplicate boxes (exact ties), padding lanes
+        tri = random_soup(rng, 300)
+        tri_p = np.asarray(j_pad_to(jnp.asarray(tri), 512, 0))
+        boxes = np.asarray(j_dead_pad_boxes(j_treelet_boxes(jnp.asarray(tri_p), 32), 300, 32))
+        boxes = np.concatenate([boxes, boxes[[3, 0, 3, 9]]])  # 20 boxes, ties with 0, 3, 9
+        phi = precull_edge_rays(rng, 1000, boxes)
+        centre = (boxes[2, :3] + boxes[2, 3:6]) / 2
+        phi[:, 768:] = 0.0  # the last tile: rays parked at one point, then padding lanes
+        phi[0, 768:], phi[1:4, 768:] = 1.0, centre[:, None]
+        return boxes, np.asarray(j_pad_to(jnp.asarray(phi), 1152, 1, value=1e30)), 384
+    # "wide": Ms = 1,024 (sub 8 on 8,192 triangles, 8 a cell of a 16 x 8 x 8
+    # grid), 128-ray tiles
+    cells = np.stack(np.meshgrid(*(np.linspace(-1, 1, n) for n in (16, 8, 8)),
+                                 indexing="ij"), axis=-1).reshape(-1, 1, 3)
+    v = cells + rng.uniform(-0.06, 0.06, (1024, 8 * 3, 3))
+    tri = v.reshape(8192, 9).astype(np.float32)
+    boxes = np.asarray(j_treelet_boxes(jnp.asarray(tri), 8))
+    return boxes, precull_edge_rays(rng, 512, boxes), 128
+
+
+def assert_precull_matches_jax(got, boxes, phi, tile_rays):
+    """The port's (counts, lists, emins) against the JAX precull: equal
+    counts and live entry distances, and each tile's live list in JAX's
+    order, equal distances taken in index order (the port's sort is
+    stable; JAX's need not be)."""
+    jc, jl, je = (np.asarray(x) for x in j_precull(jnp.asarray(boxes), jnp.asarray(phi), tile_rays))
+    tc, tl, te = (x.numpy() for x in got)
     np.testing.assert_array_equal(tc, jc[:, 0])
     assert tc.sum() > 0
     for t in range(tc.shape[0]):
-        np.testing.assert_array_equal(tl[t, :tc[t]], jl[t, :jc[t, 0]])
-        np.testing.assert_array_equal(te[t, :tc[t]], je[t, :jc[t, 0]])
+        c = tc[t]
+        order = np.lexsort((jl[t, :c], je[t, :c]))
+        np.testing.assert_array_equal(tl[t, :c], jl[t, :c][order])
+        np.testing.assert_array_equal(te[t, :c], je[t, :c])
+    return tc, tl, te
+
+
+@pytest.mark.parametrize("case", ["soup", "edges", "wide"])
+def test_precull_live_sets_match_jax(case):
+    boxes, phi, tile_rays = precull_case(case)
+    got = mt_shade._precull_live_subs(torch.from_numpy(boxes.copy()),
+                                      torch.from_numpy(phi.copy()), tile_rays)
+    tc, tl, te = assert_precull_matches_jax(got, boxes, phi, tile_rays)
+    n_tiles, ms = phi.shape[1] // tile_rays, boxes.shape[0]
+    assert tl.shape == te.shape == (n_tiles, ms) and tl.dtype == np.int32
+    # past counts: the dead boxes at INF, in index order
+    for t in range(tc.shape[0]):
+        assert (te[t, tc[t]:] == np.float32(1e20)).all()
+        assert (np.diff(tl[t, tc[t]:]) > 0).all()
+    if case == "edges":
+        assert (tc < boxes.shape[0]).any()  # some tile leaves boxes dead
+        ties = [(te[t, :tc[t]][1:] == te[t, :tc[t]][:-1]).sum() for t in range(tc.shape[0])]
+        assert sum(ties) > 0
 
 
 def test_tile_widening_and_padding_contract():

@@ -8,6 +8,8 @@
   * the walks' counters equal `chip_smoke._walk_work`'s rule applied to the
     walk counts the side-channel functions read on the same inputs;
   * `syncs` counts the bounce loops' host reads;
+  * on CPU tensors the precull is the plain version and counts no
+    `walk.precull.rays`;
   * `cli render --profile DIR` writes DIR/spans.jsonl.
 
 The same spans on the card (the kernel launches, the copies to the card,
@@ -22,6 +24,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke
 import tpu_pathtracer_torch as tpt
+from tpu_pathtracer_torch import _build
 from tpu_pathtracer_torch.cli import main
 from tpu_pathtracer_torch.ops import trace as ttrace
 from tpu_pathtracer_torch.ops.kernels import mt_shade, mt_stream
@@ -173,6 +176,30 @@ def test_walk_counters_follow_the_walk_counts(kind):
     assert got["walk.slabs"] == int(slabs.sum())
     assert got["walk.lanes"] == phi.shape[1]
     assert (got["walk.slabs"] > 0) == (kind != "nf")
+
+
+@pytest.mark.parametrize("kind", ["nf", "stream"])
+def test_cpu_precull_runs_the_plain_version(kind, monkeypatch):
+    """On CPU tensors the walks' precull is `_precull_live_subs_plain`: no
+    kernel library is loaded, no launch is counted, and under the profiler
+    `walk.precull.rays` counts nothing while `walk.lanes` counts the rays."""
+    calls = []
+    plain = mt_shade._precull_live_subs_plain
+    monkeypatch.setattr(mt_shade, "_precull_live_subs_plain",
+                        lambda *a: calls.append(a[0].shape[0]) or plain(*a))
+
+    def refuse():
+        raise AssertionError("the kernel library was loaded")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    before = mt_shade._precull_live_subs.launches
+    tri, phi = _soup(2300, 700, 6)
+    wrapper = mt_stream.mt_intersect_stream2_phi if kind == "stream" else mt_shade.mt_intersect_nf_phi
+    hit = _profiled(wrapper, tri, phi, tile_rays=256)
+    got = spans.totals()
+    assert calls == [2 if kind == "stream" else 36] and int(hit.hit.sum()) > 0
+    assert mt_shade._precull_live_subs.launches == before
+    assert "walk.precull.rays" not in got and got["walk.lanes"] == phi.shape[1]
 
 
 def test_cli_profile_writes_the_spans(tmp_path):

@@ -41,7 +41,7 @@ from tpu_pathtracer_torch.ops.kernels import mt_shade, mt_stream
 from tpu_pathtracer_torch.scene import primitives as tprim
 from tpu_pathtracer_torch.scene.envmap import gradient_sky
 from tpu_pathtracer_torch.scene.host import rotation_x
-from test_torch_mt import assert_hit_parity, random_rays, random_soup
+from test_torch_mt import assert_hit_parity, precull_edge_rays, random_rays, random_soup
 from test_torch_trace import assert_images_close
 
 
@@ -111,14 +111,20 @@ def test_dead_pad_boxes_match_jax():
             np.asarray(j_dead_pad_boxes(jnp.asarray(boxes), n_real, granule)))
 
 
-def test_stream_boxes_and_precull_lists_match_jax():
+@pytest.mark.parametrize("rays", ["soup", "edges"])
+def test_stream_boxes_and_precull_lists_match_jax(rays):
     """The wrapper's chunk and sub boxes and its near-to-far super lists
-    equal the JAX wrapper's (`_mt_intersect_stream2_impl`)."""
+    equal the JAX wrapper's (`_mt_intersect_stream2_impl`); "edges": rays
+    parked inside the supers, axes under EPSILON or exactly 0."""
     rng = np.random.default_rng(9)
     n = 5000  # 3 supers, the last one mostly padding
     tri = random_soup(rng, n, spread=0.1)
-    ro, rd = random_rays(rng, 1000, park_every=4)
-    phi = np.asarray(_phi(ro, rd))
+    if rays == "soup":
+        ro, rd = random_rays(rng, 1000, park_every=4)
+        phi = np.asarray(_phi(ro, rd))
+    else:
+        supers = np.asarray(j_treelet_boxes(j_pad_to(jnp.asarray(tri), 3 * 2048, 0), 2048))
+        phi = precull_edge_rays(rng, 1000, supers)
     (phi_pad, _, chunk_boxes, sub_boxes, counts, lists, emins,
      tile_rays) = mt_stream._prepare(torch.from_numpy(tri), torch.from_numpy(phi.copy()), 256)
     assert tile_rays == 256 and phi_pad.shape == (10, 1024)
@@ -197,7 +203,7 @@ def test_header_edit_changes_library_path(tmp_path, monkeypatch):
     before = _build.library_path()
     assert [p.name for p in _build._sources()] == ["cond_walk.cu", "denoise.cu", "mt_intersect.cu",
                                                    "mt_shade.cu", "mxu_walk.cu", "nf_walk.cu",
-                                                   "r2_walk.cu", "stream_walk.cu"]
+                                                   "precull.cu", "r2_walk.cu", "stream_walk.cu"]
     header = csrc / "mt_common.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = _build.library_path()

@@ -16,9 +16,10 @@ contract:
   * triangles pad to a multiple of 128 rows (all-zero rows never hit) and
     are cut into `sub`-row sub-treelets; the ray features phi_t (10, R) pad
     with 1e30 to a multiple of the ray tile;
-  * 'nf' and 'list': a precull (`_precull_live_subs`, plain torch)
-    slab-tests every ray against every sub box, reduces per ray tile and
-    sorts each tile's live subs by entry distance; the tile widens while
+  * 'nf' and 'list': a precull (`_precull_live_subs`: the kernel of
+    csrc/precull.cu for a CUDA tensor, `_precull_live_subs_plain` for a CPU
+    tensor) slab-tests every ray against every sub box, reduces per ray tile
+    and sorts each tile's live subs by entry distance; the tile widens while
     there are more than 512 tiles.  'nf' walks that list near to far and
     stops once the next entry distance reaches the tile's largest live t;
     parked lanes (rd = 0) and padding lanes (|rd| >= 1e30) start at
@@ -154,7 +155,24 @@ def _precull_live_subs(sub_boxes, phi_t, tile_rays: int):
     (counts (T,) i32, lists (T, Ms) i32, emins (T, Ms) f32): lists[t, :counts[t]]
     are tile t's live subs by ascending tile entry distance (a stable sort, so
     equal distances keep index order); emins holds those distances, INF past
-    counts[t].  Rays are processed in bounded chunks of whole tiles."""
+    counts[t].  A CUDA tensor launches the precull kernel (csrc/precull.cu),
+    counting the launch in `_precull_live_subs.launches` and its rays in
+    `walk.precull.rays`; a CPU tensor runs `_precull_live_subs_plain`.  The
+    two agree bit for bit."""
+    if not _launches_kernel(phi_t):
+        return _precull_live_subs_plain(sub_boxes, phi_t, tile_rays)
+    out = _precull_cuda(sub_boxes, phi_t, tile_rays)
+    _precull_live_subs.launches += 1
+    spans.count("walk.precull.rays", phi_t.shape[1])
+    return out
+
+
+_precull_live_subs.launches = 0
+
+
+def _precull_live_subs_plain(sub_boxes, phi_t, tile_rays: int):
+    """`_precull_live_subs` in torch ops, on any device: rays are processed
+    in bounded chunks of whole tiles."""
     ms, r = sub_boxes.shape[0], phi_t.shape[1]
     step = max(1, 65536 // tile_rays) * tile_rays
     emin_parts = []
@@ -169,10 +187,36 @@ def _precull_live_subs(sub_boxes, phi_t, tile_rays: int):
     return counts, lists.T.to(torch.int32).contiguous(), emins.T.contiguous()
 
 
+def _precull_cuda(sub_boxes, phi_t, tile_rays: int):
+    """Launch `tpt_precull` on the current stream: one CTA a ray tile (it
+    refuses more than 8,192 boxes)."""
+    from ... import _build
+
+    lib = _build.load()
+    dev = phi_t.device
+    sub_boxes, phi_t = sub_boxes.detach().contiguous(), phi_t.detach().contiguous()
+    _check_inputs("precull", (sub_boxes, torch.float32), (phi_t, torch.float32), device=dev)
+    ms, r = sub_boxes.shape[0], phi_t.shape[1]
+    if sub_boxes.shape[1] != 8 or phi_t.shape[0] != 10 or r % tile_rays:
+        raise ValueError(f"precull kernel: boxes {tuple(sub_boxes.shape)}, rays "
+                         f"{tuple(phi_t.shape)}, tile {tile_rays}")
+    n_tiles = r // tile_rays
+    counts = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
+    lists = torch.empty((n_tiles, ms), dtype=torch.int32, device=dev)
+    emins = torch.empty((n_tiles, ms), dtype=torch.float32, device=dev)
+    err = lib.tpt_precull(*map(_ptr, (sub_boxes, phi_t, counts, lists, emins)), ms, r,
+                          tile_rays, _stream(dev))
+    if err:
+        raise RuntimeError(f"precull kernel launch failed: {_build.error_string(err)}")
+    return counts, lists, emins
+
+
 def _dead_pad_boxes(boxes, n_real: int, granule: int):
     """Give treelets made only of padding rows the impossible box
-    [+INF]*3, [-INF]*3, 0, 0, which every slab test misses (`treelet_boxes`
-    pulls padding toward the origin, which a ray there would hit)."""
+    [+INF]*3, [-INF]*3, 0, 0 (`treelet_boxes` pulls padding toward the
+    origin, which a ray there would hit).  As in JAX, only a ray with a
+    parallel axis misses it: any other ray enters it at -INF, its slabs
+    swapping ends, and walks its padding rows, which never hit."""
     first_dead = -(-n_real // granule)
     if first_dead >= boxes.shape[0]:
         return boxes
