@@ -21,7 +21,7 @@ public entry points:
     then the loss gradient at the initial colors with TPT_CULL=list and
     =cond, through the list and cond kernels (csrc/nf_walk.cu,
     csrc/cond_walk.cu), and with intersector='bvh8' (the fat-leaf BVH
-    walk, torch ops);
+    walk, csrc/fat_walk.cu);
   * cond end to end: the headline frame and the training step under
     TPT_CULL=nf and =cond, in turns, with cond's wrapper split into its
     parts (padding and packing, boxes, table repack, walk);
@@ -38,8 +38,12 @@ public entry points:
   * large scene: `Renderer(...).render_all()` and `display()` on the JAX
     bench's mesh_scene(640) (a 408,322-triangle sphere and a plane, padded
     to 524,288) at 512x512, 1 sample per pixel, 6 bounces, 2 frames: 'auto'
-    takes the 'bvh8' walk, past the MT kernels' 262,144-triangle cap; its
-    primary rays also go through 'bvh', which must find the same hits;
+    takes the 'bvh8' walk, past the MT kernels' 262,144-triangle cap, one
+    fat walk kernel launch (csrc/fat_walk.cu) a bounce; its primary rays
+    also go through 'bvh', which must find the same hits; then the fat
+    walk kernel on the primary and first-bounce rays a 'bvh8' frame hands
+    it, bit-equal to the torch walk, its node count equal to the torch
+    walk's, timed by CUDA events beside its bound and the torch walk;
   * MXU determinants (kernel #5): the headline shape through
     `render.benchmark.make_budget` under TPT_MXU_DETS=0 and =1, timed by
     `utils.devtime.device_time` and the host clock (the JAX package's
@@ -223,6 +227,14 @@ H100_TF32 = 495e12  # FLOP/s, dense TF32 tensor cores, H100 SXM data sheet
 # epilogue's 5 FP32 operations (3 sign products, EPSILON*|a|, us + vs).
 PAIR_FLOPS_MXU = 3 * 2 * 19
 PAIR_OPS_MXU_EPILOGUE = 5
+# The fat-leaf walk's work (csrc/fat_walk.cu).  A node row visited: its box
+# test, per axis 2 differences, 2 quotients, a min and a max (18 in all),
+# and 9 floats read (box and links).  A leaf triangle tested: 6 edge
+# differences, two cross products (12 products, 6 differences), four dots
+# (12 products, 8 sums), 1 / a, three products by it, 3 differences for s
+# and u + v (51), and its 9 floats read.
+FAT_ROW_OPS = 18
+FAT_TRI_OPS = 51
 SWEEP_FRAMES = 8  # frames of each timed make_budget call of the sweep phase
 
 
@@ -1114,9 +1126,11 @@ def _mesh_scene(pt, segments: int):
 def _large_phase(pt, trace, intersect, counters, results, tag, profile: bool):
     """The slice's full-width path: Renderer(mesh_scene(640)).render_all()
     and display() with every launch count set to 0 just before and read
-    just after ('auto' must take 'bvh8' and no MT kernel may launch); then
-    'bvh8' against 'bvh' on the primary rays (the same hits and t; the
-    triangles may differ only on exact-t ties), and the times."""
+    just after ('auto' must take 'bvh8', one fat walk kernel launch a
+    bounce, and no MT kernel may launch); then 'bvh8' against 'bvh' on the
+    primary rays (the same hits and t; the triangles may differ only on
+    exact-t ties), and the times; then `_fat_walk_phase`, whose results it
+    returns."""
     import torch
 
     dev = torch.device("cuda")
@@ -1138,16 +1152,21 @@ def _large_phase(pt, trace, intersect, counters, results, tag, profile: bool):
     print("large-scene main path:")
     for fn in counters.values():
         fn.launches = 0
+    fat0 = intersect.bvh_fat_intersect.launches
     t0 = time.perf_counter()
     renderer.render_all()
     image = renderer.display()
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
+    fat_launches = intersect.bvh_fat_intersect.launches - fat0
+    _check(LARGE_FRAMES <= fat_launches <= LARGE_FRAMES * LARGE_BOUNCES,
+           f"fat walk kernel launches {fat_launches} for {LARGE_FRAMES} frames")
     png = ROOT / "build" / "chip_smoke_large.png"
     _check_display(renderer, image, config, png)
-    print(f"  {LARGE_FRAMES} frames + display in {main_s:.2f} s; launches {launches}; image mean "
-          f"{float(image.mean()):.4f}, written to {png.relative_to(ROOT)}")
+    print(f"  {LARGE_FRAMES} frames + display in {main_s:.2f} s; launches {launches}, fat walk "
+          f"{fat_launches}; image mean {float(image.mean()):.4f}, written to "
+          f"{png.relative_to(ROOT)}")
     _check(not _mt_launched(launches), f"MT kernels launched on the bvh8 path: {launches}")
     _check(launches["denoise"] >= 1, "denoise kernel not launched")
 
@@ -1175,9 +1194,100 @@ def _large_phase(pt, trace, intersect, counters, results, tag, profile: bool):
           f"({WIDTH * HEIGHT / frame_ms / 1e3:.3f} Mpaths/s); primary-ray walk bvh8 "
           f"{bvh8_ms:.3f} ms, bvh {bvh_ms:.3f} ms; scene compile {compile_s:.2f} s")
     results.update(large_compile_s=compile_s, large_main_path_s=main_s, large_launches=launches,
-                   large_image_mean=float(image.mean()), large_frame_ms=frame_ms,
-                   large_bvh8_walk_ms=bvh8_ms, large_bvh_walk_ms=bvh_ms,
+                   large_fat_walk_launches=fat_launches, large_image_mean=float(image.mean()),
+                   large_frame_ms=frame_ms, large_bvh8_walk_ms=bvh8_ms, large_bvh_walk_ms=bvh_ms,
                    large_primary_hits=hits, large_bvh8_bvh_ties=ties)
+    return _fat_walk_phase(intersect, trace, data, params, kw, results, tag)
+
+
+def _fat_walk_reads(intersect, fat, ro, rd, max_leaf: int = 8):
+    """(node rows visited, leaf triangles tested) by the fat-leaf walk of
+    these rays: the torch walk (`_fat_step` under `_walk`), each step's
+    entered leaves counted beside it."""
+    import torch
+
+    k = fat.shape[0]
+    links = intersect._link_columns(fat, 6, 3)
+    slots = torch.arange(max_leaf, device=ro.device)[None, :]
+    step = intersect._fat_step(fat, links, slots, max_leaf, None)
+    rows = torch.zeros((), dtype=torch.int64, device=ro.device)
+    tris = torch.zeros((), dtype=torch.int64, device=ro.device)
+
+    def counted(rays, state):
+        ptr, best_t = state[0], state[1]
+        active = ptr < k
+        p = torch.where(active, ptr, 0)
+        row = torch.index_select(fat, 0, p)
+        hit, tmin = intersect.ray_aabb_t(rays[0], rays[1], row[:, 0:3], row[:, 3:6])
+        count = torch.index_select(links, 0, p)[:, 2]
+        entered = hit & active & (tmin < best_t) & (count > 0)
+        rows.add_(active.sum())
+        tris.add_(torch.where(entered, count.clamp(max=max_leaf), 0).sum())
+        return step(rays, state)
+
+    ptr = torch.zeros((ro.shape[0],), dtype=torch.int32, device=ro.device)
+    intersect._walk(counted, (ro, rd), (ptr, *intersect._start(ro)), lambda s: s[0] < k)
+    return int(rows), int(tris)
+
+
+def _fat_walk_phase(intersect, trace, data, params, kw, results, tag):
+    """The fat walk kernel (csrc/fat_walk.cu) on the large scene's 262,144
+    primary rays and on its first bounce's rays (the plain loop's, parked
+    rays included), as `render_frame` hands them to the walk: bit-equal to
+    the torch walk (`_bvh_fat_intersect_plain`), its `walk.fat.nodes`
+    equal to the torch walk's count, the kernel timed by `_kernel_ms`
+    beside its bound (rows and leaf triangles read a visit, over the HBM
+    rate, against their FP32 operations over the FP32 peak) and the torch
+    walk's time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_pathtracer_torch.utils import spans
+
+    fat = data.packed.fat_nodes
+    calls = []
+    walk = trace.bvh_fat_intersect
+
+    def recorded(f, ro, rd, **kwargs):
+        calls.append((ro.clone(), rd.clone()))
+        return walk(f, ro, rd, **kwargs)
+
+    trace.bvh_fat_intersect = recorded
+    try:
+        trace.render_frame(data, params, intersector="bvh8", **kw)
+    finally:
+        trace.bvh_fat_intersect = walk
+    out = {}
+    for what, (ro, rd) in zip(("primary", "bounce1"), calls):
+        with spans.span("between sessions"):
+            pass
+        with profile(activities=[ProfilerActivity.CPU]):
+            hk = intersect.bvh_fat_intersect(fat, ro, rd, ray_batch=0)
+        torch.cuda.synchronize()
+        counts = spans.totals()
+        hp = intersect._bvh_fat_intersect_plain(fat, ro, rd)
+        for name, a, b in zip(hk._fields, hk, hp):
+            _check(torch.equal(a, b), f"fat walk {what}: {name} differs from the torch walk's")
+        rows, tris = _fat_walk_reads(intersect, fat, ro, rd)
+        _check(counts.get("walk.fat.nodes") == rows,
+               f"fat walk {what}: walk.fat.nodes {counts.get('walk.fat.nodes')}, torch walk {rows}")
+        n = ro.shape[0]
+        kernel_ms = _kernel_ms(lambda: intersect._fat_walk_cuda(fat, ro, rd, 8), "fat_walk_kernel")
+        plain_ms = _time_ms(lambda: intersect._bvh_fat_intersect_plain(fat, ro, rd), 1, 3)
+        bound = _bound(rows * FAT_ROW_OPS + tris * FAT_TRI_OPS,
+                       4 * (9 * rows + 9 * tris + 6 * n + 4 * n) + n)
+        steps, lane_steps = counts["walk.fat.steps"], counts["walk.fat.lane_steps"]
+        print(f"timing {tag}: fat walk {what} ({n} rays, {int(hk.hit.sum())} hits, bit-equal to "
+              f"the torch walk): kernel {kernel_ms:.4f} ms, torch walk {plain_ms:.3f} ms; bound "
+              f"{bound[0]:.4f} ms ({bound[1]}) from {rows} rows ({rows / n:.3f} a ray) and {tris} "
+              f"leaf triangles; longest walk {steps} rows, lanes used "
+              f"{100 * rows / lane_steps:.1f}%")
+        out[what] = dict(rays=n, kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound[0],
+                         bound_by=bound[1], rows=rows, leaf_triangles=tris, steps=steps,
+                         lane_steps=lane_steps)
+    _check(len(out) == 2, f"the bvh8 frame made {len(calls)} walk calls")
+    results["fat_walk"] = out
+    return out
 
 
 def _same_tri_err(hk, hp) -> float:
@@ -3159,7 +3269,7 @@ def main(argv=None) -> int:
 
     # --- large-scene main path: Renderer on mesh_scene(640) through bvh8 ------
     phase("large")
-    _large_phase(pt, trace, intersect, counters, results, tag, opts.profile)
+    fat_walk = _large_phase(pt, trace, intersect, counters, results, tag, opts.profile)
 
     # --- training main path: diff.invert, then list/cond/bvh8 gradients --------
     phase("training")
@@ -3257,6 +3367,13 @@ def main(argv=None) -> int:
          **bound((precull["default_primary"]["bound_ms"], precull["default_primary"]["bound_by"])),
          **{f"stress_{k}": precull["stress_primary"][k]
             for k in ("kernel_ms", "call_ms", "plain_ms", "bound_ms")}},
+        {"name": "fat_walk", "route": "cuda", "source": "tpu_pathtracer_torch/csrc/fat_walk.cu",
+         "replaces": None, "xla_glue": "tpu_pathtracer/ops/intersect.py:372",
+         "launches": results["large_fat_walk_launches"], "max_abs_err": 0.0,
+         "kernel_ms": fat_walk["primary"]["kernel_ms"],
+         "plain_ms": fat_walk["primary"]["plain_ms"],
+         **bound((fat_walk["primary"]["bound_ms"], fat_walk["primary"]["bound_by"])),
+         **{f"bounce1_{k}": fat_walk["bounce1"][k] for k in ("kernel_ms", "plain_ms", "bound_ms")}},
         *({"name": f"mt_{cull}_mxu", "route": "cuda",
            "source": "tpu_pathtracer_torch/csrc/mxu_walk.cu",
            "replaces": "tpu_pathtracer/ops/pallas/mt_shade.py:118",

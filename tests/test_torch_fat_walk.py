@@ -9,8 +9,13 @@ intersector, through `utils/spans.py`):
     each of the walk's host reads, each a `sync` span inside `walk.fat`;
   * frames through `Renderer` forced to 'bvh8' are bit-equal with the
     recorder on and off, and nothing is recorded while it is off;
-  * on a card (marker `cuda`), the walk run as CUDA graphs gives the eager
-    walk's hits bit for bit, and its counts:
+  * the fat walk kernel's wrapper: a CPU tensor walks in torch ops and
+    launches nothing, and the argument checks refuse a wrong dtype, width
+    or layout before any launch; the kernel's 32-ray group rule, by hand;
+  * on a card (marker `cuda`), the kernel (csrc/fat_walk.cu) gives the
+    torch walk's hits bit for bit over three tables, with dead lanes, its
+    counters the plain count's, and `Renderer` frames equal to the torch
+    walk's:
 
     python -m pytest --noconftest -m cuda tests/test_torch_fat_walk.py"""
 
@@ -168,6 +173,61 @@ def test_frames_bit_equal_with_the_recorder_on_and_off():
     assert (spans.recorded(), spans.counters()) == snapshot
 
 
+def _group_rule(visits, group: int = 32):
+    """(nodes, steps, lane_steps) the fat walk kernel counts for rays that
+    visit `visits` rows each: the rows, the longest walk, and over each
+    group of `group` consecutive rays (a warp), the rays in the group times
+    its longest walk."""
+    lane_steps = sum(len(visits[i:i + group]) * max(visits[i:i + group])
+                     for i in range(0, len(visits), group))
+    return sum(visits), max(visits, default=0), lane_steps
+
+
+def test_group_rule_by_hand():
+    visits = [3] * 31 + [9] + [1] * 32 + [2, 7, 4]  # 67 rays: two full groups, one of 3
+    assert _group_rule(visits) == (93 + 9 + 32 + 13, 9, 32 * 9 + 32 * 1 + 3 * 7)
+    assert _group_rule([]) == (0, 0, 0)
+    assert _group_rule([5, 1], group=1) == (6, 5, 6)
+
+
+def test_cpu_tensors_walk_in_torch_ops(scene, monkeypatch):
+    fat = scene.packed.fat_nodes
+    ro, rd = _rays(64, 7)
+    launched = tint.bvh_fat_intersect.launches
+    monkeypatch.setattr(tint, "_fat_walk_cuda", lambda *a: pytest.fail("the kernel was called"))
+    hit = tint.bvh_fat_intersect(fat, ro, rd, ray_batch=0)
+    plain = tint._bvh_fat_intersect_plain(fat, ro, rd)
+    assert tint.bvh_fat_intersect.launches == launched
+    assert hit.hit.any()
+    for a, b in zip(hit, plain):
+        assert torch.equal(a, b)
+
+
+def _bad_inputs(fat, ro, rd, what):
+    if what == "dtype":
+        return fat.double(), ro, rd, 8
+    if what == "width":
+        return fat[:, :9 + 9 * 4].contiguous(), ro, rd, 8
+    if what == "layout":
+        return fat.T.contiguous().T, ro, rd, 8
+    if what == "rays":
+        return fat, ro[:, :2].contiguous(), rd[:, :2].contiguous(), 8
+    return fat, ro, rd, 8  # "device": right in all but the device
+
+
+@pytest.mark.parametrize("what", ["dtype", "width", "layout", "rays", "device"])
+def test_fat_walk_kernel_refuses_what_it_cannot_take(scene, what, monkeypatch):
+    from tpu_pathtracer_torch import _build
+
+    monkeypatch.setattr(_build, "load", lambda: pytest.fail("the kernel library was loaded"))
+    ro, rd = _rays(8, 1)
+    fat, ro, rd, max_leaf = _bad_inputs(scene.packed.fat_nodes, ro, rd, what)
+    launched = tint.bvh_fat_intersect.launches
+    with pytest.raises(ValueError, match="fat walk kernel"):
+        tint._fat_walk_cuda(fat, ro, rd, max_leaf)
+    assert tint.bvh_fat_intersect.launches == launched
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -175,44 +235,102 @@ def cuda():
     return torch.device("cuda")
 
 
-def _both_walks(fat, ro, rd):
-    """(graphed, eager) hits and counter totals of one profiled walk each."""
+def _soup_table(max_leaf=4, end=1024):
+    """A 300-triangle soup's fat-leaf table with `max_leaf` slots and its
+    miss links past the last row re-targeted to `end` (test_torch_scene's
+    recipe), and the packed triangle rows."""
+    from tpu_pathtracer_torch.accel.bvh import build_bvh_flat, flat_to_links, links_to_fat
+
+    rng = np.random.default_rng(0)
+    p0 = rng.uniform(-1, 1, (300, 3)).astype(np.float32)
+    p1 = p0 + rng.uniform(-0.1, 0.1, (300, 3)).astype(np.float32)
+    p2 = p0 + rng.uniform(-0.1, 0.1, (300, 3)).astype(np.float32)
+    links = flat_to_links(build_bvh_flat(p0, p1, p2))
+    order = links["tri"][links["tri"] >= 0]
+    packed_id = np.where(links["tri"] >= 0, np.argsort(order)[np.clip(links["tri"], 0, None)],
+                         -1).astype(np.int32)
+    tri_pos = np.concatenate([p0, p1, p2], axis=1)[order]
+    return torch.from_numpy(links_to_fat(links, tri_pos, packed_id, max_leaf, end))
+
+
+TABLES = {"mesh16": (8, lambda: mesh_scene(16).compile(device="cpu").packed.fat_nodes),
+          "soup_leaf4_end": (4, _soup_table),
+          "large524K": (8, lambda: mesh_scene(640).compile(device="cpu").packed.fat_nodes)}
+
+
+@pytest.fixture(scope="module")
+def tables():
+    return {}
+
+
+def _table(tables, name, device):
+    if name not in tables:
+        max_leaf, make = TABLES[name]
+        tables[name] = (max_leaf, make().to(device))
+    return tables[name]
+
+
+def _walk_rays(n, seed, device):
+    """`_rays` with a seventh of the lanes dead (ro = 1e30, rd = 0, as the
+    plain loop hands finished rays in) and a seventh along an axis."""
+    ro, rd = _rays(n, seed)
+    lane = torch.arange(n)
+    axis = torch.zeros((n, 3))
+    axis[torch.arange(n), lane % 3] = torch.where(lane % 2 == 0, -1.0, 1.0)
+    rd = torch.where((lane % 7 == 3)[:, None], axis, rd)
+    dead = (lane % 7 == 5)[:, None]
+    ro, rd = torch.where(dead, 1e30, ro), torch.where(dead, 0.0, rd)
+    return ro.to(device), rd.to(device)
+
+
+def _kernel_and_plain(fat, ro, rd, max_leaf):
+    """(kernel, plain) hits and counter totals, one profiled walk each."""
     out = []
-    for graphed in (True, False):
-        hit = _profiled(tint.bvh_fat_intersect, fat, ro, rd, ray_batch=0, graphed=graphed)
+    for fn in (tint.bvh_fat_intersect, tint._bvh_fat_intersect_plain):
+        kw = dict(ray_batch=0) if fn is tint.bvh_fat_intersect else {}
+        hit = _profiled(fn, fat, ro, rd, max_leaf=max_leaf, **kw)
         torch.cuda.synchronize()
         out.append((hit, spans.totals()))
     return out
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [0, 1, 700, 1024, 5000, 40000])
-def test_graphed_walk_gives_the_eager_walk(cuda, n):
-    fat = mesh_scene(96).compile(device=cuda).packed.fat_nodes
-    ro, rd = _rays(n, 10 + n)
-    (hit_g, tot_g), (hit_e, tot_e) = _both_walks(fat, ro.to(cuda), rd.to(cuda))
-    for a, b in zip(hit_g, hit_e):
-        assert torch.equal(a, b)
-    assert n < 700 or hit_e.hit.any()
-    for name in ("walk.fat.rays", "walk.fat.nodes", "walk.fat.steps", "syncs"):
-        assert tot_g.get(name) == tot_e.get(name), name
-    assert tot_e.get("walk.fat.lane_steps", 0) <= tot_g.get("walk.fat.lane_steps", 0)
+@pytest.mark.parametrize("n", [0, 1, 700, 1024, 5000, 40000, 262144])
+@pytest.mark.parametrize("table", sorted(TABLES))
+def test_fat_walk_kernel_gives_the_torch_walk(cuda, tables, table, n):
+    max_leaf, fat = _table(tables, table, cuda)
+    ro, rd = _walk_rays(n, 10 + n, cuda)
+    launched = tint.bvh_fat_intersect.launches
+    (hit_k, tot_k), (hit_p, tot_p) = _kernel_and_plain(fat, ro, rd, max_leaf)
+    assert tint.bvh_fat_intersect.launches == launched + 1
+    for a, b in zip(hit_k, hit_p):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert n < 700 or (hit_p.hit.any() and not hit_p.hit.all())
+    assert tot_k.get("walk.fat.rays") == n
+    assert tot_k.get("walk.fat.nodes", 0) == tot_p.get("walk.fat.nodes", 0)
+    assert tot_k.get("syncs", 0) == 0
+    assert tot_k.get("walk.fat.steps", 0) <= tot_p.get("walk.fat.steps", 0)
 
 
 @pytest.mark.cuda
-def test_graphs_serve_each_table_and_frames_match_the_eager_walk(cuda, monkeypatch):
-    tables = [mesh_scene(s).compile(device=cuda).packed.fat_nodes for s in (24, 48, 24)]
-    ro, rd = _rays(3000, 5)
-    ro, rd = ro.to(cuda), rd.to(cuda)
-    for fat in tables * 2:  # more tables than are kept: each is captured anew
-        for a, b in zip(tint.bvh_fat_intersect(fat, ro, rd, ray_batch=0),
-                        tint.bvh_fat_intersect(fat, ro, rd, ray_batch=0, graphed=False)):
-            assert torch.equal(a, b)
-    assert len(tint._FAT_GRAPHS) == tint._GRAPH_TABLES
+@pytest.mark.parametrize("table", ["mesh16", "soup_leaf4_end"])
+def test_fat_walk_kernel_counts_by_the_group_rule(cuda, tables, table):
+    max_leaf, fat = _table(tables, table, cuda)
+    ro, rd = _walk_rays(720, 31, cuda)
+    _profiled(tint.bvh_fat_intersect, fat, ro, rd, max_leaf=max_leaf, ray_batch=240)
+    totals = spans.totals()
+    visits = _plain_visits(fat, ro, rd, max_leaf)
+    rules = [_group_rule(visits[i:i + 240]) for i in range(0, 720, 240)]  # one launch a slice
+    assert totals["walk.fat.nodes"] == sum(visits) == sum(r[0] for r in rules)
+    assert totals["walk.fat.steps"] == sum(r[1] for r in rules)
+    assert totals["walk.fat.lane_steps"] == sum(r[2] for r in rules)
+    assert max(visits) > min(visits) == 1
 
-    def frames(graphed):
-        monkeypatch.setattr(trace, "bvh_fat_intersect",
-                            lambda *a, **kw: tint.bvh_fat_intersect(*a, **kw, graphed=graphed))
+
+@pytest.mark.cuda
+def test_renderer_frames_equal_the_torch_walk(cuda, monkeypatch):
+    def frames(fn):
+        monkeypatch.setattr(trace, "bvh_fat_intersect", fn)
         r = tpt.Renderer(mesh_scene(48), tpt.Camera.create(**CAM),
                          tpt.RenderConfig(width=64, height=48, frames=4, max_bounces=4,
                                           intersector="bvh8"),
@@ -222,4 +340,15 @@ def test_graphs_serve_each_table_and_frames_match_the_eager_walk(cuda, monkeypat
             r.render()
         return r.accumulation.clone()
 
-    assert torch.equal(frames(True), frames(False))
+    calls = []
+
+    def kernel(*a, **kw):
+        calls.append(tint.bvh_fat_intersect.launches)
+        return tint.bvh_fat_intersect(*a, **kw)
+
+    plain = lambda fat, ro, rd, ray_batch: tint._bvh_fat_intersect_plain(fat, ro, rd)
+    launched = tint.bvh_fat_intersect.launches
+    got = frames(kernel)
+    assert len(calls) >= 3 and tint.bvh_fat_intersect.launches == launched + len(calls)
+    assert calls == list(range(launched, launched + len(calls)))
+    assert torch.equal(got, frames(plain))

@@ -192,6 +192,7 @@ _SIGNATURES = {
     "tpt_mt_r2_walk_shape": ([ctypes.POINTER(_I)], _I),
     "tpt_mt_r2_v1": ([_P] * 8 + [_I] * 4 + [_P], _I),
     "tpt_precull": ([_P] * 5 + [_I] * 3 + [_P], _I),
+    "tpt_fat_walk": ([_P] * 9 + [_I] * 4 + [_P], _I),
     "tpt_denoise": ([_P] * 4 + [_I] * 4 + [_F, _P], _I),
     "tpt_denoise_v1": ([_P] * 3 + [_I] * 3 + [_F, _P], _I),
     "tpt_error_string": ([_I], ctypes.c_char_p),

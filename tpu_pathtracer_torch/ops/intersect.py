@@ -22,20 +22,20 @@ checks every `_CHECK_EVERY` steps which lanes still walk and carries on
 with those alone (`_walk`).  A step is an identity on a lane that has
 finished, so every lane ends in the state the per-step loop gives it.
 
-On a CUDA device the fat-leaf walk launches its `_CHECK_EVERY` steps as
-one CUDA graph replay (`_FatGraphs`) in place of about 900 kernel launches
-from the host: the lanes sit in static buffers of a few fixed sizes, the
-lanes past the walk's own parked, and each lane's result is the eager
-walk's.  The host checks and compactions are the same.
+On a CUDA device the fat-leaf walk is one kernel launch (csrc/fat_walk.cu,
+`_fat_walk_cuda`): each ray walks to its nearest hit in one thread, with no
+host read, and the hits equal the torch walk's (`_bvh_fat_intersect_plain`,
+which a CPU tensor takes) bit for bit.
 
 While the recorder of `utils.spans` is on, each host check is a `sync`,
-and the fat-leaf walk records the span `walk.fat` (`walk.fat.compact`
-around each compaction) and the counters `walk.fat.rays` (rays handed to
-it), `walk.fat.steps` (steps taken), `walk.fat.lane_steps` (lanes held,
-summed over the steps; in a graphed walk the lanes of its buffers) and
-`walk.fat.nodes` (node rows that walking lanes visited, kept on the
-device).  Off, they add no launch from the host; the graphed walk counts
-`walk.fat.nodes` inside its graphs, on or off.
+and the fat-leaf walk records the span `walk.fat` and the counters
+`walk.fat.rays` (rays handed to it), `walk.fat.nodes` (node rows that
+walking lanes visited, kept on the device), `walk.fat.steps` and
+`walk.fat.lane_steps`.  The torch walk counts steps taken and lanes held,
+summed over the steps (the check rule), and records `walk.fat.compact`
+around each compaction; the kernel counts its longest walk in rows and,
+over each group of 32 consecutive rays (a warp), the rays times their
+longest walk.  Off, they add no launch.
 
 Columns of `nodes` and `fat_nodes` that hold int32 bit patterns are read
 through an int32 view of those columns, never through float arithmetic.
@@ -48,6 +48,7 @@ import contextlib
 import torch
 
 from ..utils import spans
+from .kernels.mt_intersect import _ptr, _stream
 from .mt_matmul import Hit, miss_hit
 from .vecmath import EPSILON, INF, cross, dot
 
@@ -59,8 +60,6 @@ __all__ = [
 
 MAX_STACK_SIZE = 64  # raytrace.wgsl:8
 _CHECK_EVERY = 8  # walk steps between host checks for finished lanes
-_GRAPH_MIN_LANES = 1024  # the smallest lane buffer of a graphed walk
-_GRAPH_TABLES = 2  # node tables whose graphs are kept
 
 
 def ray_triangle(ro, rd, p0, p1, p2):
@@ -105,29 +104,24 @@ def ray_aabb(ro, rd, bmin, bmax):
     return ray_aabb_t(ro, rd, bmin, bmax)[0]
 
 
-def _walk(step, rays, state, walking, tally=None, graphs=None):
+def _walk(step, rays, state, walking, tally=None):
     """Run `step(rays, state) -> state` until no lane walks; returns the
     final state.  `rays` and `state` are tuples of tensors over the lane
     axis 0; `walking(state)` is the (R,) mask of lanes not yet finished, on
     which `step` must be an identity.  Every `_CHECK_EVERY` steps the host
     reads how many lanes still walk and, once a quarter or more have
     finished, writes them out and keeps walking the rest alone.  With
-    `graphs` (a `_FatGraphs` of `step`) the steps between two checks are
-    one graph replay.  With `tally`, a counter prefix, the compactions are
+    `tally`, a counter prefix, the compactions are
     spans `<tally>.compact` and the steps and lanes stepped are counted
     under `<tally>.steps` and `<tally>.lane_steps`."""
     out = [x.clone() for x in state]
     lanes = torch.arange(state[0].shape[0], device=state[0].device)
     steps = lane_steps = 0
     while True:
-        if graphs is None:
-            for _ in range(_CHECK_EVERY):
-                state = step(rays, state)
-            held = lanes.shape[0]
-        else:
-            state, held = graphs.advance(rays, state)
+        for _ in range(_CHECK_EVERY):
+            state = step(rays, state)
         steps += _CHECK_EVERY
-        lane_steps += _CHECK_EVERY * held
+        lane_steps += _CHECK_EVERY * lanes.shape[0]
         live = walking(state)
         with spans.sync():
             n_live = int(live.sum())
@@ -159,105 +153,6 @@ def _link_columns(table, first: int, count: int):
     """Columns first..first+count-1 of an f32 node table, read as the int32
     bit patterns they hold: (K, count) int32."""
     return table[:, first:first + count].contiguous().view(torch.int32)
-
-
-def _bucket(n: int) -> int:
-    """The lane buffer of a graphed walk that holds `n` lanes: the least of
-    `_GRAPH_MIN_LANES` * 2^j and * 3 * 2^(j-1) at or above `n`."""
-    b = _GRAPH_MIN_LANES
-    while b < n:
-        b = b * 3 // 2 if b & (b - 1) == 0 else b * 4 // 3
-    return b
-
-
-class _FatGraphs:
-    """The fat-leaf walk's `_CHECK_EVERY` steps over one node table as CUDA
-    graphs, one for each lane buffer size (`_bucket`), each over static
-    buffers of the rays and the walk state.  `advance` loads the walk's
-    lanes into the smallest buffer that holds them when they change (a new
-    walk, or a compaction), parks the buffer's other lanes at the end
-    sentinel K, where a step is an identity, and replays that buffer's
-    graph.  A lane's arithmetic does not depend on the other lanes, so
-    every lane ends as the eager walk leaves it.  Every replay adds the
-    lanes that visited a node to `visits`."""
-
-    def __init__(self, fat_nodes, max_leaf: int):
-        device = fat_nodes.device
-        self.fat_nodes = fat_nodes  # the graphs read it: keep it alive
-        self.max_leaf, self.k = max_leaf, fat_nodes.shape[0]
-        self.links = _link_columns(fat_nodes, 6, 3)
-        self.slots = torch.arange(max_leaf, device=device)[None, :]
-        self.visits = torch.zeros((1,), dtype=torch.int32, device=device)
-        self.step = _fat_step(fat_nodes, self.links, self.slots, max_leaf, self.visits)
-        self.pool = torch.cuda.graph_pool_handle()
-        self.buffers = {}  # lanes -> (graph, rays, state)
-        self.held = None  # the state `advance` last returned: views of the buffer of `lanes` lanes
-        self.lanes = 0
-
-    def serves(self, fat_nodes, max_leaf: int) -> bool:
-        t = self.fat_nodes
-        return (fat_nodes.device == t.device and fat_nodes.data_ptr() == t.data_ptr()
-                and fat_nodes.shape == t.shape and fat_nodes.stride() == t.stride()
-                and max_leaf == self.max_leaf)
-
-    def ready(self, n: int) -> None:
-        """Capture the graphs of every buffer a walk of `n` lanes can use."""
-        b = _GRAPH_MIN_LANES
-        while True:
-            if b not in self.buffers:
-                self._capture(b)
-            if b >= n:
-                return
-            b = _bucket(b + 1)
-
-    def _steps(self, rays, state):
-        out = state
-        for _ in range(_CHECK_EVERY):
-            out = self.step(rays, out)
-        for s, x in zip(state, out):
-            s.copy_(x)
-
-    def _capture(self, lanes: int) -> None:
-        device = self.fat_nodes.device
-        rays = (torch.zeros((lanes, 3), device=device), torch.zeros((lanes, 3), device=device))
-        state = (torch.full((lanes,), self.k, dtype=torch.int32, device=device),
-                 *_start(rays[0]))
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):  # a run before the capture, as torch.cuda.graph asks
-            self._steps(rays, state)
-        torch.cuda.current_stream(device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool):
-            self._steps(rays, state)
-        self.buffers[lanes] = (graph, rays, state)
-
-    def advance(self, rays, state):
-        """`_CHECK_EVERY` steps of the lanes `rays` and `state`; returns the
-        new state, views of the buffer, and the lanes the buffer holds."""
-        if state is not self.held:
-            n = state[0].shape[0]
-            self.lanes = _bucket(n)
-            _, rays_b, state_b = self.buffers[self.lanes]
-            for s, x in zip((*rays_b, *state_b), (*rays, *state)):
-                s[:n].copy_(x.detach())
-            state_b[0][n:].fill_(self.k)
-            self.held = tuple(x[:n] for x in state_b)
-        self.buffers[self.lanes][0].replay()
-        return self.held, self.lanes
-
-
-_FAT_GRAPHS: list = []  # `_FatGraphs` of the last `_GRAPH_TABLES` node tables, newest last
-
-
-def _fat_graphs(fat_nodes, max_leaf: int) -> _FatGraphs:
-    for g in _FAT_GRAPHS:
-        if g.serves(fat_nodes, max_leaf):
-            return g
-    g = _FatGraphs(fat_nodes, max_leaf)
-    _FAT_GRAPHS.append(g)
-    del _FAT_GRAPHS[:-_GRAPH_TABLES]
-    return g
 
 
 def bvh_intersect(nodes, tri_pos, ro, rd) -> Hit:
@@ -442,16 +337,18 @@ def _map_ray_batches(fn, ro, rd, batch: int) -> Hit:
     return Hit(*(torch.cat(x) for x in zip(*hits)))
 
 
-def bvh_fat_intersect(fat_nodes, ro, rd, *, max_leaf: int = 8, ray_batch: int = 16384,
-                      graphed: bool = True) -> Hit:
+def bvh_fat_intersect(fat_nodes, ro, rd, *, max_leaf: int = 8, ray_batch: int = 16384) -> Hit:
     """The fat-leaf skip-link traversal ('bvh8') in `ray_batch`-ray slices
     (`_map_ray_batches`; 0 walks all rays at once).  Every ray's result is
     the same either way: the slices only bound how many lanes step
-    together.  On a CUDA device the steps run as CUDA graphs
-    (`_FatGraphs`) unless `graphed` is False; the results are the same."""
-    fn = lambda a, b: _bvh_fat_intersect_impl(fat_nodes, a, b, max_leaf=max_leaf,
-                                              graphed=graphed)
+    together.  A CUDA tensor launches the fat walk kernel once a slice,
+    counted in `bvh_fat_intersect.launches`; a CPU tensor walks in torch
+    ops."""
+    fn = lambda a, b: _bvh_fat_intersect_impl(fat_nodes, a, b, max_leaf=max_leaf)
     return _map_ray_batches(fn, ro, rd, ray_batch) if ray_batch else fn(ro, rd)
+
+
+bvh_fat_intersect.launches = 0
 
 
 def _fat_step(fat_nodes, links, slots, max_leaf: int, visits):
@@ -495,36 +392,77 @@ def _fat_step(fat_nodes, links, slots, max_leaf: int, visits):
 
 
 @spans.spanned("walk.fat")
-def _bvh_fat_intersect_impl(fat_nodes, ro, rd, *, max_leaf: int = 8, graphed: bool = True) -> Hit:
+def _bvh_fat_intersect_impl(fat_nodes, ro, rd, *, max_leaf: int = 8) -> Hit:
     """Skip-link traversal over the fat-leaf BVH (accel.bvh.links_to_fat).
 
-    Each visited node costs one row gather (box, links and up to `max_leaf`
-    inlined triangles).  The triangle tests of a leaf are elementwise over
-    the leaf axis.  Nearest hit wins; within a leaf the lowest row takes
-    exact-t ties; across nodes the first-visited node wins.  `Hit.tri`
-    indexes the packed (DFS leaf order) triangle rows."""
+    Each visited node costs one row read (box, links and up to `max_leaf`
+    inlined triangles).  Nearest hit wins; within a leaf the lowest row
+    takes exact-t ties; across nodes the first-visited node wins.
+    `Hit.tri` indexes the packed (DFS leaf order) triangle rows.  A CUDA
+    tensor launches the kernel (`_fat_walk_cuda`), a CPU tensor walks in
+    torch ops (`_bvh_fat_intersect_plain`); other devices raise."""
     r, k = ro.shape[0], fat_nodes.shape[0]
     spans.count("walk.fat.rays", r)
     if k == 0:  # empty-scene early out (raytrace.wgsl:205-211)
         return miss_hit(r, ro.device)
-    visits = spans.ints(ro.device, 1)  # node rows visited, while the recorder is on
-    graphs = None
-    if graphed and ro.is_cuda:
-        graphs = _fat_graphs(fat_nodes, max_leaf)
-        graphs.ready(r)
-        step = graphs.step
-        if visits is not None:
-            graphs.visits.zero_()
-    else:
-        links = _link_columns(fat_nodes, 6, 3)  # [miss, tri_start, count]
-        slots = torch.arange(max_leaf, device=ro.device)[None, :]
-        step = _fat_step(fat_nodes, links, slots, max_leaf, visits)
+    if ro.device.type == "cpu":
+        return _bvh_fat_intersect_plain(fat_nodes, ro, rd, max_leaf=max_leaf)
+    hit = _fat_walk_cuda(fat_nodes, ro, rd, max_leaf)
+    bvh_fat_intersect.launches += 1
+    return hit
 
+
+def _bvh_fat_intersect_plain(fat_nodes, ro, rd, *, max_leaf: int = 8) -> Hit:
+    """The fat-leaf walk in torch ops on any device, for a non-empty
+    `fat_nodes`: `_walk` over `_fat_step`, counted by the check rule."""
+    r, k = ro.shape[0], fat_nodes.shape[0]
+    visits = spans.ints(ro.device, 1)  # node rows visited, while the recorder is on
+    links = _link_columns(fat_nodes, 6, 3)  # [miss, tri_start, count]
+    slots = torch.arange(max_leaf, device=ro.device)[None, :]
+    step = _fat_step(fat_nodes, links, slots, max_leaf, visits)
     ptr = torch.zeros((r,), dtype=torch.int32, device=ro.device)
     _, t, tri, u, v = _walk(step, (ro, rd), (ptr, *_start(ro)), lambda s: s[0] < k,
-                            tally="walk.fat", graphs=graphs)
+                            tally="walk.fat")
     if visits is not None:
-        if graphs is not None:
-            visits.copy_(graphs.visits)
         spans.count("walk.fat.nodes", visits)
     return Hit(tri >= 0, t, tri, u, v)
+
+
+def _fat_walk_cuda(fat_nodes, ro, rd, max_leaf: int) -> Hit:
+    """Launch `tpt_fat_walk` (csrc/fat_walk.cu) on the current stream: one
+    thread a ray.  Raises ValueError, before loading the kernels, unless
+    every input is f32, contiguous and on one CUDA device, `fat_nodes` (K,
+    9 + 9 * max_leaf) with K >= 1, and `ro`, `rd` (R, 3).  While the
+    recorder is on, the kernel adds its counts to a `spans.ints` slice read
+    as `walk.fat.nodes`, `walk.fat.steps` and `walk.fat.lane_steps`."""
+    dev = ro.device
+    for name, x in (("fat_nodes", fat_nodes), ("ro", ro), ("rd", rd)):
+        if x.dtype != torch.float32 or not x.is_contiguous() or x.device != dev:
+            raise ValueError(f"fat walk kernel: {name} must be contiguous float32 on {dev}, not "
+                             f"{x.dtype} with strides {x.stride()} on {x.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"fat walk kernel: tensors on {dev}, not a CUDA device")
+    if (fat_nodes.dim() != 2 or fat_nodes.shape[0] < 1 or max_leaf < 1
+            or fat_nodes.shape[1] != 9 + 9 * max_leaf):
+        raise ValueError(f"fat walk kernel: fat_nodes {tuple(fat_nodes.shape)} for max_leaf "
+                         f"{max_leaf}: (K >= 1, {9 + 9 * max_leaf}) expected")
+    if ro.dim() != 2 or ro.shape[1] != 3 or rd.shape != ro.shape:
+        raise ValueError(f"fat walk kernel: ro {tuple(ro.shape)}, rd {tuple(rd.shape)}: "
+                         f"(R, 3) each expected")
+    from .. import _build
+
+    lib = _build.load()
+    r = ro.shape[0]
+    t = torch.empty((r,), dtype=torch.float32, device=dev)
+    tri = torch.empty((r,), dtype=torch.int32, device=dev)
+    u, v = torch.empty_like(t), torch.empty_like(t)
+    hit = torch.empty((r,), dtype=torch.bool, device=dev)
+    stats = spans.ints(dev, 3)  # [nodes, steps, lane_steps], while the recorder is on
+    err = lib.tpt_fat_walk(*map(_ptr, (fat_nodes, ro, rd, t, tri, u, v, hit, stats)),
+                           fat_nodes.shape[0], fat_nodes.shape[1], max_leaf, r, _stream(dev))
+    if err:
+        raise RuntimeError(f"fat walk kernel launch failed: {_build.error_string(err)}")
+    if stats is not None:
+        for i, name in enumerate(("nodes", "steps", "lane_steps")):
+            spans.count(f"walk.fat.{name}", stats[i:i + 1])
+    return Hit(hit, t, tri, u, v)
