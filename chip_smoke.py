@@ -28,10 +28,8 @@ public entry points:
   * round-2 MT: `mt_intersect_pallas` and `mt_intersect_stream` (both
     launch the Hopper walk of csrc/r2_walk.cu) on the headline camera's
     262,144 primary rays, and the streamed one on the stress scene's; each
-    held to its plain version and to the first design (`tpt_mt_r2_v1`,
-    csrc/mt_intersect.cu) bit for bit, walk counts included, and timed in
-    turns with it (v1, new, new, v1), beside its bound and critical-path
-    bound;
+    held to its plain version, walk counts included, and its kernel timed
+    twice, beside its bound and critical-path bound;
   * intersectors: `render_frame(intersector='mt' | 'bvh' | 'bvh8')` on the
     headline scene at 512x512, 1 sample per pixel, 4 bounces (the plain
     loop, no MT kernel), each against the near-to-far kernel's frame;
@@ -137,19 +135,16 @@ plain walk by `hit_agreement` with walk counts within 1% of tiles, on the
 headline scene (nf, list, cond and their MXU variants at sub 64, and
 streamed) and the stress scene (streamed), primary and first-bounce rays;
 prints each case's per-tile walk distribution (mean, max, the five
-heaviest tiles), the walk's kernel timed twice (list, cond and the MXU
-walks in turns with their first designs, `tpt_mt_list_v1`,
-`tpt_mt_cond_v1`, `tpt_mt_*_mxu_v1`: old, kept, kept, old), the table
-repack timed apart, the walk bound (the walk's own pairs and slab tests)
+heaviest tiles), the walk's kernel timed twice, the table repack timed
+apart, the walk bound (the walk's own pairs and slab tests)
 and the critical-path bound (the heaviest tile's work over the FP32, or
 for the MXU walks the TF32 and FP32, share of the SMs it runs on), and
 the kept designs' registers, shared memory and CTAs per SM.  The nf, list
 and cond walk counts are also held to the plain walk's at every sub of
 the cull phase.  The denoise phase holds the tiled kernel
-(csrc/denoise.cu) to the plain version and to its first design
-(`tpt_denoise_v1`) at 512x512, 1080x1920, 300x517 and 6x10 and at a
-second radius, and times the kernel launch alone and the whole wrapper
-call apart, old and new in turns, at 512x512 and 1080x1920.  A kernel's
+(csrc/denoise.cu) to the plain version at 512x512, 1080x1920, 300x517 and
+6x10 and at a second radius, and times the kernel launch alone and the
+whole wrapper call apart, each twice, at 512x512 and 1080x1920.  A kernel's
 time (`_kernel_ms`) is CUDA events around launches queued back to back
 behind a sleep kernel; the profiler only checks which kernel they launch.
 
@@ -456,14 +451,12 @@ DENOISE_TIMED = ((512, 512), (1080, 1920))
 
 
 def _denoise_phase(kdenoise, results, tag):
-    """The tiled denoise kernel against the plain version (DENOISE_TOL) and
-    against its first design (`tpt_denoise_v1`, bit for bit) at every
-    DENOISE_SHAPES entry; then at DENOISE_TIMED the whole wrapper call and
-    the kernel launch alone (`_launch`), old and new in turns (old, new,
-    new, old), the plain version and the bound.  The wrapper's time is
-    CUDA events around one call (what a display pays); the kernel's,
-    `_kernel_ms`.  Returns (largest difference from plain, {(h, w):
-    times})."""
+    """The tiled denoise kernel against the plain version (DENOISE_TOL) at
+    every DENOISE_SHAPES entry; then at DENOISE_TIMED the whole wrapper call
+    and the kernel launch alone (`_launch`), each twice, the plain version
+    and the bound.  The wrapper's time is CUDA events around one call (what
+    a display pays); the kernel's, `_kernel_ms`.  Returns (largest
+    difference from plain, {(h, w): times})."""
     import numpy as np
     import torch
 
@@ -473,42 +466,31 @@ def _denoise_phase(kdenoise, results, tag):
         img = torch.from_numpy(np.random.default_rng(h + w).random((h, w, 3), np.float32)).to(dev)
         out_k = kdenoise.smart_denoise(img, sigma=sigma)
         out_p = kdenoise.smart_denoise_plain(img, sigma=sigma)
-        out_v = kdenoise._denoise_v1(img, sigma=sigma)
         torch.cuda.synchronize()
         err = float((out_k - out_p).abs().max())
         torch.testing.assert_close(out_k, out_p, **DENOISE_TOL)
-        same = torch.equal(out_k, out_v)
-        _check(same, f"denoise {h}x{w} sigma {sigma}: the tiled kernel differs from tpt_denoise_v1")
         print(f"denoise {h}x{w} sigma {sigma}: max abs diff vs plain {err:.3g} (atol 2e-5, rtol "
-              f"1e-4); equal to tpt_denoise_v1 bit for bit")
+              f"1e-4)")
         worst = max(worst, err)
         results[f"denoise_{h}x{w}_sigma{sigma:g}_max_abs_err"] = err
     timing = {}
     for h, w in DENOISE_TIMED:
         img = torch.from_numpy(np.random.default_rng(0).random((h, w, 3), np.float32)).to(dev)
         img, out, taps = kdenoise._prepare(img, 5.0, 1.0, 0.08)
-        fns = {"new": (lambda: kdenoise.smart_denoise(img),
-                       lambda: kdenoise._launch("tpt_denoise", img, out, taps), "denoise_fixed"),
-               "v1": (lambda: kdenoise._denoise_v1(img),
-                      lambda: kdenoise._launch("tpt_denoise_v1", img, out, taps), "denoise_v1")}
-        got = {k: {"wrapper": [], "kernel": []} for k in fns}
-        for which in ("v1", "new", "new", "v1"):
-            wrapper, kernel, name = fns[which]
-            got[which]["wrapper"].append(_time_ms(wrapper, 3, 20))
-            got[which]["kernel"].append(_kernel_ms(kernel, name))
+        got = {"wrapper": [], "kernel": []}
+        for _ in range(2):
+            got["wrapper"].append(_time_ms(lambda: kdenoise.smart_denoise(img), 3, 20))
+            got["kernel"].append(_kernel_ms(lambda: kdenoise._launch(img, out, taps),
+                                            "denoise_fixed"))
         plain_ms = _time_ms(lambda: kdenoise.smart_denoise_plain(img), 1, 3)
         bound_ms, bound_by = _denoise_bound(img)
-        print(f"timing {tag}: denoise {h}x{w} in turns (v1, new, new, v1): wrapper "
-              + ", ".join(f"{x:.4f}" for x in (got["v1"]["wrapper"][0], *got["new"]["wrapper"],
-                                                got["v1"]["wrapper"][1]))
+        print(f"timing {tag}: denoise {h}x{w} twice: wrapper "
+              + ", ".join(f"{x:.4f}" for x in got["wrapper"])
               + " ms; kernel alone (CUDA events, launches queued back to back) "
-              + _fmt_ms((got["v1"]["kernel"][0], *got["new"]["kernel"], got["v1"]["kernel"][1]))
+              + _fmt_ms(got["kernel"])
               + f" ms; plain {plain_ms:.3f} ms; bound {bound_ms:.5f} ms ({bound_by})")
         timing[(h, w)] = dict(
-            ms=statistics.mean(got["new"]["wrapper"]),
-            kernel_ms=statistics.mean(got["new"]["kernel"]),
-            v1_ms=statistics.mean(got["v1"]["wrapper"]),
-            v1_kernel_ms=statistics.mean(got["v1"]["kernel"]),
+            ms=statistics.mean(got["wrapper"]), kernel_ms=statistics.mean(got["kernel"]),
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, turns=got)
         results[f"denoise_{h}x{w}"] = timing[(h, w)]
     return worst, timing
@@ -936,11 +918,9 @@ def _mt_launched(launches, allowed=()):
 
 def _r2_check(mt_intersect, name, tri_pos, ro, rd, hk, results, key):
     """Hold one round-2 entry's hits `hk` (the Hopper walk, csrc/r2_walk.cu)
-    to its plain version (0 hit/tri mismatches, t/u/v within MT_TOL) and
-    to the first design's (`tpt_mt_r2_v1`, bit for bit), and the per-tile
-    walk counts of each to the plain walk's under that design's copy rule;
-    the chunks evaluated must be the same under both.  Returns (largest
-    t/u/v difference, the Hopper walk's counts)."""
+    to its plain version (0 hit/tri mismatches, t/u/v within MT_TOL), and
+    its per-tile walk counts to the plain walk's.  Returns (largest t/u/v
+    difference, the Hopper walk's counts)."""
     import torch
 
     stream = name == "mt_stream_r2"
@@ -948,47 +928,33 @@ def _r2_check(mt_intersect, name, tri_pos, ro, rd, hk, results, key):
              else mt_intersect.mt_intersect_pallas_plain)
     t0 = time.perf_counter()
     hp = plain(tri_pos, ro, rd)
-    sp = {d: mt_intersect.walk_stats(tri_pos, ro, rd, stream=stream, plain=True, design=d)
-          for d in mt_intersect.R2_DESIGNS}
+    sp = mt_intersect.walk_stats(tri_pos, ro, rd, stream=stream, plain=True)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     bad, err = _hit_diff(hk, hp)
-    sk = {d: mt_intersect.walk_stats(tri_pos, ro, rd, stream=stream, design=d)
-          for d in mt_intersect.R2_DESIGNS}
-    prep = (*mt_intersect._prepare(tri_pos, ro, rd, stream), stream)
-    hv = mt_intersect._walk_cuda_v1(*prep)
-    v1_equal = all(torch.equal(a[:ro.shape[0]], b) for a, b in zip(hv, (hk.t, hk.tri, hk.u, hk.v)))
+    sk = mt_intersect.walk_stats(tri_pos, ro, rd, stream=stream)
     hits = int(hk.hit.sum())
-    counts = {d: [int(x) for x in s.sum(dim=0)] for d, s in sk.items()}
+    evaluated, copied = (int(x) for x in sk.sum(dim=0))
     print(f"{name} {key}: rays {ro.shape[0]}, hits {hits}, hit/tri mismatches {bad}, max |t,u,v| "
-          f"diff {err:.3g} (tolerance {MT_TOL}); bit-equal to tpt_mt_r2_v1: {v1_equal}; walk "
-          f"counts equal to the plain walk's over {sk['r2_walk'].shape[0]} tiles, [chunks "
-          f"evaluated, chunks copied] {counts} (plain version and its walk counts took "
-          f"{plain_s:.1f} s)")
+          f"diff {err:.3g} (tolerance {MT_TOL}); walk counts equal to the plain walk's over "
+          f"{sk.shape[0]} tiles, chunks evaluated {evaluated}, chunks copied {copied} (plain "
+          f"version and its walk counts took {plain_s:.1f} s)")
     _check(bad == 0, f"{name} {key}: {bad} rays differ in hit or triangle")
     _check(err <= MT_TOL, f"{name} {key}: t/u/v differ by {err}")
     _check(hits > 0, f"{name} {key}: no ray hit the scene")
-    _check(v1_equal, f"{name} {key}: the Hopper walk and tpt_mt_r2_v1 differ")
-    for d in mt_intersect.R2_DESIGNS:
-        _check(torch.equal(sk[d], sp[d]), f"{name} {key}: {d} walk counts differ from the plain "
-               "walk's")
-    _check(torch.equal(sk["r2_walk"][:, 0], sk["v1"][:, 0]),
-           f"{name} {key}: the designs evaluate different chunks")
-    evaluated, copied = counts["r2_walk"]
+    _check(torch.equal(sk, sp), f"{name} {key}: walk counts differ from the plain walk's")
     results[f"{name}_{key}"] = dict(hits=hits, mismatches=bad, max_abs_err=err,
                                     chunks_evaluated=evaluated, chunks_copied=copied,
-                                    v1_chunks_copied=counts["v1"][1],
-                                    chunks_per_tile=_tile_dist(sk["r2_walk"][:, 0]),
+                                    chunks_per_tile=_tile_dist(sk[:, 0]),
                                     plain_check_s=plain_s)
-    return err, sk["r2_walk"]
+    return err, sk
 
 
 def _r2_timing(mt_intersect, mt_shade, name, tri_pos, ro, rd, stats, results, key, tag,
                plain_reps=3):
     """Wrapper, walk and plain times of one round-2 entry on these rays;
     the Hopper walk's kernel (csrc/r2_walk.cu, on a table packed once)
-    against the first design's (`tpt_mt_r2_v1`) in turns (v1, new, new,
-    v1), by `_kernel_ms`; the bound (every ray slab-tests every chunk box,
+    twice, by `_kernel_ms`; the bound (every ray slab-tests every chunk box,
     the pairs of the evaluated chunks; FP32 operations against bytes) and
     the critical-path bound (the heaviest tile's pairs and slab tests over
     the FP32 share of the C SMs its cluster runs on), beside the kernel on
@@ -1002,12 +968,9 @@ def _r2_timing(mt_intersect, mt_shade, name, tri_pos, ro, rd, stats, results, ke
     table = mt_intersect._r2_table(rows, chunk, stream)
     ms = _time_ms(lambda: kernel(tri_pos, ro, rd), 3, 20)
     walk_ms = _time_ms(lambda: mt_intersect._walk_cuda(*prep), 3, 20)
-    fns = {"kept": (lambda: mt_intersect._walk_table_cuda(phi_pad, table, boxes, chunk, stream),
-                    "r2_walk_kernel"),
-           "v1": (lambda: mt_intersect._walk_cuda_v1(*prep), "mt_r2_kernel")}
-    times = {"v1": [], "kept": []}
-    for which in ("v1", "kept", "kept", "v1"):
-        times[which].append(_kernel_ms(*fns[which]))
+    times = [_kernel_ms(lambda: mt_intersect._walk_table_cuda(phi_pad, table, boxes, chunk,
+                                                              stream), "r2_walk_kernel")
+             for _ in range(2)]
     heavy, tile = int(stats[:, 0].argmax()), mt_intersect.TILE_RAYS
     phi_one = phi_pad[:, heavy * tile:(heavy + 1) * tile].contiguous()
     alone_ms = _kernel_ms(lambda: mt_intersect._walk_table_cuda(phi_one, table, boxes, chunk,
@@ -1023,21 +986,20 @@ def _r2_timing(mt_intersect, mt_shade, name, tri_pos, ro, rd, stats, results, ke
     heaviest = int(stats[:, 0].max())
     critical_ms = ((heaviest * chunk * PAIR_OPS_R2 + boxes.shape[0] * SLAB_OPS)
                    * mt_intersect.TILE_RAYS / (H100_FP32 / H100_SMS * cluster) * 1e3)
-    kernel_ms, v1_ms = statistics.mean(times["kept"]), statistics.mean(times["v1"])
-    print(f"timing {tag}: {name} {key} kernel in turns (v1, new, new, v1): "
-          f"{_fmt_ms((times['v1'][0], *times['kept'], times['v1'][1]))} ms (CUDA events, "
+    kernel_ms = statistics.mean(times)
+    print(f"timing {tag}: {name} {key} kernel twice: {_fmt_ms(times)} ms (CUDA events, "
           f"launches queued); wrapper {ms:.3f} ms (table repack {repack_ms:.4f} ms; walk call "
           f"{walk_ms:.3f} ms), plain wrapper {plain_ms:.3f} ms (plain walk {walk_plain_ms:.3f} "
           f"ms); bound {bound_ms:.4f} ms ({bound_by}: {ops / 1e9:.3f} GFLOP), critical-path bound "
           f"{critical_ms:.5f} ms (heaviest tile {heaviest} chunks over {cluster} SMs; that "
           f"tile {heavy} alone {alone_ms:.4f} ms)")
-    results[f"{name}_{key}"].update(ms=ms, walk_ms=walk_ms, kernel_ms=kernel_ms, v1_kernel_ms=v1_ms,
-                                    times_ms=times, repack_ms=repack_ms, plain_ms=plain_ms,
+    results[f"{name}_{key}"].update(ms=ms, walk_ms=walk_ms, kernel_ms=kernel_ms, times_ms=times,
+                                    repack_ms=repack_ms, plain_ms=plain_ms,
                                     walk_plain_ms=walk_plain_ms, bound_ms=bound_ms,
                                     bound_by=bound_by, gflop=ops / 1e9,
                                     critical_path_bound_ms=critical_ms, cluster=cluster,
                                     heaviest_tile_alone_ms=alone_ms)
-    return dict(ms=ms, kernel_ms=kernel_ms, v1_kernel_ms=v1_ms, plain_ms=plain_ms,
+    return dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, critical_path_bound_ms=critical_ms)
 
 
@@ -1045,8 +1007,8 @@ def _r2_phase(mt_intersect, mt_shade, counters, tri_pos, phi, nf_hit, results, t
     """The round-2 kernels' path: `mt_intersect_pallas` and
     `mt_intersect_stream` once each on these rays with every launch count
     set to 0 just before and read just after; each launches the Hopper walk
-    (csrc/r2_walk.cu).  Then each against its plain version and the first
-    design (hits and walk counts), the two against each other bit for bit,
+    (csrc/r2_walk.cu).  Then each against its plain version (hits and walk
+    counts), the two against each other bit for bit,
     the hit/tri mismatches against the near-to-far kernel (information: the
     epilogues differ on borderline t), and their times and bounds."""
     import torch
@@ -1574,23 +1536,16 @@ def _walk_cases(tri_pos, rays, s_tri, s_rays):
 
 
 # Each walk's kernel by name, as the profiler reports it.
-WALK_KERNELS = {"nf": "nf_walk_kernel", "list": "nf_walk_kernel", "list_v1": "mt_list_kernel",
-                "cond": "cond_walk_kernel", "cond_v1": "mt_cond_kernel",
+WALK_KERNELS = {"nf": "nf_walk_kernel", "list": "nf_walk_kernel", "cond": "cond_walk_kernel",
                 "stream": "stream_walk_kernel", "nf_mxu": "mxu_walk_kernel",
-                "list_mxu": "mxu_walk_kernel", "cond_mxu": "mxu_cond_kernel",
-                "nf_mxu_v1": "mxu::mt_list_kernel", "list_mxu_v1": "mxu::mt_list_kernel",
-                "cond_mxu_v1": "mxu::mt_cond_kernel"}
+                "list_mxu": "mxu_walk_kernel", "cond_mxu": "mxu_cond_kernel"}
 
 
 def _walk_setup(mt_shade, mt_stream, kind, tri_pos, phi):
-    """(prep, sub, plain walk, kept walk, first design or None, stats
-    shape) of one walk case.  The plain, kept and first-design walks take
-    `stats=` (a first design without walk counts ignores it); the kept one
-    reads the table `_pack_walk_table` (MXU: `_pack_mxu_table`) packed once
-    here, the MXU first design `_pack_mma`'s; the MXU plain walk runs with
-    TF32 off."""
-    import functools
-
+    """(prep, sub, plain walk, kept walk, stats shape) of one walk case.
+    Both walks take `stats=`; the kept one reads the table
+    `_pack_walk_table` (MXU: `_pack_mxu_table`) packed once here; the MXU
+    plain walk runs with TF32 off."""
     if kind == "stream":
         sub = mt_stream.SUB_TRIS
         prep = mt_stream._prepare(tri_pos, phi, None)
@@ -1598,7 +1553,7 @@ def _walk_setup(mt_shade, mt_stream, kind, tri_pos, phi):
         return (prep, sub, mt_stream._walk_plain,
                 lambda stats=None: mt_stream._walk_table_cuda(prep[0], table, *prep[2:7],
                                                               prep[-1], stats=stats),
-                None, (prep[5].shape[0], 3))
+                (prep[5].shape[0], 3))
     cull = kind.removesuffix("_mxu")
     sub = mt_shade.SUB_TRIS
     prepare, plain, _ = mt_shade._MXU_WALKS[cull]
@@ -1606,7 +1561,7 @@ def _walk_setup(mt_shade, mt_stream, kind, tri_pos, phi):
     n_tiles = prep[0].shape[1] // prep[-1]
     stats_shape = (n_tiles, 2) if cull == "cond" else (n_tiles,)
     if kind.endswith("_mxu"):
-        table, rows = mt_shade._pack_mxu_table(prep[1], sub), mt_shade._pack_mma(prep[1], sub)
+        table = mt_shade._pack_mxu_table(prep[1], sub)
 
         def plain_mxu(*args, stats=None):
             with mt_shade._full_fp32():
@@ -1615,38 +1570,34 @@ def _walk_setup(mt_shade, mt_stream, kind, tri_pos, phi):
         _, _, walk = mt_shade._MXU_WALKS[cull]
         return (prep, sub, plain_mxu,
                 lambda stats=None: walk(prep[0], table, *prep[2:], mxu=True, stats=stats),
-                lambda stats=None: mt_shade._walk_mxu_cuda_v1(
-                    cull, prep[0], rows, *prep[2:], **({"stats": stats} if cull == "cond" else {})),
                 stats_shape)
     table = mt_shade._pack_walk_table(prep[1], sub)
     if kind == "nf":
         return (prep, sub, mt_shade._walk_plain,
                 lambda stats=None: mt_shade._list_launch("mt_nf", prep[0], table, *prep[2:5],
                                                          prep[-1], stats),
-                None, stats_shape)
+                stats_shape)
     if kind == "list":
         return (prep, sub, mt_shade._walk_list_plain,
                 lambda stats=None: mt_shade._list_launch("mt_list", prep[0], table, *prep[2:4],
                                                          None, prep[-1], stats),
-                lambda stats=None: mt_shade._walk_list_cuda_v1(*prep), stats_shape)
+                stats_shape)
     return (prep, sub, mt_shade._walk_cond_plain,
             lambda stats=None: mt_shade._walk_cond_table_cuda(prep[0], table, *prep[2:],
                                                               stats=stats),
-            functools.partial(mt_shade._walk_cond_cuda_v1, *prep), stats_shape)
+            stats_shape)
 
 
 def _walk_phase(mt_shade, mt_stream, cases, results, tag):
     """The Hopper walks of #1 and #4a (csrc/nf_walk.cu), #4b
     (csrc/cond_walk.cu), #3 (csrc/stream_walk.cu) and #5 (csrc/mxu_walk.cu)
     on each case (kernel, scene, rays).  The FP32 walks are held bit for
-    bit to the plain walk with equal per-tile walk counts (list's and
-    cond's first designs, `tpt_mt_list_v1` / `tpt_mt_cond_v1`, too); the
-    MXU walks and their first designs (`tpt_mt_*_mxu_v1`) to their plain
-    walks by `hit_agreement` (floor lanes at most 0.3%, no NaN), with walk
-    counts within 1% of tiles (list: equal).  Prints the per-tile walk
-    distribution; the repack (`_pack_walk_table`, `_pack_mxu_table`) timed
-    apart; the walk timed twice (beside a first design in turns: v1, kept,
-    kept, v1), as the kernel's time by CUDA events around launches queued
+    bit to the plain walk with equal per-tile walk counts; the MXU walks
+    to their plain walks by `hit_agreement` (floor lanes at most 0.3%, no
+    NaN), with walk counts within 1% of tiles (list: equal).  Prints the
+    per-tile walk distribution; the repack (`_pack_walk_table`,
+    `_pack_mxu_table`) timed apart; the walk timed twice, as the kernel's
+    time by CUDA events around launches queued
     back to back (`_kernel_ms`), and as CUDA events around one call (the
     host launch path included); the walk and critical-path bounds.  Returns
     {case: summary}."""
@@ -1662,8 +1613,7 @@ def _walk_phase(mt_shade, mt_stream, cases, results, tag):
     out = {}
     for key, (kind, tri_pos, phi) in cases.items():
         mxu = kind.endswith("_mxu")
-        prep, sub, plain, kept, v1, stats_shape = _walk_setup(mt_shade, mt_stream, kind, tri_pos,
-                                                              phi)
+        prep, sub, plain, kept, stats_shape = _walk_setup(mt_shade, mt_stream, kind, tri_pos, phi)
         tile, r = prep[-1], phi.shape[1]
         sp = torch.zeros(stats_shape, dtype=torch.int32, device=phi.device)
         hp = plain(*prep, stats=sp)
@@ -1673,40 +1623,25 @@ def _walk_phase(mt_shade, mt_stream, cases, results, tag):
             return mt_shade.Hit(idx >= 0, t, idx, u, v)
 
         agreement = {}
-
-        def check(what, hits, stats):
-            if mxu:
-                _check(not any(bool(torch.isnan(x).any()) for x in hits),
-                       f"walk {key} {what}: NaN in the outputs")
-                agreement[what] = mt_shade.hit_agreement(tri_pos, phi, as_hit(hits), as_hit(hp))
-                _check(agreement[what]["ok"], f"walk {key} {what}: disagrees with the plain walk: "
-                       f"{agreement[what]}")
-                if stats is None:
-                    return
-                two = stats_shape[1:] == (2,)
-                sk2, sp2 = (stats, sp) if two else (stats[:, None], sp[:, None])
-                tiles = int((sk2 != sp2).any(dim=1).sum())
-                ek, ep = int(sk2[:, -1].sum()), int(sp2[:, -1].sum())
-                agreement[what].update(tiles_differ=tiles, subs_evaluated=ek)
-                _check(tiles <= 0.01 * sk2.shape[0] and abs(ek - ep) <= 0.01 * ep
-                       and (kind != "list_mxu" or tiles == 0),
-                       f"walk {key} {what}: walk counts differ from the plain walk's: {tiles} "
-                       f"tiles, subs {ek} against {ep}")
-                return
+        sk = torch.zeros_like(sp)
+        hits = kept(stats=sk)
+        if mxu:
+            _check(not any(bool(torch.isnan(x).any()) for x in hits),
+                   f"walk {key}: NaN in the outputs")
+            agreement = mt_shade.hit_agreement(tri_pos, phi, as_hit(hits), as_hit(hp))
+            _check(agreement["ok"], f"walk {key}: disagrees with the plain walk: {agreement}")
+            sk2, sp2 = (sk, sp) if stats_shape[1:] == (2,) else (sk[:, None], sp[:, None])
+            tiles = int((sk2 != sp2).any(dim=1).sum())
+            ek, ep = int(sk2[:, -1].sum()), int(sp2[:, -1].sum())
+            agreement.update(tiles_differ=tiles, subs_evaluated=ek)
+            _check(tiles <= 0.01 * sk2.shape[0] and abs(ek - ep) <= 0.01 * ep
+                   and (kind != "list_mxu" or tiles == 0),
+                   f"walk {key}: walk counts differ from the plain walk's: {tiles} tiles, subs "
+                   f"{ek} against {ep}")
+        else:
             _check(all(torch.equal(a, b) for a, b in zip(hits, hp)),
-                   f"walk {key} {what}: hits differ from the plain walk's")
-            if stats is not None:
-                _check(torch.equal(stats, sp), f"walk {key} {what}: walk counts differ from the "
-                       "plain walk's")
-
-        for what, fn in (("kept", kept), ("v1", v1)):
-            if fn is None:
-                continue
-            sk = torch.zeros_like(sp)
-            hits = fn(stats=sk)
-            # first designs without walk counts: list's, MXU nf's and list's
-            counted = what == "kept" or kind in ("cond", "cond_mxu")
-            check(what, hits, sk if counted else None)
+                   f"walk {key}: hits differ from the plain walk's")
+            _check(torch.equal(sk, sp), f"walk {key}: walk counts differ from the plain walk's")
         torch.cuda.synchronize()
         evaluated = sp if sp.dim() == 1 else sp[:, -1]  # subs evaluated
         dist = {"subs": _tile_dist(evaluated)}
@@ -1716,11 +1651,10 @@ def _walk_phase(mt_shade, mt_stream, cases, results, tag):
             dist.update(supers=_tile_dist(sp[:, 0]), chunks=_tile_dist(sp[:, 1]))
         heavy = int(evaluated.argmax())
 
-        times, calls = {"v1": [], "kept": []}, {"v1": [], "kept": []}
-        for which in (("v1", "kept", "kept", "v1") if v1 else ("kept", "kept")):
-            fn = kept if which == "kept" else v1
-            times[which].append(_kernel_ms(fn, WALK_KERNELS[kind + "_v1" * (which == "v1")]))
-            calls[which].append(_time_ms(fn, 3, 20))
+        times, calls = [], []
+        for _ in range(2):
+            times.append(_kernel_ms(kept, WALK_KERNELS[kind]))
+            calls.append(_time_ms(kept, 3, 20))
         pack = mt_shade._pack_mxu_table if mxu else mt_shade._pack_walk_table
         repack_ms = _time_ms(lambda: pack(prep[1], sub), 3, 20)
         cluster = shapes[kind]["cluster"]
@@ -1731,22 +1665,19 @@ def _walk_phase(mt_shade, mt_stream, cases, results, tag):
                                   n_chunks=-(-tri_pos.shape[0] // 128), alive=alive)
         walk_bound, walk_by, critical = _walk_bounds(pairs, slabs, tri_pos.shape[0], r, cluster,
                                                      mxu)
-        kept_ms = statistics.mean(times["kept"])
-        v1_ms = statistics.mean(times["v1"]) if v1 else None
+        kept_ms = statistics.mean(times)
         held = ("held to the plain walk by hit_agreement " + str(agreement) if mxu else
-                f"kept{' and v1' if v1 else ''} bit-equal to the plain walk with equal walk counts")
+                "bit-equal to the plain walk with equal walk counts")
         print(f"walk {key}: {r} rays, {sp.shape[0]} tiles of {tile}; {held}; per-tile walk "
               f"{dist}; heaviest tile {heavy} counts {sp[heavy].tolist()}")
         for what, got in (("kernel (CUDA events, launches queued)", times),
                           ("one call (CUDA events)", calls)):
-            print(f"timing {tag}: walk {key} {what} "
-                  + ("in turns (v1, kept, kept, v1): " if v1 else "twice: ")
-                  + _fmt_ms((*got["v1"][:1], *got["kept"], *got["v1"][1:])) + " ms")
+            print(f"timing {tag}: walk {key} {what} twice: {_fmt_ms(got)} ms")
         print(f"timing {tag}: walk {key} repack {repack_ms:.4f} ms; walk bound {walk_bound:.5f} ms "
               f"({walk_by}), critical-path bound {critical:.5f} ms (heaviest tile over {cluster} "
               "SM(s))")
         out[key] = dict(kind=kind, tile_rays=tile, times_ms=times, call_ms=calls, kept_ms=kept_ms,
-                        v1_ms=v1_ms, repack_ms=repack_ms, walk_bound_ms=walk_bound,
+                        repack_ms=repack_ms, walk_bound_ms=walk_bound,
                         walk_bound_by=walk_by, critical_path_bound_ms=critical,
                         distribution=dist, heaviest_tile=heavy,
                         heaviest_counts=sp[heavy].tolist(), agreement=agreement)
@@ -1817,9 +1748,6 @@ def _sweep_phase(pt, data, cam, counters, results, tag):
             dt = _device_time(profiled, match=walk)
             total = sum(dt["programs"].values())
             _check(dt["ok"] and total > 0, f"no device time from the profiler: {dt}")
-            _check(not any(old in name for name in dt["programs"]
-                           for old in ("mt_list_kernel", "mt_cond_kernel")),
-                   f"TPT_MXU_DETS={flag}: a first-design kernel ran: {list(dt['programs'])}")
             dev[flag].append(total * 1e3 / SWEEP_FRAMES)
             records[flag].append((dt["count"], called[-1]))
 
@@ -3057,7 +2985,7 @@ def main(argv=None) -> int:
     r2 = _r2_phase(mt_intersect, mt_shade, counters, tri_pos, phi_primary,
                    mt_shade.mt_intersect_nf_phi(tri_pos, phi_primary), results, tag)
 
-    # --- denoise phase: the tiled kernel vs plain and vs its first design --
+    # --- denoise phase: the tiled kernel vs plain -----------------------------
     phase("denoise")
     den_err, den = _denoise_phase(kdenoise, results, tag)
 
@@ -3275,7 +3203,7 @@ def main(argv=None) -> int:
     phase("training")
     cull_launches = _training_phase(pt, counters, results, tag, opts.profile)
 
-    # --- the walks' inner loops in SASS: shared loads a pair, old and new ----
+    # --- the walks' inner loops in SASS: shared loads a pair ------------------
     phase("sass")
     shp = {k: results[f"walk_{k}_shape"]
            for k in ("nf", "list", "cond", "stream", "nf_mxu", "list_mxu", "cond_mxu")}
@@ -3288,32 +3216,27 @@ def main(argv=None) -> int:
 
     sass = _sass_loads(lib_path, {
         "nf": f"nf_walk_kernelILi64E{tail('nf')}Lb1E",
-        "list_v1": "mt_list_kernelILi1ELi64EE",
         "list": f"nf_walk_kernelILi64E{tail('list')}Lb0E",
-        "cond_v1": "mt_cond_kernelILi1ELi64EE",
         "cond": f"cond_walk_kernelILi64E{tail('cond')}E",
         "stream": f"stream_walk_kernelI{tail('stream')}E",
-        "nf_mxu_v1": "mt_list_kernelILi64ELb1EE",
         "nf_mxu": f"mxu_walk_kernelILi64E{mxu_tail('nf_mxu')}Lb1E",
         "list_mxu": f"mxu_walk_kernelILi64E{mxu_tail('list_mxu')}Lb0E",
         "cond_mxu": f"mxu_cond_kernelILi64E{mxu_tail('cond_mxu')}E",
-        "r2_v1": "mt_r2_kernelILb1EE",
         "r2": "r2_walk_kernelEPKf"},
         Path(opts.out) if opts.out else None)
     for label, got in sass.items():
-        print(f"sass {label} ({'stream' if label.startswith('r2') else 'at sub 64'}): pair loop "
+        print(f"sass {label} ({'stream' if label == 'r2' else 'at sub 64'}): pair loop "
               f"{got}")
     results["sass_inner_loop"] = sass
 
     def bound(b):
         return {"bound_ms": b[0], "bound_by": b[1], "library_ms": None}
 
-    def walk(key):  # the redesigned walk's kernel (beside its first design's, where kept)
+    def walk(key):  # the walk's kernel
         w = walks[key]
         return {"kernel_ms": w["kept_ms"], "repack_ms": w["repack_ms"],
                 "walk_bound_ms": w["walk_bound_ms"],
-                "critical_path_bound_ms": w["critical_path_bound_ms"],
-                **({"v1_kernel_ms": w["v1_ms"]} if w["v1_ms"] is not None else {})}
+                "critical_path_bound_ms": w["critical_path_bound_ms"]}
 
     den512, den1080 = den[(512, 512)], den[(1080, 1920)]
 
@@ -3329,10 +3252,8 @@ def main(argv=None) -> int:
          "replaces": "tpu_pathtracer/ops/pallas/denoise.py:33",
          "launches": launches["denoise"], "max_abs_err": den_err, "ms": den512["ms"],
          "plain_ms": den512["plain_ms"], **bound((den512["bound_ms"], den512["bound_by"])),
-         "kernel_ms": den512["kernel_ms"], "v1_ms": den512["v1_ms"],
-         "v1_kernel_ms": den512["v1_kernel_ms"], "ms_1080p": den1080["ms"],
-         "kernel_ms_1080p": den1080["kernel_ms"], "v1_ms_1080p": den1080["v1_ms"],
-         "v1_kernel_ms_1080p": den1080["v1_kernel_ms"], "bound_ms_1080p": den1080["bound_ms"],
+         "kernel_ms": den512["kernel_ms"], "ms_1080p": den1080["ms"],
+         "kernel_ms_1080p": den1080["kernel_ms"], "bound_ms_1080p": den1080["bound_ms"],
          "sharded_launches": sharded_launches[1], "gltf_launches": gltf_launches["denoise"]},
         {"name": "mt_stream", "route": "cuda",
          "source": "tpu_pathtracer_torch/csrc/stream_walk.cu",
@@ -3353,7 +3274,7 @@ def main(argv=None) -> int:
            "replaces": f"tpu_pathtracer/ops/pallas/mt_intersect.py:{line}",
            "launches": r2[name]["launches"], "max_abs_err": r2[name]["max_abs_err"],
            "ms": r2[name]["ms"], "kernel_ms": r2[name]["kernel_ms"],
-           "v1_kernel_ms": r2[name]["v1_kernel_ms"], "plain_ms": r2[name]["plain_ms"],
+           "plain_ms": r2[name]["plain_ms"],
            **bound((r2[name]["bound_ms"], r2[name]["bound_by"])),
            "critical_path_bound_ms": r2[name]["critical_path_bound_ms"],
            **({f"stress_{k}": v for k, v in r2_stress.items()} if name == "mt_stream_r2" else {})}

@@ -23,17 +23,6 @@ from tpu_pathtracer_torch.scene import sky
 CPU = ["--device", "cpu"]
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread for these tests' many small ops: under the
-    suite's parallel workers, torch's default pool (a thread a core in
-    each worker) oversubscribes the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def test_cli_info(capsys):
     assert main(["info"]) == 0
     out = capsys.readouterr().out

@@ -284,18 +284,6 @@ def test_mxu_kernels_take_every_tile_width(cuda, cull, tile_rays, sub):
 
 
 @pytest.mark.cuda
-def test_mxu_kernels_refuse_a_tile_beyond_shared_memory(cuda):
-    """The first-design MXU kernels keep the tile's best state in shared
-    memory: a 16,384-ray tile does not fit, and the wrapper refuses it
-    before launching."""
-    tri = torch.from_numpy(_soup(np.random.default_rng(3), 300)).to(cuda)
-    phi_t = torch.ones((10, 256), device=cuda)
-    prep = mt_shade._mma_prepare(mt_shade._prepare_cond, mt_shade._pack_mma)(tri, phi_t, 16384, 64)
-    with pytest.raises(ValueError, match="shared memory"):
-        mt_shade._walk_mxu_cuda_v1("cond", *prep)
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("cull", ["nf", "list", "cond"])
 def test_mxu_kernels_refuse_a_tile_no_shape_places(cuda, cull):
     """The MXU walks place tiles of up to 8,192 rays; the wrapper refuses a
@@ -481,15 +469,13 @@ def test_mt_kernel_empty_scene_launches_nothing(cuda):
 def test_denoise_kernel_matches_plain(cuda, sigma, hw):
     """The tiled kernel (compile-time taps at sigma 5, the tap table read at
     run time at sigma 3) against the plain version within the stated
-    tolerance, and against its first design (`tpt_denoise_v1`) bit for
-    bit; images smaller than the halo included."""
+    tolerance; images smaller than the halo included."""
     img = torch.from_numpy(np.random.default_rng(sum(hw)).random(hw + (3,), np.float32)).to(cuda)
     before = kdenoise.smart_denoise.launches
     out = kdenoise.smart_denoise(img, sigma=sigma)
     assert kdenoise.smart_denoise.launches == before + 1
     torch.testing.assert_close(out, kdenoise.smart_denoise_plain(img, sigma=sigma), atol=2e-5,
                                rtol=1e-4)
-    assert torch.equal(out, kdenoise._denoise_v1(img, sigma=sigma))
     assert kdenoise.smart_denoise.launches == before + 1
 
 
@@ -501,7 +487,6 @@ def test_denoise_kernel_takes_the_widest_radius_and_refuses_a_wider_one(cuda):
     out = kdenoise.smart_denoise(img, sigma=17.0)
     torch.testing.assert_close(out, kdenoise.smart_denoise_plain(img, sigma=17.0), atol=2e-5,
                                rtol=1e-4)
-    assert torch.equal(out, kdenoise._denoise_v1(img, sigma=17.0))
     with pytest.raises(RuntimeError):
         kdenoise.smart_denoise(img, sigma=18.0)
 
@@ -516,27 +501,20 @@ def _rays(phi_t):
     return phi_t[1:4].T.contiguous(), phi_t[4:7].T.contiguous()
 
 
-def _assert_r2_designs_agree(cuda, tri, ro, rd, stream):
-    """The Hopper round-2 walk (csrc/r2_walk.cu) against its first design
-    (`tpt_mt_r2_v1`) and the plain
-    walk on the same prepared inputs: hits and t/u/v bit-equal; walk
-    counts equal to the plain walk's under each design's copy rule, the
-    chunks evaluated equal across designs.  Returns the plain hits and
-    the Hopper walk's counts."""
+def _assert_r2_walk_matches_plain(cuda, tri, ro, rd, stream):
+    """The Hopper round-2 walk (csrc/r2_walk.cu) against the plain walk on
+    the same prepared inputs: hits and t/u/v bit-equal, walk counts equal.
+    Returns the plain hits and the Hopper walk's counts."""
     prep = (*mt_intersect._prepare(tri, ro, rd, stream), stream)
     table = mt_intersect._r2_table(*prep[1:2], prep[3], stream)
-    stats = {d: torch.zeros((prep[0].shape[1] // 1024, 2), dtype=torch.int32, device=cuda)
-             for d in mt_intersect.R2_DESIGNS}
-    hk = mt_intersect._walk_table_cuda(prep[0], table, *prep[2:], stats=stats["r2_walk"])
-    hv = mt_intersect._walk_cuda_v1(*prep, stats=stats["v1"])
-    for design, sk in stats.items():
-        sp = torch.zeros_like(sk)
-        hp = mt_intersect._walk_plain(*prep, stats=sp, design=design)
-        assert torch.equal(sk, sp), design
-    for a, b, c in zip(hk, hv, hp):
-        assert torch.equal(a, c) and torch.equal(b, c)
-    assert torch.equal(stats["r2_walk"][:, 0], stats["v1"][:, 0])
-    return hp, stats["r2_walk"]
+    sk = torch.zeros((prep[0].shape[1] // 1024, 2), dtype=torch.int32, device=cuda)
+    hk = mt_intersect._walk_table_cuda(prep[0], table, *prep[2:], stats=sk)
+    sp = torch.zeros_like(sk)
+    hp = mt_intersect._walk_plain(*prep, stats=sp)
+    assert torch.equal(sk, sp)
+    for a, c in zip(hk, hp):
+        assert torch.equal(a, c)
+    return hp, sk
 
 
 @pytest.mark.cuda
@@ -555,7 +533,7 @@ def test_r2_kernels_match_plain_bit_for_bit(cuda, stream, n_tris, n_rays):
     """The round-2 kernels (mt_intersect_pallas / mt_intersect_stream, one
     Hopper walk) against their plain versions on soups with parked rays:
     one launch, bit-equal hits and t/u/v, equal walk counts; and the walk
-    against its first design (`tpt_mt_r2_v1`), bit for bit."""
+    on the same prepared inputs, bit for bit."""
     rng = np.random.default_rng(n_tris + n_rays)
     tri = torch.from_numpy(_soup(rng, n_tris)).to(cuda)
     phi_t, park = _parked_rays(rng, n_rays)
@@ -568,11 +546,9 @@ def test_r2_kernels_match_plain_bit_for_bit(cuda, stream, n_tris, n_rays):
     assert int(hk.hit.sum()) > 0 and not hk.hit[torch.from_numpy(park).to(cuda)].any()
     for a, b in zip(hk, hp):
         assert torch.equal(a, b)
-    for design in mt_intersect.R2_DESIGNS:
-        stats = mt_intersect.walk_stats(tri, ro, rd, stream=stream, design=design)
-        assert torch.equal(stats, mt_intersect.walk_stats(tri, ro, rd, stream=stream, plain=True,
-                                                          design=design))
-    _assert_r2_designs_agree(cuda, tri, ro, rd, stream)
+    stats = mt_intersect.walk_stats(tri, ro, rd, stream=stream)
+    assert torch.equal(stats, mt_intersect.walk_stats(tri, ro, rd, stream=stream, plain=True))
+    _assert_r2_walk_matches_plain(cuda, tri, ro, rd, stream)
 
 
 @pytest.mark.cuda
@@ -580,8 +556,8 @@ def test_r2_stream_walk_at_its_cap(cuda):
     """`mt_intersect_stream` at 131,072 triangles (1,024 chunks, 32 groups)
     on camera rays over copies of a BVH-ordered mesh, each below the last
     (so chunks are culled), and a
-    ray count that is no multiple of 1,024: bit-equal to the plain walk
-    and to the first design, walk counts equal."""
+    ray count that is no multiple of 1,024: bit-equal to the plain walk,
+    walk counts equal."""
     mesh = _stream_mesh(cuda)  # 16,384 rows; eight copies, each 2 below the last
     drop = torch.zeros(9, device=cuda)
     drop[[1, 4, 7]] = -2.0
@@ -590,7 +566,7 @@ def test_r2_stream_walk_at_its_cap(cuda):
     before = mt_intersect.mt_intersect_stream.launches
     hk = mt_intersect.mt_intersect_stream(tri, ro, rd)
     assert mt_intersect.mt_intersect_stream.launches == before + 1
-    hp, stats = _assert_r2_designs_agree(cuda, tri, ro, rd, True)
+    hp, stats = _assert_r2_walk_matches_plain(cuda, tri, ro, rd, True)
     for a, b in zip((hk.t, hk.tri, hk.u, hk.v), hp):
         assert torch.equal(a, b[:9000])
     assert int(hk.hit.sum()) > 1000 and 0 < int(stats[:, 0].max()) < 1024
@@ -603,11 +579,11 @@ def test_r2_walk_kept_shape_matches_plain(cuda):
     camera rays over the default scene and on a soup of 33 chunks."""
     tri = tpt.default_scene().compile(device=cuda).packed.tri_pos
     ro, rd = (x[:30000].contiguous() for x in _rays(_camera_rays(cuda)))
-    _assert_r2_designs_agree(cuda, tri, ro, rd, False)
+    _assert_r2_walk_matches_plain(cuda, tri, ro, rd, False)
     rng = np.random.default_rng(33)
     soup = torch.from_numpy(_soup(rng, 4224)).to(cuda)
     ro, rd = (x.to(cuda) for x in _rays(_parked_rays(rng, 5000)[0]))
-    _assert_r2_designs_agree(cuda, soup, ro, rd, True)
+    _assert_r2_walk_matches_plain(cuda, soup, ro, rd, True)
     shape_of = mt_shade.walk_shape("tpt_mt_r2_walk_shape")
     assert (shape_of["cluster"], shape_of["tpr"], shape_of["threads"]) == (8, 2, 256)
 
@@ -617,8 +593,7 @@ def test_r2_walk_kept_shape_matches_plain(cuda):
 def test_r2_kernels_cull_like_plain_on_a_mesh(cuda, stream):
     """Camera rays on the BVH-ordered default scene, where chunk culling
     (and the copies) decide what is evaluated: hits and walk counts must
-    equal the plain version's under each design's copy rule, and the
-    culling must skip chunks."""
+    equal the plain version's, and the culling must skip chunks."""
     tri = tpt.default_scene().compile(device=cuda).packed.tri_pos
     ro, rd = _rays(_camera_rays(cuda))
     kernel, plain = R2_WRAPPERS[stream]
@@ -626,13 +601,11 @@ def test_r2_kernels_cull_like_plain_on_a_mesh(cuda, stream):
     assert int(hk.hit.sum()) > 10000
     for a, b in zip(hk, hp):
         assert torch.equal(a, b)
-    for design in mt_intersect.R2_DESIGNS:
-        stats = mt_intersect.walk_stats(tri, ro, rd, stream=stream, design=design)
-        assert torch.equal(stats, mt_intersect.walk_stats(tri, ro, rd, stream=stream, plain=True,
-                                                          design=design))
-        evaluated, copied = (int(x) for x in stats.sum(dim=0))
-        assert 0 < evaluated < stats.shape[0] * tri.shape[0] // mt_intersect.CHUNK_TRIS
-        assert copied >= evaluated and (copied == evaluated or stream or design == "r2_walk")
+    stats = mt_intersect.walk_stats(tri, ro, rd, stream=stream)
+    assert torch.equal(stats, mt_intersect.walk_stats(tri, ro, rd, stream=stream, plain=True))
+    evaluated, copied = (int(x) for x in stats.sum(dim=0))
+    assert 0 < evaluated < stats.shape[0] * tri.shape[0] // mt_intersect.CHUNK_TRIS
+    assert copied >= evaluated
 
 
 @pytest.mark.cuda
@@ -651,8 +624,8 @@ def test_r2_kernels_empty_and_oversized_scenes_launch_nothing(cuda):
 
 @pytest.mark.cuda
 def test_r2_walk_refuses_bad_inputs_before_a_launch(cuda, monkeypatch):
-    """Rays that are not whole 1,024-ray tiles, the first design's 40-float
-    rows in place of the walk table, a misaligned table or box array and a
+    """Rays that are not whole 1,024-ray tiles, `_prepare`'s 40-float rows
+    in place of the walk table, a misaligned table or box array and a
     chunk off the 8-step rule raise ValueError before the launch, and
     through the wrappers count none."""
     rng = np.random.default_rng(3)
@@ -911,19 +884,13 @@ def test_cond_walk_matches_plain(cuda, sub, rays, tile_rays):
     """The Hopper cond walk (csrc/cond_walk.cu) on the default scene's
     camera and first-bounce rays at every sub, at tile widths that split
     unevenly over the cluster and wide ones: hits bit-equal to the plain
-    walk and to the first design (`tpt_mt_cond_v1`, tiles up to 4,096
-    rays), per-tile walk counts (chunks live, subs evaluated) equal to the
+    walk, per-tile walk counts (chunks live, subs evaluated) equal to the
     plain walk's; both culling levels decide."""
     tri, phi_t = _cond_rays(cuda, rays)
     prep = _cond_prep(tri, phi_t, tile_rays, sub)
     hk, sk, hp, sp = _cond_walks(cuda, prep)
     assert all(torch.equal(a, b) for a, b in zip(hk, hp))
     assert torch.equal(sk, sp)
-    if tile_rays <= 4096:
-        sv = torch.zeros_like(sp)
-        hv = mt_shade._walk_cond_cuda_v1(*prep, stats=sv)
-        torch.cuda.synchronize()
-        assert all(torch.equal(a, b) for a, b in zip(hv, hp)) and torch.equal(sv, sp)
     live, evaluated = (int(x) for x in sp.sum(dim=0))
     assert int((hp[1] >= 0).sum()) > 100
     assert live < sp.shape[0] * prep[2].shape[0]
@@ -1004,8 +971,7 @@ def test_list_walk_matches_plain(cuda, kind, sub, tile_rays, monkeypatch):
     """The Hopper list walk (csrc/nf_walk.cu, no bound) at every tile width
     the wrappers give and widths that split unevenly over its CTAs: hits
     bit-equal to `_walk_list_plain`, every listed sub walked (walk counts
-    equal to the list lengths), and equal to its first design
-    (`tpt_mt_list_v1`, tiles up to 4,096 rays)."""
+    equal to the list lengths)."""
     _any_tile(monkeypatch)
     tri, phi_t, _ = _walk_inputs(cuda, kind, stream=False)
     prep = mt_shade._prepare_list(tri, phi_t, tile_rays, sub)
@@ -1014,10 +980,6 @@ def test_list_walk_matches_plain(cuda, kind, sub, tile_rays, monkeypatch):
     assert all(torch.equal(a, b) for a, b in zip(hk, hp))
     assert torch.equal(sk, sp) and torch.equal(sk, prep[2])
     assert int((hp[1] >= 0).sum()) > 0
-    if tile_rays <= 4096:
-        hv = mt_shade._walk_list_cuda_v1(*prep)
-        torch.cuda.synchronize()
-        assert all(torch.equal(a, b) for a, b in zip(hv, hp))
 
 
 @pytest.mark.cuda

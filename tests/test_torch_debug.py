@@ -31,17 +31,6 @@ CAM = dict(position=(0, 1, 4), look_at=(0, 0.5, 0))
 KW = dict(width=8, height=8, aspect=1.0, samples_per_frame=1, max_bounces=2)
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread for these tests' many small ops: under the
-    suite's parallel workers, torch's default pool (a thread a core in
-    each worker) oversubscribes the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def scenes():
     return (jpt.default_scene(j_gradient_sky(8, 16)).compile(),

@@ -36,17 +36,6 @@ from tpu_pathtracer_torch.scene.host import Material, Mesh, Scene, rotation_x, t
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread for these tests' many small ops: under the
-    suite's parallel workers, torch's default pool (a thread a core in
-    each worker) oversubscribes the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _meshes():
     white = Material(color=(1, 1, 1), roughness=1.0, metalness=0.02)
     red = Material(color=(1, 0.05, 0.05), roughness=1.0, metalness=0.0)

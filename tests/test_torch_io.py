@@ -45,17 +45,6 @@ ROOT = Path(__file__).resolve().parent.parent
 GOLDEN = sorted((ROOT / "tests" / "golden").glob("*.png"))
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread for these tests' many small ops: under the
-    suite's parallel workers, torch's default pool (a thread a core in
-    each worker) oversubscribes the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def test_io_exports_match_jax():
     assert tio.__all__ == jio.__all__
 

@@ -11,10 +11,7 @@ determinants as one float32 matrix product, as the JAX kernels do under
   * the MXU plain version against the FP32 plain version on the headline
     camera's rays at 64x64: the same hits and triangles except counted
     near-ties and edge lanes (`hit_agreement`);
-  * a fused frame under TPT_MXU_DETS=1 against =0 by the outlier rule;
-  * the `mma.sync` fragment table (`_pack_mma`): read back through the
-    m16n8k8 tf32 fragment layout, it gives the determinants that the C
-    fragments of each lane must hold.
+  * a fused frame under TPT_MXU_DETS=1 against =0 by the outlier rule.
 
 The CUDA kernels themselves are compared with these plain versions in
 tests/test_torch_cuda.py, on a machine with a card."""
@@ -31,7 +28,7 @@ import tpu_pathtracer_torch as tpt
 from tpu_pathtracer_torch.ops import camera as camera_ops
 from tpu_pathtracer_torch.ops import trace as ttrace
 from tpu_pathtracer_torch.ops.kernels import mt_shade
-from tpu_pathtracer_torch.ops.mt_matmul import determinants, ray_features, triangle_columns
+from tpu_pathtracer_torch.ops.mt_matmul import ray_features
 from tpu_pathtracer_torch.scene.envmap import gradient_sky
 
 
@@ -115,45 +112,3 @@ def test_fused_frame_under_mxu_dets_matches_fp32(monkeypatch):
     assert torch.isfinite(frames["1"]).all()
     assert_images_close(frames["0"].numpy(), frames["1"].numpy())
 
-
-def _fragments_to_matrices(table_group):
-    """Read one 8-triangle group of the `_pack_mma` table (16 registers x
-    32 lanes) back as PTX's m16n8k8 tf32 A fragments define them: register
-    r of k-step k, lane l (group g = l // 4, thread t = l % 4) is row
-    g + 8 * (r % 2), column t + 4 * (r // 2).  Returns A (2 m-tiles, 16,
-    16 features)."""
-    a = np.zeros((2, 16, 16), np.float32)
-    for j in range(16):
-        mt, k, r = j // 8, (j // 4) % 2, j % 4
-        for lane in range(32):
-            g, t = lane // 4, lane % 4
-            a[mt, g + 8 * (r % 2), 8 * k + t + 4 * (r // 2)] = table_group[j, lane]
-    return a
-
-
-def test_mma_table_gives_each_lane_all_four_determinants():
-    """The product of the fragment table's two m-tiles with phi (K = 16,
-    features 10-15 zero) puts, in the C fragment of lane l (rows l // 4 and
-    l // 4 + 8, columns 2 * (l % 4) and 2 * (l % 4) + 1), a and ua of
-    triangle l // 4 in tile 0 and va and ta in tile 1: the determinants of
-    `determinants` on the same inputs."""
-    rng = np.random.default_rng(5)
-    sub = 32
-    tri = torch.from_numpy(rng.uniform(-1, 1, (128, 9)).astype(np.float32))
-    cols_rows = mt_shade._pack_subblock_major(triangle_columns(tri), sub)
-    table = mt_shade._pack_mma(cols_rows, sub).numpy().reshape(-1, 16, 32)  # (Np/8, 16, 32)
-    assert table.shape == (16, 16, 32)
-    phi = torch.from_numpy(rng.normal(size=(10, 8)).astype(np.float32))
-    want = determinants(phi.double(), triangle_columns(tri).permute(1, 2, 0).double())
-    want = np.stack([w.numpy() for w in want])  # (4 quantities, 128 triangles, 8 rays)
-    phi16 = np.zeros((16, 8))
-    phi16[:10] = phi.numpy()
-    for grp in (0, 5, 15):
-        d = _fragments_to_matrices(table[grp]).astype(np.float64) @ phi16  # (2, 16, 8)
-        for lane in range(32):
-            g, t = lane // 4, lane % 4
-            tri_i = 8 * grp + g
-            for c in range(2):
-                ray = 2 * t + c
-                got = [d[0, g, ray], d[0, g + 8, ray], d[1, g, ray], d[1, g + 8, ray]]
-                np.testing.assert_allclose(got, want[:, tri_i, ray], rtol=1e-6, atol=1e-6)

@@ -75,17 +75,6 @@ W = H = 32
 KW = dict(width=W, aspect=1.0, samples_per_frame=1, max_bounces=2)
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread for these tests' many small ops: under the
-    suite's parallel workers, torch's default pool (a thread a core in
-    each worker) oversubscribes the cores and slows them a hundredfold."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def outliers(a, b, outlier_tol=0.05):
     """tests/test_trace_golden.py:60-70: pixels whose channels differ by
     more than 0.05 (another random branch), and the mean difference of the

@@ -40,17 +40,6 @@ SPEC = {"device": "cpu", "width": W, "height": H, "bounces": BOUNCES,
 KW = dict(width=W, height=H, aspect=1.0, max_bounces=BOUNCES)
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread for these tests' many small ops: under the
-    suite's parallel workers, torch's default pool (a thread a core in
-    each worker) oversubscribes the cores and slows them a hundredfold."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def out_dir(tmp_path_factory):
     return tmp_path_factory.mktemp("ranks")

@@ -58,19 +58,18 @@ def test_r2_plain_matches_pallas_interpret(kernel, seed, n_tris, n_rays):
 
 
 def test_r2_pallas_and_stream_plain_agree_bit_for_bit():
-    """The two walks differ only in the table layout and the copies, so on
-    the same inputs every output and every evaluated-chunk count agree;
-    the first design's whole-scene walk copies exactly the chunks it
-    evaluates, its streamed walk at least those."""
+    """The two walks differ only in the table layout, so on the same inputs
+    every output and every walk count (chunks evaluated, chunks copied)
+    agree, and each copies at least the chunks it evaluates."""
     tri, ro, rd = (torch.from_numpy(x) for x in _inputs(5, 2100, 2500)[:3])
     hp = mt_intersect.mt_intersect_pallas(tri, ro, rd)
     hs = mt_intersect.mt_intersect_stream(tri, ro, rd)
     assert int(hp.hit.sum()) > 100
     for a, b in zip(hp, hs):
         assert torch.equal(a, b)
-    sp = mt_intersect.walk_stats(tri, ro, rd, stream=False, design="v1")
-    ss = mt_intersect.walk_stats(tri, ro, rd, stream=True, design="v1")
-    assert torch.equal(sp[:, 0], ss[:, 0]) and torch.equal(sp[:, 0], sp[:, 1])
+    sp = mt_intersect.walk_stats(tri, ro, rd, stream=False)
+    ss = mt_intersect.walk_stats(tri, ro, rd, stream=True)
+    assert torch.equal(sp[:, 0], ss[:, 0]) and torch.equal(sp, ss)
     assert (ss[:, 1] >= ss[:, 0]).all()
 
 
@@ -93,10 +92,9 @@ def test_r2_chunk_rule_and_padding_match_jax(n_tris):
 
 def test_r2_walk_stats_on_a_mesh():
     """Camera rays on the BVH-ordered default scene: chunks are culled
-    (fewer evaluated than tiles x chunks), the streamed walk copies at least
-    what it evaluates, the whole-scene walk exactly that; an all-parked tile
-    evaluates and copies nothing.  (The first design's copy rules; the
-    Hopper walk's are held in tests/test_torch_r2_walk.py.)"""
+    (fewer evaluated than tiles x chunks), each walk copies at least what
+    it evaluates; an all-parked tile evaluates and copies nothing.  (The
+    copy rule chunk by chunk is held in tests/test_torch_r2_walk.py.)"""
     data = tpt.default_scene().compile(device="cpu")
     tri = data.packed.tri_pos
     xs, ys = np.meshgrid(np.linspace(-0.4, 0.4, 64), np.linspace(-0.3, 0.5, 32))
@@ -107,12 +105,11 @@ def test_r2_walk_stats_on_a_mesh():
     ro[2048:] = np.float32(1e30)
     ro, rd = torch.from_numpy(ro), torch.from_numpy(rd.astype(np.float32))
     for stream in (False, True):
-        stats = mt_intersect.walk_stats(tri, ro, rd, stream=stream, design="v1")
+        stats = mt_intersect.walk_stats(tri, ro, rd, stream=stream)
         assert stats.shape == (3, 2) and stats.dtype == torch.int32
         assert (stats[2] == 0).all()
         assert 0 < int(stats[:2, 0].min()) and int(stats[:2, 0].max()) < 16
-        assert (stats[:, 1] >= stats[:, 0]).all() and (stream or torch.equal(stats[:, 0],
-                                                                             stats[:, 1]))
+        assert (stats[:, 1] >= stats[:, 0]).all()
     assert int(mt_intersect.mt_intersect_stream(tri, ro, rd).hit.sum()) > 1000
 
 

@@ -8,11 +8,11 @@ of tpu_pathtracer_torch/ops/kernels/mt_intersect.py).
     plain torch (chunks taken `R2_GROUP` at a time, the mask formed again
     after each evaluated chunk, the two staging buffers tracked as the
     kernel's `Stager` tracks them), gives the per-tile walk counts of the
-    plain walk `_walk_plain(design="r2_walk")`, both columns, on camera
-    rays and on soups whose chunk count falls around a group boundary; a
-    re-enactment that keeps its first mask evaluates more;
-  * each design's copy rule (`walk_stats(design=...)`) on a three-chunk
-    scene whose counts are worked out below.
+    plain walk `_walk_plain`, both columns, on camera rays and on soups
+    whose chunk count falls around a group boundary; a re-enactment that
+    keeps its first mask evaluates more;
+  * the copy rule (`walk_stats`) on a three-chunk scene whose counts are
+    worked out below.
 
 The kernel itself is held to the plain walk, walk counts included, in
 tests/test_torch_cuda.py and chip_smoke.py, on a machine with a card; the
@@ -28,17 +28,6 @@ from tpu_pathtracer_torch.ops.mt_matmul import FEATS, determinants, nearest, tri
 from tpu_pathtracer_torch.ops.vecmath import INF
 
 G = r2.R2_GROUP
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread for these tests' many small ops: under the
-    suite's parallel workers, torch's default pool (a thread a core in
-    each worker) oversubscribes the cores and slows them a hundredfold."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _soup(n_tris, n_rays, seed):
@@ -134,10 +123,9 @@ def test_walk_table_holds_the_round2_coefficients(stream, n_tris):
 @pytest.mark.parametrize("case", ["camera", 1, G - 1, G, G + 1])
 def test_group_mask_walk_counts_equal_the_plain_walk(case):
     """Per-tile walk counts of the re-enacted group-mask walk against the
-    plain walk's (design "r2_walk"), both columns: on camera rays on the
-    default scene (16 chunks, one group) and on soups of 1, G-1, G and
-    G+1 chunks with parked rays.  The chunks evaluated are the same under
-    every design."""
+    plain walk's, both columns: on camera rays on the default scene (16
+    chunks, one group) and on soups of 1, G-1, G and G+1 chunks with
+    parked rays.  The whole-scene entry counts the same."""
     if case == "camera":
         tri, ro, rd = _camera()
     else:
@@ -148,9 +136,6 @@ def test_group_mask_walk_counts_equal_the_plain_walk(case):
     assert torch.equal(_reenact(tri, ro, rd), stats)
     assert 0 < int(stats[:, 0].sum()) and int(stats[:, 0].max()) < n_chunks or n_chunks == 1
     assert (stats[:, 1] >= stats[:, 0]).all()
-    for stream, design in ((False, "r2_walk"), (False, "v1"), (True, "v1")):
-        other = r2.walk_stats(tri, ro, rd, stream=stream, design=design)
-        assert torch.equal(other[:, 0], stats[:, 0])
     assert torch.equal(r2.walk_stats(tri, ro, rd, stream=False), stats)
 
 
@@ -186,30 +171,19 @@ def _three_chunks():
 
 
 def test_copy_rules_on_three_chunks():
-    """Worked counts, [chunks evaluated, chunks copied] per tile:
-      * "r2_walk" (both entries): A takes chunk 0 (a copy) and prefetches
-        2, the next chunk of its mask (a copy), which dies at t = 2: [1, 2].
-        B takes 1 and prefetches 2, which dies at t = 4: [1, 2].  C takes 1
-        and prefetches 2, which stays live (T1 missed) and is taken from
-        the prefetch: [2, 2];
-      * "v1", streamed: chunk 0 is copied before the walk if entered, and
-        chunk c+1 while chunk c is walked if entered before t as it stands
-        then: A copies 0, never 1 (not entered), and 2 only at t = 2:
-        [1, 1]; B copies 1 at t = INF and 2 while 1 is walked at t = INF:
-        [1, 2]; C likewise: [2, 2];
-      * "v1", whole scene: the chunks it evaluates."""
+    """Worked counts, [chunks evaluated, chunks copied] per tile, the same
+    for both entries: A takes chunk 0 (a copy) and prefetches 2, the next
+    chunk of its mask (a copy), which dies at t = 2: [1, 2].  B takes 1 and
+    prefetches 2, which dies at t = 4: [1, 2].  C takes 1 and prefetches 2,
+    which stays live (T1 missed) and is taken from the prefetch: [2, 2]."""
     tri, ro, rd = _three_chunks()
     hit = r2.mt_intersect_stream(tri, ro, rd)
     assert hit.hit.all()
     for tile, (t, i) in enumerate(((2.0, 0), (4.0, 128), (5.0, 256))):
         rays = slice(tile * 1024, (tile + 1) * 1024)
         assert (hit.t[rays] == t).all() and (hit.tri[rays] == i).all()
-    want = {("r2_walk", True): [[1, 2], [1, 2], [2, 2]], ("r2_walk", False): [[1, 2], [1, 2], [2, 2]],
-            ("v1", True): [[1, 1], [1, 2], [2, 2]], ("v1", False): [[1, 1], [1, 1], [2, 2]]}
-    for (design, stream), counts in want.items():
-        got = r2.walk_stats(tri, ro, rd, stream=stream, design=design)
-        assert got.tolist() == counts, (design, stream)
-    assert torch.equal(_reenact(tri, ro, rd), torch.tensor(want["r2_walk", True],
-                                                           dtype=torch.int32))
-    with pytest.raises(ValueError, match="design"):
-        r2.walk_stats(tri, ro, rd, stream=True, design="v2")
+    want = [[1, 2], [1, 2], [2, 2]]
+    for stream in (True, False):
+        got = r2.walk_stats(tri, ro, rd, stream=stream)
+        assert got.tolist() == want, stream
+    assert torch.equal(_reenact(tri, ro, rd), torch.tensor(want, dtype=torch.int32))

@@ -202,9 +202,8 @@ def test_header_edit_changes_library_path(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", csrc)
     before = _build.library_path()
     assert [p.name for p in _build._sources()] == ["cond_walk.cu", "denoise.cu", "fat_walk.cu",
-                                                   "mt_intersect.cu", "mt_shade.cu", "mxu_walk.cu",
-                                                   "nf_walk.cu", "precull.cu", "r2_walk.cu",
-                                                   "stream_walk.cu"]
+                                                   "mxu_walk.cu", "nf_walk.cu", "precull.cu",
+                                                   "r2_walk.cu", "stream_walk.cu"]
     header = csrc / "mt_common.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = _build.library_path()

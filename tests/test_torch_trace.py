@@ -423,3 +423,10 @@ def test_envsample_matches_jax():
     np.testing.assert_allclose(
         tenv.env_radiance_packed(patches_t, rad.shape[:2], torch.from_numpy(uv)).numpy(),
         want, rtol=1e-6, atol=1e-6)
+
+
+def test_port_tests_run_on_one_torch_thread():
+    """The repository's conftest.py runs every test of a `test_torch_*`
+    module on one torch thread, so the suite's parallel workers do not
+    oversubscribe the cores."""
+    assert torch.get_num_threads() == 1

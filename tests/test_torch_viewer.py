@@ -41,17 +41,6 @@ from tpu_pathtracer_torch.viewer.session import PARAM_SPEC
 WAIT_S = 60.0
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread for these tests' many small ops: under the
-    suite's parallel workers, torch's default pool (a thread a core in
-    each worker) oversubscribes the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _orbit_pair(**kw):
     return OrbitCamera(**kw), JOrbit(**kw)
 

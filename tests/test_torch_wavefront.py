@@ -38,17 +38,6 @@ W = H = 16
 CAM = dict(position=(0, 1, 4), look_at=(0, 0.5, 0), fov=45, aperture=0.1, focal_distance=4.0)
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread for these tests' many small ops: under the
-    suite's parallel workers, torch's default pool (a thread a core in
-    each worker) oversubscribes the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _build(scene_cls, mesh_cls, material_cls, sky, plane, sphere):
     sc = scene_cls()
     p, n, i = plane(4, 4)

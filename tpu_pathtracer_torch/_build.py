@@ -171,30 +171,21 @@ _SIGNATURES = {
     "tpt_mt_nf_shape": ([_I, _I, ctypes.POINTER(_I)], _I),
     "tpt_mt_list": ([_P] * 9 + [_I] * 5 + [_P], _I),
     "tpt_mt_list_shape": ([_I, _I, ctypes.POINTER(_I)], _I),
-    "tpt_mt_list_v1": ([_P] * 8 + [_I] * 5 + [_P], _I),
     "tpt_mt_cond": ([_P] * 9 + [_I] * 5 + [_P], _I),
     "tpt_mt_cond_shape": ([_I, _I, ctypes.POINTER(_I)], _I),
-    "tpt_mt_cond_v1": ([_P] * 9 + [_I] * 5 + [_P], _I),
     "tpt_mt_nf_mxu": ([_P] * 10 + [_I] * 5 + [_P], _I),
     "tpt_mt_list_mxu": ([_P] * 9 + [_I] * 5 + [_P], _I),
     "tpt_mt_cond_mxu": ([_P] * 9 + [_I] * 5 + [_P], _I),
     "tpt_mt_nf_mxu_shape": ([_I, _I, ctypes.POINTER(_I)], _I),
     "tpt_mt_list_mxu_shape": ([_I, _I, ctypes.POINTER(_I)], _I),
     "tpt_mt_cond_mxu_shape": ([_I, _I, ctypes.POINTER(_I)], _I),
-    "tpt_mt_nf_mxu_v1": ([_P] * 9 + [_I] * 5 + [_P], _I),
-    "tpt_mt_list_mxu_v1": ([_P] * 8 + [_I] * 5 + [_P], _I),
-    "tpt_mt_cond_mxu_v1": ([_P] * 9 + [_I] * 5 + [_P], _I),
-    "tpt_mxu_smem_bytes": ([_I, _I], ctypes.c_size_t),
-    "tpt_mxu_smem_limit": ([_I, ctypes.POINTER(ctypes.c_size_t)], _I),
     "tpt_mt_stream": ([_P] * 12 + [_I] * 6 + [_P], _I),
     "tpt_mt_stream_shape": ([_I, ctypes.POINTER(_I)], _I),
     "tpt_mt_r2_walk": ([_P] * 8 + [_I] * 3 + [_P], _I),
     "tpt_mt_r2_walk_shape": ([ctypes.POINTER(_I)], _I),
-    "tpt_mt_r2_v1": ([_P] * 8 + [_I] * 4 + [_P], _I),
     "tpt_precull": ([_P] * 5 + [_I] * 3 + [_P], _I),
     "tpt_fat_walk": ([_P] * 9 + [_I] * 4 + [_P], _I),
     "tpt_denoise": ([_P] * 4 + [_I] * 4 + [_F, _P], _I),
-    "tpt_denoise_v1": ([_P] * 3 + [_I] * 3 + [_F, _P], _I),
     "tpt_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -16,10 +16,9 @@
 //
 // What bounds it on the H100.  As in the streamed walk (stream_walk.cu),
 // one tile's walk is a serial chain of decisions and the kernel ends when
-// its heaviest tile does.  The first design (kept as `tpt_mt_cond_v1` in
-// mt_shade.cu, for comparison only) ran one 512-thread block per tile, paid
-// a `__syncthreads_or` of a fresh slab test per ray for every chunk, live or
-// dead, and another for every sub, staged a live chunk with a blocking
+// its heaviest tile does.  One 512-thread block a tile would pay a
+// `__syncthreads_or` of a fresh slab test per ray for every chunk, live or
+// dead, and another for every sub, stage a live chunk with a blocking
 // 20 KB copy, and read 19 coefficients a pair as 4-byte shared broadcasts.
 // This design is the streamed walk without the precull list:
 //   a. one ray a thread against the packed table of 20 floats a triangle

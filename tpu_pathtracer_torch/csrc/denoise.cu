@@ -13,11 +13,8 @@
 // and one expf (85 taps at the default radius), against one read and one
 // write of the image: operations, by some 60x.  With -fmad=false every
 // product and sum issues alone, so an exact kernel tops out at half of the
-// FP32 peak.  The first design (kept as `tpt_denoise_v1`, for comparison
-// only) ran one thread a pixel, gathered each tap's 12-byte pixel (and the
-// second row of a fractional tap) from global memory with two integer wraps
-// a row, and walked a run-time tap loop with a branch on the fraction.
-// This design:
+// FP32 peak.  So the kernel spends as little as it can on addressing and
+// loads:
 //   * each CTA stages its 32 x 32 output tile and a halo of `radius` rows
 //     and columns in shared memory as three planes (structure of arrays);
 //     the wrap is resolved once per staged pixel, so any H and W work,
@@ -37,10 +34,9 @@
 //     checks the table against the compiled offsets before the launch.
 //     Other radii, up to kMaxTaps taps, run the same tiled kernel on the
 //     cached tap table staged in shared memory.
-// The arithmetic is the first design's: sums in tap order with
-// -fmad=false, expf, the same final __fdiv_rn, so the two agree bit for
-// bit; the plain PyTorch version adds in the same order, and expf differs
-// from the host's exp by a few ulp, hence the stated tolerance.
+// The arithmetic: sums in tap order with -fmad=false, expf, a final
+// __fdiv_rn; the plain PyTorch version adds in the same order, and expf
+// differs from the host's exp by a few ulp, hence the stated tolerance.
 
 #include <cuda_runtime.h>
 
@@ -59,55 +55,6 @@ constexpr int kStaticSmem = 48 * 1024;
 __host__ __device__ __forceinline__ int wrap(int i, int n) {
   i %= n;
   return i < 0 ? i + n : i;
-}
-
-// ---------------------------------------------------------------------------
-// The first design, kept only for comparison in chip_smoke.py and the card
-// tests: one thread per pixel, gathers from global memory.
-
-__global__ void denoise_v1_kernel(const float* __restrict__ img,
-                                  float* __restrict__ out,
-                                  const float4* __restrict__ taps, int n_taps,
-                                  int height, int width, float neg_range_scale) {
-  __shared__ float4 s_taps[kMaxTaps];
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  for (int i = tid; i < n_taps; i += blockDim.x * blockDim.y) s_taps[i] = taps[i];
-  __syncthreads();
-
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= width || y >= height) return;
-
-  const float* c = img + (static_cast<size_t>(y) * width + x) * 3;
-  const float c0 = c[0], c1 = c[1], c2 = c[2];
-  float z = 0.f, a0 = 0.f, a1 = 0.f, a2 = 0.f;
-  for (int k = 0; k < n_taps; ++k) {
-    const float4 tap = s_taps[k];
-    const int xx = wrap(x + static_cast<int>(tap.x), width);
-    const int y0 = y + static_cast<int>(tap.y);
-    const float* p = img + (static_cast<size_t>(wrap(y0, height)) * width + xx) * 3;
-    float s0 = p[0], s1 = p[1], s2 = p[2];
-    if (tap.z > 0.f) {
-      const float* q =
-          img + (static_cast<size_t>(wrap(y0 + 1, height)) * width + xx) * 3;
-      s0 = __fadd_rn(s0, __fmul_rn(__fsub_rn(q[0], s0), tap.z));
-      s1 = __fadd_rn(s1, __fmul_rn(__fsub_rn(q[1], s1), tap.z));
-      s2 = __fadd_rn(s2, __fmul_rn(__fsub_rn(q[2], s2), tap.z));
-    }
-    const float d0 = __fsub_rn(s0, c0), d1 = __fsub_rn(s1, c1),
-                d2 = __fsub_rn(s2, c2);
-    const float dist2 = __fadd_rn(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)),
-                                  __fmul_rn(d2, d2));
-    const float delta = __fmul_rn(expf(__fmul_rn(dist2, neg_range_scale)), tap.w);
-    z = __fadd_rn(z, delta);
-    a0 = __fadd_rn(a0, __fmul_rn(delta, s0));
-    a1 = __fadd_rn(a1, __fmul_rn(delta, s1));
-    a2 = __fadd_rn(a2, __fmul_rn(delta, s2));
-  }
-  float* o = out + (static_cast<size_t>(y) * width + x) * 3;
-  o[0] = __fdiv_rn(a0, z);
-  o[1] = __fdiv_rn(a1, z);
-  o[2] = __fdiv_rn(a2, z);
 }
 
 // ---------------------------------------------------------------------------
@@ -371,17 +318,5 @@ extern "C" int tpt_denoise(const float* img, float* out, const float* taps,
   denoise_any_kernel<<<grid, block, smem, stream>>>(img, out, reinterpret_cast<const float4*>(taps),
                                                     n_taps, radius, height, width,
                                                     neg_range_scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int tpt_denoise_v1(const float* img, float* out, const float* taps, int n_taps,
-                              int height, int width, float neg_range_scale,
-                              cudaStream_t stream) {
-  if (n_taps <= 0 || n_taps > kMaxTaps || height <= 0 || width <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 block(32, 8);
-  const dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
-  denoise_v1_kernel<<<grid, block, 0, stream>>>(img, out, reinterpret_cast<const float4*>(taps),
-                                                n_taps, height, width, neg_range_scale);
   return static_cast<int>(cudaGetLastError());
 }

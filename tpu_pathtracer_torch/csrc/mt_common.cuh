@@ -1,6 +1,6 @@
-// Device code shared by the port's Möller–Trumbore kernels (mt_shade.cu,
-// mt_intersect.cu, and through walk.cuh nf_walk.cu, stream_walk.cu,
-// cond_walk.cu and r2_walk.cu), so all of them round identically.
+// Device code shared by the port's Möller–Trumbore walks (through walk.cuh:
+// nf_walk.cu, cond_walk.cu, stream_walk.cu, r2_walk.cu; and mxu_walk.cu),
+// so all of them round identically.
 //
 // Everything here mirrors an elementwise step of the plain PyTorch versions
 // (ops/mt_matmul.py `determinants`, `epilogue`, `nearest`; ops/kernels/
@@ -18,7 +18,6 @@ namespace tpt {
 
 constexpr float kInf = 1e20f;      // raytrace.wgsl:6 (finite sentinel)
 constexpr float kEpsilon = 1e-6f;  // raytrace.wgsl:7
-constexpr int kMaxThreads = 512;   // threads per block; RPT rays each
 
 struct Best {
   float t;
@@ -96,40 +95,6 @@ __device__ __forceinline__ void fold(const Best& near, Best& best) {
     best = near;
 }
 
-// Evaluate one ray (phi[10]) against the staged sub-treelet `rows`
-// ([4][SUB][10], quantity-major inside the sub) whose first triangle is
-// s0, and fold the sub's nearest valid hit into `best` with the
-// lowest-index tie rule.
-template <int SUB>
-__device__ __forceinline__ void eval_sub(const float* __restrict__ rows,
-                                         const float phi[10], int s0,
-                                         Best& best) {
-  Best near{kInf, 0x7fffffff, 0.f, 0.f};  // nearest valid hit in this sub
-#pragma unroll 4
-  for (int i = 0; i < SUB; ++i) {
-    const float* ca = rows + (0 * SUB + i) * 10;
-    const float* cu = rows + (1 * SUB + i) * 10;
-    const float* cv = rows + (2 * SUB + i) * 10;
-    const float* ct = rows + (3 * SUB + i) * 10;
-    // determinants, summed in FEATS order: a (4,5,6), ua/va (4..9), ta (0..3)
-    float a = __fmul_rn(ca[4], phi[4]);
-    a = __fadd_rn(a, __fmul_rn(ca[5], phi[5]));
-    a = __fadd_rn(a, __fmul_rn(ca[6], phi[6]));
-    float ua = __fmul_rn(cu[4], phi[4]);
-    float va = __fmul_rn(cv[4], phi[4]);
-#pragma unroll
-    for (int k = 5; k < 10; ++k) {
-      ua = __fadd_rn(ua, __fmul_rn(cu[k], phi[k]));
-      va = __fadd_rn(va, __fmul_rn(cv[k], phi[k]));
-    }
-    float ta = __fmul_rn(ct[0], phi[0]);
-#pragma unroll
-    for (int k = 1; k < 4; ++k) ta = __fadd_rn(ta, __fmul_rn(ct[k], phi[k]));
-    take_pair(a, ua, va, ta, s0 + i, near);
-  }
-  fold(near, best);
-}
-
 // Load ray `ray` (or, for a lane past the tile, any ray of the tile) from
 // the (10, r_pad) feature matrix and return its initial best.  With `park`
 // (the near-to-far walk) parked lanes (rd = 0), padding lanes
@@ -180,41 +145,6 @@ __device__ __forceinline__ float slab_entry(const float* box,
     tf_all = fminf(tf_all, tf);
   }
   return hit_par && tf_all >= fmaxf(tn_all, 0.f) ? tn_all : kInf;
-}
-
-// Whether any of this thread's rays enters `box` before its current t.
-template <int RPT>
-__device__ __forceinline__ bool any_live(const float* box,
-                                         const float (&phi)[RPT][10],
-                                         const float (&inv)[RPT][3],
-                                         const Best (&best)[RPT],
-                                         const int (&ray)[RPT]) {
-  bool live = false;
-#pragma unroll
-  for (int k = 0; k < RPT; ++k)
-    live |= ray[k] >= 0 && slab_entry(box, phi[k], inv[k]) < best[k].t;
-  return live;
-}
-
-// Block-wide max of `m` (every thread of the block calls it).  `warp_max`
-// holds kMaxThreads / 32 floats of shared memory, `result` one.
-__device__ __forceinline__ float block_max(float m, float* warp_max,
-                                           float* result) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    const int n_warps = (blockDim.x + 31) >> 5;
-    float w = threadIdx.x < n_warps ? warp_max[threadIdx.x] : -CUDART_INF_F;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      w = fmaxf(w, __shfl_xor_sync(0xffffffffu, w, o));
-    if (threadIdx.x == 0) *result = w;
-  }
-  __syncthreads();
-  return *result;
 }
 
 }  // namespace tpt

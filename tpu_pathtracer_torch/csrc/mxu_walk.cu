@@ -16,15 +16,12 @@
 // differ from the plain versions by rounding, so hits are held to them by
 // `mt_shade.hit_agreement` and walk counts to within 1% of tiles.
 //
-// What bounds it on the H100, and the design.  The first design (kept in
-// mt_shade.cu as `tpt_mt_{nf,list,cond}_mxu_v1`, for comparison only) ran
-// one 512-thread block per tile with the tile's best state in shared
-// memory; it held the triangles as the A operand and the rays as B, so
-// each 8-triangle group's A fragments were re-read from shared memory for
-// every 8 rays and each ray's B fragments re-read from global memory and
-// re-split for every sub, and it split the coefficients into hi and lo
-// again at every staging, a blocking copy between two barriers.  This
-// design:
+// What bounds it on the H100, and the design.  With the triangles as the
+// A operand and the rays as B, each 8-triangle group's A fragments would
+// be re-read from shared memory for every 8 rays and each ray's B
+// fragments re-read from global memory and re-split for every sub; a split
+// into hi and lo at every staging would put arithmetic into a blocking
+// copy between two barriers.  This design:
 //   a. rays are the A operand, 16 an m-tile, M m-tiles a warp, split into
 //      hi and lo once and held in registers for the whole walk; a group's
 //      B fragments are loaded once a warp and serve its M m-tiles.  Lane

@@ -15,12 +15,10 @@
 // What bounds it on the H100.  The walk is one serial chain per tile
 // (stage a sub, evaluate it, take the tile's max t), and the kernel ends
 // when its heaviest tile does: the light tiles finish early and the
-// heaviest walks alone on its SM.  A first design ran one 512-thread
-// block per tile, one ray a thread, read 19 coefficients a pair as 4-byte
-// shared broadcasts (shared loads, not arithmetic, set its pace), and
-// staged each sub with a blocking copy between two barriers (the list
-// walk's first design is kept in mt_shade.cu as `tpt_mt_list_v1`, for
-// comparison only).  This design:
+// heaviest walks alone on its SM.  One 512-thread block a tile, one ray
+// a thread, reading 19 coefficients a pair as 4-byte shared broadcasts
+// would be paced by shared loads, not arithmetic, and would stage each sub
+// with a blocking copy between two barriers.  This design:
 //   a. one ray a thread against a packed table of 20 floats a triangle,
 //      read as five 128-bit broadcasts;
 //   b. double-buffered staging: the next listed sub is bulk-copied (TMA,

@@ -199,3 +199,9 @@ extern "C" int tpt_precull(const float* boxes, const float* phi_t, int* counts, 
       boxes, phi_t, ms, r_pad, tile_rays, counts, lists, emins);
   return cudaGetLastError();
 }
+
+// The text of a CUDA error code, for every wrapper's error messages
+// (`_build.error_string`).
+extern "C" const char* tpt_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

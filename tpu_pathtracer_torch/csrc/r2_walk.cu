@@ -23,13 +23,11 @@
 // plain version reproduces both.
 //
 // What bounds it on the H100.  A tile's walk is a serial chain of
-// decisions and the kernel ends when its heaviest tile does.  The first
-// design (kept as `tpt_mt_r2_v1` in mt_intersect.cu, for comparison only)
-// ran one 512-thread block per tile, so a tile that evaluates most of its
-// chunks ran them all on one SM; it paid a `__syncthreads_or` of a fresh
-// slab test for every chunk, dead or live (two for the streamed copy), and
-// read 40 floats a triangle as 4-byte shared broadcasts.  This design is
-// the cond walk (cond_walk.cu) without its sub level:
+// decisions and the kernel ends when its heaviest tile does.  One
+// 512-thread block a tile would run all of a heavy tile's chunks on one
+// SM, pay a `__syncthreads_or` of a fresh slab test for every chunk, dead
+// or live, and read the coefficients as 4-byte shared broadcasts.  This
+// design is the cond walk (cond_walk.cu) without its sub level:
 //   a. the packed table (a 128-triangle chunk is 10 KB), read as five
 //      128-bit broadcasts a triangle;
 //   b. double-buffered staging: the next candidate chunk is bulk-copied
@@ -49,7 +47,7 @@
 //   e. each ray's triangles are split over TPR lanes, combined by
 //      (t, index); each mask bit's slab test and re-tests are made by one
 //      lane of the ray.
-// The copy rule that follows (the plain version's `design="r2_walk"`): an
+// The copy rule that follows (the plain version's walk counts): an
 // evaluated chunk is copied unless it was the prefetch, and after a chunk
 // is taken the lowest chunk of the group still in the mask (as it stood
 // before that chunk's evaluation) is prefetched.

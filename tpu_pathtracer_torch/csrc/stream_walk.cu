@@ -17,11 +17,11 @@
 // What bounds it on the H100.  One tile's walk is a serial chain of
 // decisions, and the kernel ends when its heaviest tile does (on the
 // stress scene one tile evaluates 241 subs where the mean is 4): the
-// light tiles finish early and the heaviest walks alone on its SM.  A
-// first design ran one 512-thread block per tile, one ray a thread, paid
-// a `__syncthreads_or` for each of a walked super's 16 chunk tests and
-// each sub test, staged a live chunk with a blocking 20 KB copy, and read
-// 19 coefficients a pair as 4-byte shared broadcasts.  This design:
+// light tiles finish early and the heaviest walks alone on its SM.  One
+// 512-thread block a tile, one ray a thread, would pay a
+// `__syncthreads_or` for each of a walked super's 16 chunk tests and each
+// sub test, stage a live chunk with a blocking 20 KB copy, and read 19
+// coefficients a pair as 4-byte shared broadcasts.  This design:
 //   a. one ray a thread against a packed table of 20 floats a triangle
 //      (a chunk is 10 KB), read as five 128-bit broadcasts;
 //   b. double-buffered staging: the next candidate chunk is bulk-copied

@@ -6,9 +6,7 @@ Replaces the TPU kernel `_denoise_kernel` of tpu_pathtracer/ops/pallas/denoise.p
 in `smart_denoise.launches`) and runs `smart_denoise_plain`, the port of
 post/denoise.py, for a CPU tensor.  Both read the same tap table; the
 kernel's copy is built once per (sigma, k_sigma, threshold, device)
-(`device_taps`), so a display pays no host rebuild and no copy.  The
-kernel's first design, `tpt_denoise_v1`, is launched only by
-`_denoise_v1`, for comparison.
+(`device_taps`), so a display pays no host rebuild and no copy.
 """
 
 from __future__ import annotations
@@ -53,9 +51,9 @@ def _prepare(img, sigma, k_sigma, threshold):
                                                    float(threshold), img.device)
 
 
-def _launch(name: str, img, out, taps: Taps) -> None:
-    """Launch `tpt_denoise` or `tpt_denoise_v1` on the current stream,
-    reading `img` and writing `out` (both contiguous (H, W, 3) f32)."""
+def _launch(img, out, taps: Taps) -> None:
+    """Launch `tpt_denoise` on the current stream, reading `img` and
+    writing `out` (both contiguous (H, W, 3) f32)."""
     from ... import _build
 
     lib = _build.load()
@@ -63,13 +61,10 @@ def _launch(name: str, img, out, taps: Taps) -> None:
     ptr = [ctypes.c_void_p(x.data_ptr()) for x in (img, out, taps.device)]
     stream = ctypes.c_void_p(torch.cuda.current_stream(img.device).cuda_stream)
     n, scale = taps.host.shape[0], ctypes.c_float(taps.neg_range_scale)
-    if name == "tpt_denoise":
-        err = lib.tpt_denoise(*ptr, ctypes.c_void_p(taps.host.ctypes.data), n, taps.radius, h, w,
-                              scale, stream)
-    else:
-        err = lib.tpt_denoise_v1(*ptr, n, h, w, scale, stream)
+    err = lib.tpt_denoise(*ptr, ctypes.c_void_p(taps.host.ctypes.data), n, taps.radius, h, w,
+                          scale, stream)
     if err:
-        raise RuntimeError(f"{name} launch failed: {_build.error_string(err)}")
+        raise RuntimeError(f"tpt_denoise launch failed: {_build.error_string(err)}")
 
 
 def smart_denoise(img, sigma: float = 5.0, k_sigma: float = 1.0, threshold: float = 0.08):
@@ -80,19 +75,9 @@ def smart_denoise(img, sigma: float = 5.0, k_sigma: float = 1.0, threshold: floa
         raise NotImplementedError(f"no denoise kernel for device {img.device}")
     img, out, taps = _prepare(img, sigma, k_sigma, threshold)
     smart_denoise.launches += 1
-    _launch("tpt_denoise", img, out, taps)
+    _launch(img, out, taps)
     return out
 
 
 smart_denoise.launches = 0
 
-
-def _denoise_v1(img, sigma: float = 5.0, k_sigma: float = 1.0, threshold: float = 0.08):
-    """The kernel's first design (one thread a pixel, gathers from global
-    memory), for comparison with `smart_denoise` on a CUDA tensor; not
-    counted in `smart_denoise.launches`."""
-    if img.device.type != "cuda":
-        raise ValueError(f"tpt_denoise_v1 runs on a CUDA tensor, not on {img.device}")
-    img, out, taps = _prepare(img, sigma, k_sigma, threshold)
-    _launch("tpt_denoise_v1", img, out, taps)
-    return out

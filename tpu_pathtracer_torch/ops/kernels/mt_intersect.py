@@ -13,9 +13,7 @@ On the H100 both launch one Hopper walk (csrc/r2_walk.cu) on the table
 `_pack_walk_table` packs from either layout (20 floats a triangle, in
 triangle order): what split the TPU kernels was VMEM against HBM, and the
 whole 131,072-triangle table fits the H100's L2.  The entries keep their
-own caps, errors and launch counters.  The first design
-(csrc/mt_intersect.cu `tpt_mt_r2_v1`, one 512-thread block a tile on the
-40-float rows) is kept only to compare with, launched by `_walk_cuda_v1`.
+own caps, errors and launch counters.
 
 The contract is the JAX wrappers':
 
@@ -43,7 +41,7 @@ versions for CPU tensors.  The plain versions make the same decisions in
 the same order with the same elementwise arithmetic, vectorised over
 tiles, so kernel and plain version agree bit for bit, and so do their
 per-tile walk counts (`walk_stats`): chunks evaluated, and chunks copied
-under the rule of the design asked for (`design=`, R2_DESIGNS).
+into shared memory.
 """
 
 from __future__ import annotations
@@ -62,9 +60,6 @@ CHUNK_TRIS = 128  # the culling granule
 MT_PALLAS_MAX_TRIS = 8192
 MT_STREAM_MAX_TRIS = 131072
 R2_GROUP = 32  # chunks one decision of the Hopper walk covers (csrc/r2_walk.cu kGroup)
-# The kernels whose copy rule `walk_stats` reproduces: the Hopper walk
-# (csrc/r2_walk.cu), which both entries launch, and the first design.
-R2_DESIGNS = ("r2_walk", "v1")
 _TILES_PER_FOLD = 32  # tiles evaluated together by the plain walk (bounds its memory)
 
 
@@ -249,27 +244,17 @@ def _epilogue_r2(a, ua, va, ta):
     return torch.where(valid, t_raw, torch.full_like(a, float(INF))), ua * f, va * f
 
 
-def _walk_plain(phi_pad, rows, boxes, chunk: int, stream: bool, stats=None,
-                design: str = "r2_walk"):
+def _walk_plain(phi_pad, rows, boxes, chunk: int, stream: bool, stats=None):
     """The kernels' walk in torch ops, vectorised over tiles.  For chunk
     c = 0, 1, ...: every tile in which some lane enters box c before its
     current t evaluates the chunk and keeps its winner where strictly
     nearer.  `stats`, a zeroed (T, 2) int32 tensor, receives each tile's
     walk counts: chunks evaluated, and chunks copied into shared memory by
-    the kernel of `design`:
-
-      * "r2_walk" (csrc/r2_walk.cu, both entries): an evaluated chunk is
-        copied unless it is the chunk prefetched after the tile's previous
-        one; after taking chunk c the walk prefetches the lowest chunk
-        after c in c's group of R2_GROUP that some lane enters before its t
-        as it stands before chunk c, if there is one;
-      * "v1", streamed: chunk c+1 is copied while chunk c is evaluated, if
-        some lane enters box c+1 before its t as it stands before chunk c
-        (t only falls, so no chunk it skips could be evaluated), and chunk
-        0 before the walk if some lane enters it;
-      * "v1", whole scene: exactly the chunks it evaluates."""
-    if design not in R2_DESIGNS:
-        raise ValueError(f"design must be one of {R2_DESIGNS}, not {design!r}")
+    csrc/r2_walk.cu (both entries): an evaluated chunk is copied unless it
+    is the chunk prefetched after the tile's previous one; after taking
+    chunk c the walk prefetches the lowest chunk after c in c's group of
+    R2_GROUP that some lane enters before its t as it stands before chunk
+    c, if there is one."""
     inf = float(INF)
     n_tiles = phi_pad.shape[1] // TILE_RAYS
     n_chunks = boxes.shape[0]
@@ -295,24 +280,12 @@ def _walk_plain(phi_pad, rows, boxes, chunk: int, stream: bool, stats=None,
     def entries(c):  # (T, TR)
         return group(c // R2_GROUP)[:, c % R2_GROUP]
 
-    v1_stream = counting and design == "v1" and stream
-
-    def copied(c):  # the first streamed design's prefetch vote on chunk c
-        stats[:, 1] += (entries(c) < t).any(dim=1).to(torch.int32)
-
     prefetched = torch.full((n_tiles,), -1, dtype=torch.int64, device=phi.device)
-    if v1_stream:
-        copied(0)
     for c in range(n_chunks):
-        live = (entries(c) < t).any(dim=1)
-        if v1_stream and c + 1 < n_chunks:
-            copied(c + 1)
-        tiles = live.nonzero().squeeze(1)
+        tiles = (entries(c) < t).any(dim=1).nonzero().squeeze(1)
         if counting:
             stats[tiles, 0] += 1
-            if design == "v1" and not stream:
-                stats[tiles, 1] += 1
-            elif design == "r2_walk" and tiles.numel():
+            if tiles.numel():
                 took = (prefetched[tiles] != c).to(torch.int32)
                 ahead = group(c // R2_GROUP)[tiles, c % R2_GROUP + 1:]  # (Tl, K, TR)
                 # a zero column first: argmax finds the lowest candidate, 0 none
@@ -345,13 +318,6 @@ def _r2_table(rows, chunk: int, stream: bool):
     return _pack_walk_table(flat, chunk if stream else flat.shape[0] // 4)
 
 
-def _check_stats(what, stats, n_tiles: int, device) -> None:
-    if stats is not None:
-        _check_inputs(what, (stats, torch.int32), device=device)
-        if stats.shape != (n_tiles, 2):
-            raise ValueError(f"{what} kernel: walk stats must be a (T, 2) int32 tensor")
-
-
 def _walk_cuda(phi_pad, rows, boxes, chunk: int, stream: bool, stats=None):
     """Launch the Hopper walk (csrc/r2_walk.cu) on the table `_r2_table`
     packs from `rows`, on the current stream; outputs (R_pad,) x4.
@@ -377,35 +343,13 @@ def _walk_table_cuda(phi_pad, table, boxes, chunk: int, stream: bool, stats=None
         raise ValueError(f"{what} kernel: the table must be `_pack_walk_table`'s (Np, 20) rows "
                          f"of chunks of 8-{CHUNK_TRIS} (16-byte aligned, as the boxes), the rays "
                          f"whole {TILE_RAYS}-ray tiles")
-    _check_stats(what, stats, n_tiles, dev)
+    if stats is not None:
+        _check_inputs(what, (stats, torch.int32), device=dev)
+        if stats.shape != (n_tiles, 2):
+            raise ValueError(f"{what} kernel: walk stats must be a (T, 2) int32 tensor")
     out = _outputs(phi_pad.shape[1], dev)
     err = lib.tpt_mt_r2_walk(*map(_ptr, (phi_pad, table, boxes, *out, stats)), phi_pad.shape[1],
                              n_chunks, chunk, _stream(dev))
-    if err:
-        raise RuntimeError(f"{what} kernel launch failed: {_build.error_string(err)}")
-    return out
-
-
-def _walk_cuda_v1(phi_pad, rows, boxes, chunk: int, stream: bool, stats=None):
-    """Launch the first design (csrc/mt_intersect.cu `tpt_mt_r2_v1`) on
-    `_prepare`'s rows, kept only to compare the Hopper walk with; outputs
-    (R_pad,) x4.  `stats`, if given, a (T, 2) int32 tensor, receives the
-    walk counts."""
-    from ... import _build
-
-    lib = _build.load()
-    dev = phi_pad.device
-    what = "mt_stream_r2_v1" if stream else "mt_pallas_r2_v1"
-    _check_inputs(what, (phi_pad, torch.float32), (rows, torch.float32),
-                  (boxes, torch.float32), device=dev)
-    n_tiles, n_chunks = phi_pad.shape[1] // TILE_RAYS, boxes.shape[0]
-    if rows.numel() != 40 * n_chunks * chunk or rows.data_ptr() % 16 or chunk % 8 \
-            or chunk > CHUNK_TRIS or phi_pad.shape != (10, n_tiles * TILE_RAYS):
-        raise ValueError(f"{what} kernel: coefficient table, boxes or rays do not match")
-    _check_stats(what, stats, n_tiles, dev)
-    out = _outputs(phi_pad.shape[1], dev)
-    err = lib.tpt_mt_r2_v1(*map(_ptr, (phi_pad, rows, boxes, *out, stats)),
-                           phi_pad.shape[1], n_chunks, chunk, int(stream), _stream(dev))
     if err:
         raise RuntimeError(f"{what} kernel launch failed: {_build.error_string(err)}")
     return out
@@ -458,25 +402,18 @@ def mt_intersect_stream(tri_pos, ro, rd) -> Hit:
 mt_intersect_stream.launches = 0
 
 
-def walk_stats(tri_pos, ro, rd, *, stream: bool, plain: bool = False,
-               design: str = "r2_walk"):
-    """Per-tile walk counts of a round-2 kernel on these inputs: (T, 2)
-    int32, [chunks evaluated, chunks copied].  `design` picks the kernel
-    (R2_DESIGNS: the Hopper walk both entries launch, or the first design),
-    `stream` the entry (the first design copies by its own rule for each);
-    with `plain=True` or a CPU tensor, the plain walk under that kernel's
-    copy rule.  Kernel and plain walk must agree on them exactly; chunks
-    evaluated are the same under every design.  Tiles are independent, so
-    the rays of whole tiles (a multiple of TILE_RAYS from a tile boundary)
-    give those tiles' counts.  Launches made here are not counted."""
-    if design not in R2_DESIGNS:
-        raise ValueError(f"design must be one of {R2_DESIGNS}, not {design!r}")
+def walk_stats(tri_pos, ro, rd, *, stream: bool, plain: bool = False):
+    """Per-tile walk counts of a round-2 entry (`stream`) on these inputs:
+    (T, 2) int32, [chunks evaluated, chunks copied]; with `plain=True` or a
+    CPU tensor, of the plain walk.  Kernel and plain walk must agree on them
+    exactly.  Tiles are independent, so the rays of whole tiles (a multiple
+    of TILE_RAYS from a tile boundary) give those tiles' counts.  Launches
+    made here are not counted."""
     phi_pad, rows, boxes, chunk = _prepare(tri_pos, ro, rd, stream)
     stats = torch.zeros((phi_pad.shape[1] // TILE_RAYS, 2), dtype=torch.int32,
                         device=ro.device)
     if plain or not _launches_kernel(ro):
-        _walk_plain(phi_pad, rows, boxes, chunk, stream, stats=stats, design=design)
+        _walk_plain(phi_pad, rows, boxes, chunk, stream, stats=stats)
     else:
-        walk = _walk_cuda if design == "r2_walk" else _walk_cuda_v1
-        walk(phi_pad, rows, boxes, chunk, stream, stats=stats)
+        _walk_cuda(phi_pad, rows, boxes, chunk, stream, stats=stats)
     return stats

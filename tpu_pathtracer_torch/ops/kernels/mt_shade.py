@@ -43,10 +43,7 @@ same elementwise arithmetic, so kernel and plain version agree bit for bit.
 The kernels are the Hopper walks of csrc/nf_walk.cu ('nf' and 'list')
 and csrc/cond_walk.cu ('cond'), which read their own coefficient table
 (`_pack_walk_table`: 20 floats a triangle) and write per-tile walk counts
-on request (`nf_walk_stats`, `cond_walk_stats`).  The first designs of
-'list' and 'cond' stay in csrc/mt_shade.cu as `tpt_mt_list_v1` and
-`tpt_mt_cond_v1`, launched only by `_walk_list_cuda_v1` and
-`_walk_cond_cuda_v1`, for comparison.
+on request (`nf_walk_stats`, `cond_walk_stats`).
 
 The MXU variants (`mt_intersect_{nf,list,cond}_mxu_phi`, kernel #5) walk
 the same way.  Their plain versions take each sub-treelet's determinants
@@ -57,9 +54,7 @@ lo halves in the `mma.sync` fragment order (`_pack_mxu_table`).  The two
 sum in different orders, so they agree to float32 rounding, not bit for
 bit: `hit_agreement` counts the lanes that differ and checks that each is
 a near-tie, lies on a triangle's edge or is decided by the EPSILON test's
-rounding.  Their first designs stay in csrc/mt_shade.cu as
-`tpt_mt_{nf,list,cond}_mxu_v1` on the `_pack_mma` table, launched only by
-`_walk_mxu_cuda_v1`, for comparison.
+rounding.
 """
 
 from __future__ import annotations
@@ -236,37 +231,6 @@ def _pack_subblock_major(cols, sub: int):
     return qs.reshape(4, n // sub, sub, 10).permute(1, 0, 2, 3).reshape(4 * n, 10).contiguous()
 
 
-@functools.lru_cache(maxsize=16)
-def _mma_index(n: int, sub: int, device: torch.device):
-    """Where each value of the `mma.sync` fragment table of Np = n triangles
-    at `sub` comes from, as flat indices into the sub-block-major rows padded
-    to 16 features; built once per shape and device.  For register j (16)
-    of lane l (32) of 8-triangle group G: quantity q, triangle 8G + l // 4
-    and feature k.  The first m16n8k8 tile holds a (rows 0-7) and ua (rows
-    8-15) of the group's triangles, the second va and ta, so the C fragment
-    of lane l holds all four of triangle l // 4; register j is A register
-    j % 4 of k-step (j // 4) % 2 of tile j // 8, row l // 4 + 8 * (j % 2),
-    column l % 4 + 4 * ((j // 2) % 2)."""
-    j = torch.arange(16)[:, None]
-    lane = torch.arange(32)[None, :]
-    q = 2 * (j // 8) + j % 2
-    k = lane % 4 + 4 * ((j // 2) % 2) + 8 * ((j // 4) % 2)
-    tri = torch.arange(0, n, 8)[:, None, None] + lane // 4  # (Np/8, 1, 32)
-    row = tri // sub * 4 * sub + q * sub + tri % sub  # (Np/8, 16, 32)
-    return (row * 16 + k).reshape(-1).to(device)
-
-
-def _pack_mma(cols_rows, sub: int):
-    """(4*Np, 10) sub-block-major rows -> the MXU kernels' (4*Np, 16) table:
-    per 8-triangle group, in triangle order, 16 registers x 32 lanes of the
-    tf32 `mma.sync` A fragments (`_mma_index`), features padded to 16 with
-    zeros.  A sub-treelet is a contiguous block of sub/8 groups."""
-    n = cols_rows.shape[0] // 4
-    padded = torch.nn.functional.pad(cols_rows, (0, 6)).reshape(-1)
-    return padded[_mma_index(n, sub, cols_rows.device)].reshape(4 * n, 16)
-
-
-# The Hopper walks' coefficient table (csrc/walk.cuh): per triangle, the
 def _tf32(x):
     """x rounded to TF32 as `cvt.rna.tf32.f32` rounds it: to nearest, ties
     away from zero, keeping 10 mantissa bits; the low 13 bits zero.  The
@@ -541,30 +505,6 @@ def _walk_cond_plain(phi_pad, cols_rows, chunk_boxes, sub_boxes, tile_rays: int,
     return tuple(x.reshape(-1) for x in best)
 
 
-@functools.cache
-def _mxu_smem_limit(lib, device_index: int) -> int:
-    """The most dynamic shared memory one first-design MXU block may take on
-    this card."""
-    limit = ctypes.c_size_t()
-    err = lib.tpt_mxu_smem_limit(device_index, ctypes.byref(limit))
-    if err:
-        raise RuntimeError(f"reading the shared-memory limit failed: {err}")
-    return limit.value
-
-
-def _check_mxu_shape(what: str, lib, table, tile_rays: int, sub: int) -> None:
-    """The first-design MXU kernels' table layout, and their shared memory
-    (the tile's best state and one staged sub-treelet's fragments, sized by
-    csrc/mt_shade.cu) within the card's limit."""
-    if table.shape[1] != 16 or table.data_ptr() % 16:
-        raise ValueError(f"{what} kernel: the table must be `_pack_mma`'s (4*Np, 16) rows")
-    need = lib.tpt_mxu_smem_bytes(sub, tile_rays)
-    limit = _mxu_smem_limit(lib, table.device.index or 0)
-    if need > limit:
-        raise ValueError(f"{what} kernel: a {tile_rays}-ray tile at sub {sub} needs {need} bytes "
-                         f"of shared memory, above the card's {limit}")
-
-
 # Floats a triangle of each Hopper walk's table: `_pack_walk_table`'s or
 # `_pack_mxu_table`'s.
 _TABLE_FLOATS = {**{f"mt_{cull}": WALK_TABLE_FLOATS for cull in CULL_MODES},
@@ -663,39 +603,6 @@ def _walk_list_cuda(phi_pad, cols_rows, counts, lists, tile_rays: int, mxu: bool
     return _list_launch("mt_list", phi_pad, table, counts, lists, None, tile_rays, stats)
 
 
-def _walk_list_cuda_v1(phi_pad, cols_rows, counts, lists, tile_rays: int):
-    """Launch the first design of the 'list' walk (csrc/mt_shade.cu
-    `tpt_mt_list_v1`, on the sub-block-major rows), kept only to compare
-    its redesign with; outputs (R_pad,) x4."""
-    if cols_rows.shape[1:] != (10,):
-        raise ValueError("mt_list_v1 kernel: the table must be `_pad_scene`'s (4*Np, 10) rows")
-    return _rows_launch("mt_list_v1", phi_pad, cols_rows, counts, lists, None, tile_rays)
-
-
-def _rows_launch(what, phi_pad, rows, counts, lists, emins, tile_rays: int):
-    """Launch `tpt_<what>`, a first-design walk of csrc/mt_shade.cu over
-    the per-tile lists ('nf' reads `emins`; 'list' is given None);
-    outputs (R_pad,) x4."""
-    from ... import _build
-
-    lib = _build.load()
-    dev = phi_pad.device
-    n_tiles, ms = lists.shape
-    bounded = (emins,) if emins is not None else ()
-    _check_inputs(what, (phi_pad, torch.float32), (rows, torch.float32), (counts, torch.int32),
-                  (lists, torch.int32), *((x, torch.float32) for x in bounded), device=dev)
-    sub = rows.shape[0] // (4 * ms)
-    if what.endswith("_mxu_v1"):
-        _check_mxu_shape(what, lib, rows, tile_rays, sub)
-    out = _outputs(phi_pad.shape[1], dev)
-    err = getattr(lib, f"tpt_{what}")(
-        *map(_ptr, (phi_pad, rows, counts, lists, *bounded, *out)),
-        phi_pad.shape[1], tile_rays, n_tiles, ms, sub, _stream(dev))
-    if err:
-        raise RuntimeError(f"{what} kernel launch failed: {_build.error_string(err)}")
-    return out
-
-
 def _walk_cond_cuda(phi_pad, cols_rows, chunk_boxes, sub_boxes, tile_rays: int, stats=None,
                     mxu: bool = False):
     """Launch the 'cond' kernel (csrc/cond_walk.cu, on the table
@@ -705,7 +612,7 @@ def _walk_cond_cuda(phi_pad, cols_rows, chunk_boxes, sub_boxes, tile_rays: int, 
     int32 tensor, receives the walk counts."""
     if mxu:
         _check_table("mt_cond_mxu", cols_rows, tile_rays)
-        return _cond_launch("mt_cond_mxu", 1, phi_pad, cols_rows, chunk_boxes, sub_boxes,
+        return _cond_launch("mt_cond_mxu", phi_pad, cols_rows, chunk_boxes, sub_boxes,
                             tile_rays, stats)
     sub = CHUNK_TRIS * chunk_boxes.shape[0] // sub_boxes.shape[0]
     with spans.span("walk.prep"):
@@ -718,25 +625,14 @@ def _walk_cond_table_cuda(phi_pad, table, chunk_boxes, sub_boxes, tile_rays: int
     table; outputs (R_pad,) x4.  `stats`, if given, a (T, 2) int32 tensor,
     receives the walk counts."""
     _check_table("mt_cond", table, tile_rays)
-    return _cond_launch("mt_cond", 1, phi_pad, table, chunk_boxes, sub_boxes, tile_rays, stats)
-
-
-def _walk_cond_cuda_v1(phi_pad, cols_rows, chunk_boxes, sub_boxes, tile_rays: int, stats=None):
-    """Launch the first design of the 'cond' walk (csrc/mt_shade.cu
-    `tpt_mt_cond_v1`, on the sub-block-major rows), kept only to compare
-    its redesign with; outputs (R_pad,) x4."""
-    if cols_rows.shape[1:] != (10,):
-        raise ValueError("mt_cond_v1 kernel: the table must be `_pad_scene`'s (4*Np, 10) rows")
-    return _cond_launch("mt_cond_v1", 4, phi_pad, cols_rows, chunk_boxes, sub_boxes, tile_rays,
-                        stats)
+    return _cond_launch("mt_cond", phi_pad, table, chunk_boxes, sub_boxes, tile_rays, stats)
 
 
 @spans.spanned("walk.launch")
-def _cond_launch(what, rows_a_tri: int, phi_pad, table, chunk_boxes, sub_boxes, tile_rays: int,
-                 stats=None):
+def _cond_launch(what, phi_pad, table, chunk_boxes, sub_boxes, tile_rays: int, stats=None):
     """Launch `tpt_<what>`, a 'cond' walk over `table`, whose row width
-    the caller has checked and which holds `rows_a_tri` rows a triangle;
-    outputs (R_pad,) x4.  `stats`, if given, a (T, 2) int32 tensor,
+    the caller has checked and which holds one row a triangle; outputs
+    (R_pad,) x4.  `stats`, if given, a (T, 2) int32 tensor,
     receives the walk counts."""
     from ... import _build
 
@@ -745,7 +641,7 @@ def _cond_launch(what, rows_a_tri: int, phi_pad, table, chunk_boxes, sub_boxes, 
     n_chunks, n_subs = chunk_boxes.shape[0], sub_boxes.shape[0]
     _check_inputs(what, (phi_pad, torch.float32), (table, torch.float32),
                   (chunk_boxes, torch.float32), (sub_boxes, torch.float32), device=dev)
-    if (table.shape[0] != rows_a_tri * n_chunks * CHUNK_TRIS
+    if (table.shape[0] != n_chunks * CHUNK_TRIS
             or table.data_ptr() % 16 or n_subs % n_chunks):
         raise ValueError(f"{what} kernel: coefficient table and boxes do not match")
     if stats is not None:
@@ -762,34 +658,12 @@ def _cond_launch(what, rows_a_tri: int, phi_pad, table, chunk_boxes, sub_boxes, 
     return out
 
 
-def _walk_mxu_cuda_v1(cull: str, phi_pad, table, *rest, stats=None):
-    """Launch the first design of the MXU `cull` walk (csrc/mt_shade.cu
-    `tpt_mt_<cull>_mxu_v1`) on `_pack_mma`'s table, kept only to compare
-    its redesign with.  `rest` is what follows the table in the prepared
-    inputs of `cull` (`_prepare`, `_prepare_list`, `_prepare_cond`), the
-    tile width last; outputs (R_pad,) x4.  `stats` (a (T, 2) int32 tensor)
-    only for cond."""
-    *rest, tile_rays = rest
-    what = f"mt_{cull}_mxu_v1"
-    if cull == "cond":
-        from ... import _build
-
-        sub = CHUNK_TRIS * rest[0].shape[0] // rest[1].shape[0]
-        _check_mxu_shape(what, _build.load(), table, tile_rays, sub)
-        return _cond_launch(what, 4, phi_pad, table, *rest, tile_rays, stats)
-    if stats is not None:
-        raise ValueError(f"{what} kernel: no walk counts")
-    counts, lists, *emins = rest
-    return _rows_launch(what, phi_pad, table, counts, lists, emins[0] if emins else None,
-                        tile_rays)
-
-
-def _mma_prepare(prepare, pack=None):
+def _mma_prepare(prepare):
     """`prepare` with the coefficient table repacked for the MXU kernels
-    (`_pack_mxu_table`; `pack`, e.g. `_pack_mma` for the first designs)."""
+    (`_pack_mxu_table`)."""
     def prep(tri_pos, phi_t, tile_rays, sub: int = SUB_TRIS):
         phi_pad, cols_rows, *rest = prepare(tri_pos, phi_t, tile_rays, sub)
-        return (phi_pad, (pack or _pack_mxu_table)(cols_rows, sub), *rest)
+        return (phi_pad, _pack_mxu_table(cols_rows, sub), *rest)
 
     return prep
 
